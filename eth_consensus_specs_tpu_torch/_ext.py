@@ -1,0 +1,155 @@
+"""Build, load and launch the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes``. The
+libraries are built on first use on a CUDA tensor, all sources at once in
+parallel, into ``_build/`` beside this file (git-ignored), under a name
+that carries a digest of the sources, so an edited kernel is never served
+by a stale library. A failed build or launch raises; nothing falls back to
+the plain torch versions.
+
+Every C entry point takes its device pointers, sizes and the CUDA stream,
+launches on that stream without synchronising, and returns
+``cudaGetLastError()``; ``launch`` raises on a non-zero code. ``launch``
+also counts launches per kernel, so a run can show which kernels it went
+through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch")
+NVCC_FLAGS = (
+    "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
+)
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# C entry points: argument types before the trailing stream pointer
+SIGNATURES = {
+    "sha256": {"sha256_pairs_launch": [_P, _P, _I64]},
+    "merkle": {"merkle_reduce_launch": [_P, _P, _I64, _I32]},
+    "validator_leaves": {"validator_leaves_launch": [_P, _P, _P, _P, _P, _I64]},
+    "altair_epoch": {"epoch_sums_launch": [_P], "epoch_apply_launch": [_P]},
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+build_report: dict[str, dict] = {}
+launches: Counter = Counter()
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def build() -> dict:
+    """Compile every kernel source not yet built, one ``nvcc`` each, all
+    started together. Returns ``build_report``: per kernel the seconds its
+    compile took and ``nvcc``'s register/shared-memory report. Raises
+    ``RuntimeError`` with the compiler's output if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in KERNELS:
+        out = _lib_path(name)
+        if out.exists():
+            build_report.setdefault(name, {"seconds": 0.0, "cached": True, "ptxas": ""})
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+        build_report[name] = {
+            "seconds": time.perf_counter() - t0, "cached": False,
+            "ptxas": "\n".join(l for l in log.splitlines() if "ptxas" in l),
+        }
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return build_report
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building every kernel first
+    if this one is not built yet."""
+    if name not in _libs:
+        path = _lib_path(name)
+        if not path.exists():
+            build()
+        so = ctypes.CDLL(str(path))
+        so.kernel_error_string.argtypes = [ctypes.c_int]
+        so.kernel_error_string.restype = ctypes.c_char_p
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(so, fn).argtypes = [*argtypes, _P]
+            getattr(so, fn).restype = ctypes.c_int
+        _libs[name] = so
+    return _libs[name]
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
+    """Call C entry point ``fn`` of library ``kernel`` on ``device``'s
+    current stream (the stream is appended to ``args``) and count one
+    launch of ``kernel``. Raises ``RuntimeError`` if the launch failed."""
+    so = lib(kernel)
+    with torch.cuda.device(device):
+        code = getattr(so, fn)(*args, stream(device))
+    if code != 0:
+        raise RuntimeError(
+            f"{kernel}.{fn} launch failed: {so.kernel_error_string(code).decode()}"
+        )
+    launches[kernel] += 1
+
+
+def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape: tuple | None = None) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous CUDA tensor of
+    ``dtype`` (and ``shape``, where given)."""
+    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"expected a contiguous CUDA {dtype} tensor, got {t.dtype} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (not contiguous)'}"
+        )
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"expected shape {tuple(shape)}, got {tuple(t.shape)}")

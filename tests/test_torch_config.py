@@ -1,0 +1,38 @@
+"""The port's own copy of the slice's constants (eth_consensus_specs_tpu_torch/config.py)
+equals what the JAX package reads from its presets and spec classes."""
+
+import dataclasses
+
+import pytest
+
+from eth_consensus_specs_tpu.forks import get_spec
+from eth_consensus_specs_tpu.ops.altair_epoch import AltairEpochParams
+from eth_consensus_specs_tpu_torch import config
+
+
+@pytest.mark.parametrize("preset", ["mainnet", "minimal"])
+@pytest.mark.parametrize("fork", ["deneb", "electra"])
+def test_epoch_params_match_spec(fork, preset):
+    want = dataclasses.asdict(AltairEpochParams.from_spec(get_spec(fork, preset)))
+    assert dataclasses.asdict(config.epoch_params(fork, preset)) == want
+
+
+@pytest.mark.parametrize("fork", ["deneb", "electra"])
+def test_state_fields_match_spec(fork):
+    fields = list(get_spec(fork, "mainnet").BeaconState.fields())
+    assert list(config.state_fields(fork)) == fields
+    assert config.top_depth(fork) == max(len(fields) - 1, 0).bit_length()
+
+
+def test_field_counts():
+    assert len(config.state_fields("deneb")) == 28 and config.top_depth("deneb") == 5
+    assert len(config.state_fields("electra")) == 37 and config.top_depth("electra") == 6
+
+
+def test_unknown_fork_or_preset_raises():
+    with pytest.raises(ValueError):
+        config.epoch_params("phase0", "mainnet")
+    with pytest.raises(ValueError):
+        config.epoch_params("deneb", "gnosis")
+    with pytest.raises(ValueError):
+        config.state_fields("capella")
