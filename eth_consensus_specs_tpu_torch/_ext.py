@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch")
+KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -40,8 +40,16 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     "sha256": {"sha256_pairs_launch": [_P, _P, _I64]},
     "merkle": {"merkle_reduce_launch": [_P, _P, _I64, _I32]},
-    "validator_leaves": {"validator_leaves_launch": [_P, _P, _P, _P, _P, _I64]},
+    "validator_leaves": {
+        "validator_leaves_launch": [_P, _P, _P, _P, _P, _I64, _P, _I32],
+        "validator_leaves_at_launch": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
+    },
     "altair_epoch": {"epoch_sums_launch": [_P], "epoch_apply_launch": [_P]},
+    "merkle_levels": {"merkle_levels_launch": [_P, _I64, _I32, _I32, _I32, _P, _I32]},
+    "merkle_inc": {
+        "merkle_dirty_launch": [_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P, _I32],
+        "merkle_path_update_launch": [_P, _I32, _P, _I32, _P, _P, _I32],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -121,18 +129,20 @@ def lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """The device address of ``t``; a null pointer for ``None``."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
+def launch(kernel: str, fn: str, device: torch.device, *args, counter: str | None = None) -> None:
     """Call C entry point ``fn`` of library ``kernel`` on ``device``'s
     current stream (the stream is appended to ``args``) and count one
-    launch of ``kernel``. Raises ``RuntimeError`` if the launch failed."""
+    launch of ``kernel`` (or of ``counter``, for a second kernel that shares
+    a library). Raises ``RuntimeError`` if the launch failed."""
     so = lib(kernel)
     with torch.cuda.device(device):
         code = getattr(so, fn)(*args, stream(device))
@@ -140,7 +150,7 @@ def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"{kernel}.{fn} launch failed: {so.kernel_error_string(code).decode()}"
         )
-    launches[kernel] += 1
+    launches[counter or kernel] += 1
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape: tuple | None = None) -> None:

@@ -5,10 +5,16 @@ Values are those of the consensus-spec presets and configs
 package's ``AltairEpochParams.from_spec(get_spec(fork, preset))`` reads
 them, and the ``BeaconState`` field order of each fork. The tests hold
 every entry here against the JAX package's spec objects.
+
+It also keeps the incremental forest's dirty-capacity buckets and the
+sparse/dense crossover model of ``serve/buckets.py`` (:118-169), with the
+same environment reads, so the port plans the same forest as the JAX
+package.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 FAR_FUTURE_EPOCH = (1 << 64) - 1
@@ -104,3 +110,70 @@ def state_fields(fork: str) -> tuple:
 def top_depth(fork: str) -> int:
     """Depth of the ``BeaconState`` container tree (28 fields -> 5, 37 -> 6)."""
     return max(len(state_fields(fork)) - 1, 0).bit_length()
+
+
+# ------------------------------------------- incremental dirty buckets --
+#
+# The incremental forest (ops/merkle_inc.py) plans one dirty capacity per
+# tree from a small pow2 set; the live dirty count is data, and past the
+# crossover below an update rebuilds the tree densely instead of re-hashing
+# dirty paths.
+
+_INC_DIRTY_BUCKETS = (8, 64, 256, 1024, 4096, 16384, 65536)
+# Work-ratio factor of the sparse/dense crossover: a sparse update costs
+# about (depth + leaf_hashes + 1) compressions per dirty leaf, a dense
+# rebuild 2^(depth+1); the path update keeps its advantage to about a
+# quarter of break-even.
+INC_CROSSOVER = 0.25
+
+
+def pow2_bucket(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def batch_bucket(n: int, buckets: tuple[int, ...]) -> int:
+    """Smallest bucket that holds n items; the largest caps it."""
+    for b in buckets:
+        if b >= n:
+            return b
+    return buckets[-1]
+
+
+def inc_dirty_buckets() -> tuple[int, ...]:
+    """The pow2 dirty-capacity buckets, ``ETH_SPECS_INC_DIRTY_BUCKETS``
+    (comma-separated) when set and valid."""
+    raw = os.environ.get("ETH_SPECS_INC_DIRTY_BUCKETS", "")
+    if not raw:
+        return _INC_DIRTY_BUCKETS
+    try:
+        vals = sorted({pow2_bucket(int(x)) for x in raw.split(",") if x.strip()})
+    except ValueError:
+        return _INC_DIRTY_BUCKETS
+    return tuple(v for v in vals if v > 0) or _INC_DIRTY_BUCKETS
+
+
+def inc_dirty_bucket(n_dirty: int) -> int:
+    """Smallest dirty-capacity bucket holding ``n_dirty`` (the largest
+    bucket caps it: past that the dense rebuild is the plan)."""
+    return batch_bucket(max(int(n_dirty), 1), inc_dirty_buckets())
+
+
+def inc_crossover() -> float:
+    """Sparse/dense crossover factor, ``ETH_SPECS_INC_CROSSOVER`` when set
+    and valid."""
+    raw = os.environ.get("ETH_SPECS_INC_CROSSOVER", "")
+    try:
+        return float(raw) if raw else INC_CROSSOVER
+    except ValueError:
+        return INC_CROSSOVER
+
+
+def inc_dense_count(depth: int, cap: int, leaf_hashes: int = 0) -> int:
+    """Dirty count above which one dense rebuild of a depth-``depth`` tree
+    beats the path update: break-even of 2^(depth+1) dense compressions
+    against (depth + leaf_hashes + 1) per dirty leaf, scaled by
+    ``inc_crossover()`` and capped at the capacity ``cap``."""
+    dense_hashes = 2 << depth
+    per_dirty = depth + leaf_hashes + 1
+    return min(int(cap), max(1, int(inc_crossover() * dense_hashes / per_dirty)))

@@ -1,10 +1,11 @@
 """Carry inputs across from the JAX package's layout, and results back.
 
-The JAX package's columns, justification state and static state-root
-content are NamedTuples of arrays; these functions read them by attribute
-name as numpy arrays (no JAX import) and make the port's tensors on an
-explicit device. ``to_numpy`` turns the port's results back into numpy
-with the unsigned dtypes the JAX package uses, for comparing the two.
+The JAX package's columns, justification state, static state-root
+content and incremental forest are NamedTuples of arrays; these functions
+read them by attribute name as numpy arrays (no JAX import) and make the
+port's tensors on an explicit device. ``to_numpy`` turns the port's results
+back into numpy with the unsigned dtypes the JAX package uses, for
+comparing the two and for writing checkpoints in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from .ops.altair_epoch import AltairEpochColumns
 from .ops.state_columns import JustificationState
-from .ops.state_root import StateRootMeta, arrays_from_host
+from .ops.state_root import ForestPlan, StateForest, StateRootMeta, arrays_from_host
 
 _SIGNED = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
 _UNSIGNED = {torch.int64: np.uint64, torch.int32: np.uint32}
@@ -63,13 +64,26 @@ def static_from_numpy(arrays, meta, device):
     return port_arrays, port_meta
 
 
+def forest_from_numpy(forest, device) -> StateForest:
+    """The port's StateForest from the JAX package's (u32 node buffers
+    become int32 carriers with the same bits)."""
+    return _convert(StateForest, forest, device)
+
+
+def plan_from_numpy(plan) -> ForestPlan:
+    """The port's ForestPlan from the JAX package's (or from a manifest's
+    list), as plain Python ints and a bool."""
+    return ForestPlan(*(bool(v) if isinstance(v, (bool, np.bool_)) else int(v) for v in plan))
+
+
 def to_numpy(x):
     """Tensor (or tuple / NamedTuple of them, recursively) -> numpy, int64
-    and int32 carriers viewed back as uint64 and uint32."""
-    if x is None:
-        return None
+    and int32 carriers viewed back as uint64 and uint32; other leaves (None,
+    Python numbers) as they are."""
     if isinstance(x, torch.Tensor):
         a = x.detach().cpu().numpy()
         return a.view(_UNSIGNED[x.dtype]) if x.dtype in _UNSIGNED else a
+    if not isinstance(x, (tuple, list)):
+        return x
     items = (to_numpy(t) for t in x)
     return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)

@@ -9,6 +9,18 @@
 // One thread per validator, three pair hashes (six compressions) with
 // every intermediate in registers; reads 104 B and writes the 32-byte leaf
 // that K2 then reduces. Integer-ALU bound.
+//
+// Two entries:
+// - validator_leaves_launch: every validator, rows 0..n-1 of `out` (the
+//   full registry, or the leaf rows of the incremental forest's validator
+//   tree). With gate_count set it returns at once unless
+//   *gate_count > gate_dense: the dense branch of the incremental update.
+// - validator_leaves_at_launch: the chain at a gathered index list, as the
+//   incremental path's _validator_leaf_fn (state_root.py:721) runs it on the
+//   dirty rows; an index outside [0, n) gives the SSZ zero chunk (the
+//   padding of the leaf level). With count set, only rows j < *count are
+//   written, and with dense >= 0 nothing when *count > dense: the sparse
+//   branch of the incremental update.
 #include "common.cuh"
 #include "sha256.cuh"
 
@@ -21,15 +33,20 @@ __device__ __forceinline__ void load8(const uint32_t* p, uint32_t v[8]) {
   v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
 }
 
-__global__ void validator_leaves_kernel(const uint64_t* __restrict__ eff,
-                                        const uint32_t* __restrict__ slashed,
-                                        const uint32_t* __restrict__ node_a,
-                                        const uint32_t* __restrict__ node_f,
-                                        uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__device__ __forceinline__ void store8(uint32_t* p, const uint32_t v[8]) {
+  uint4* dst = reinterpret_cast<uint4*>(p);
+  dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
+  dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
+}
+
+// node = H(H(A_i, H(eb_chunk(eff_i), slashed_i)), F_i)
+__device__ __forceinline__ void validator_root(const uint64_t* __restrict__ eff,
+                                               const uint32_t* __restrict__ slashed,
+                                               const uint32_t* __restrict__ node_a,
+                                               const uint32_t* __restrict__ node_f, int64_t i,
+                                               uint32_t node[8]) {
   const uint64_t e = eff[i];
-  uint32_t w[16], node[8], other[8];
+  uint32_t w[16], other[8];
   w[0] = bswap32(static_cast<uint32_t>(e));
   w[1] = bswap32(static_cast<uint32_t>(e >> 32));
 #pragma unroll
@@ -40,13 +57,46 @@ __global__ void validator_leaves_kernel(const uint64_t* __restrict__ eff,
   sha256_hash_pair(other, node, node);  // E = H(A, B)
   load8(node_f + i * 8, other);
   sha256_hash_pair(node, other, node);  // root = H(E, F)
-  uint4* dst = reinterpret_cast<uint4*>(out + i * 8);
-  dst[0] = make_uint4(node[0], node[1], node[2], node[3]);
-  dst[1] = make_uint4(node[4], node[5], node[6], node[7]);
+}
+
+__global__ void validator_leaves_kernel(const uint64_t* __restrict__ eff,
+                                        const uint32_t* __restrict__ slashed,
+                                        const uint32_t* __restrict__ node_a,
+                                        const uint32_t* __restrict__ node_f,
+                                        uint32_t* __restrict__ out, int64_t n,
+                                        const int* __restrict__ gate_count, int gate_dense) {
+  if (gate_count != nullptr && *gate_count <= gate_dense) return;
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t node[8];
+  validator_root(eff, slashed, node_a, node_f, i, node);
+  store8(out + i * 8, node);
+}
+
+__global__ void validator_leaves_at_kernel(const uint64_t* __restrict__ eff,
+                                           const uint32_t* __restrict__ slashed,
+                                           const uint32_t* __restrict__ node_a,
+                                           const uint32_t* __restrict__ node_f,
+                                           const int* __restrict__ idx,
+                                           const int* __restrict__ count, int dense, int64_t n,
+                                           int cap, uint32_t* __restrict__ out) {
+  int live = cap;
+  if (count != nullptr) {
+    live = *count;
+    if (dense >= 0 && live > dense) return;  // the dense branch's turn
+    live = live < cap ? live : cap;
+  }
+  const int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (j >= live) return;
+  const int64_t i = idx[j];
+  uint32_t node[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (i >= 0 && i < n) validator_root(eff, slashed, node_a, node_f, i, node);
+  store8(out + j * 8, node);
 }
 
 extern "C" int validator_leaves_launch(const void* eff, const void* slashed, const void* node_a,
                                        const void* node_f, void* out, int64_t n,
+                                       const void* gate_count, int gate_dense,
                                        cudaStream_t stream) {
   if (n > 0) {
     const int threads = 128;
@@ -54,7 +104,23 @@ extern "C" int validator_leaves_launch(const void* eff, const void* slashed, con
     validator_leaves_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
         static_cast<const uint64_t*>(eff), static_cast<const uint32_t*>(slashed),
         static_cast<const uint32_t*>(node_a), static_cast<const uint32_t*>(node_f),
-        static_cast<uint32_t*>(out), n);
+        static_cast<uint32_t*>(out), n, static_cast<const int*>(gate_count), gate_dense);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: cap x 8 words; rows j >= min(*count, cap) are left as they are.
+extern "C" int validator_leaves_at_launch(const void* eff, const void* slashed,
+                                          const void* node_a, const void* node_f,
+                                          const void* idx, const void* count, int dense,
+                                          int64_t n, int cap, void* out, cudaStream_t stream) {
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 128;
+  const int blocks = (cap + threads - 1) / threads;
+  validator_leaves_at_kernel<<<blocks, threads, 0, stream>>>(
+      static_cast<const uint64_t*>(eff), static_cast<const uint32_t*>(slashed),
+      static_cast<const uint32_t*>(node_a), static_cast<const uint32_t*>(node_f),
+      static_cast<const int*>(idx), static_cast<const int*>(count), dense, n, cap,
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

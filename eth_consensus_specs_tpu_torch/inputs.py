@@ -150,3 +150,13 @@ def altair_corner_inputs(case: str, n_validators: int, electra: bool = False, de
             inactivity_scores=torch.where(idx % 3 == 0, u64(1 << 40), cols.inactivity_scores),
         ), just._replace(slashings_sum=u64(1 << 62))
     raise ValueError(f"unknown corner {case!r}; expected one of {ALTAIR_CORNERS}")
+
+
+def lower_balances(cols: AltairEpochColumns, every: int = 256, gwei: int = 2_000_000_000):
+    """``cols`` with the balance of every ``every``-th validator lowered by
+    ``gwei``: 2 ETH takes each of them below its effective balance by more
+    than the downward hysteresis threshold, so the next epoch's effective
+    balance update crosses at all of them (a registry after mass slashings
+    or leak ejections)."""
+    idx = torch.arange(cols.balance.shape[0], device=cols.balance.device)
+    return cols._replace(balance=torch.where(idx % every == 0, cols.balance - gwei, cols.balance))

@@ -12,6 +12,15 @@ zero-hash siblings and mixes in the length (kernel K1, ``ops/sha256.py``),
 and combines the top container. Every other field's root is a static
 chunk. Packing and the combine are torch glue.
 
+The incremental path (``build_state_forest`` :731, ``post_epoch_state_root_inc``
+:805 and ``state_root_from_forest`` :894 there) keeps the three big subtrees
+resident as flat forests (``merkle_inc.py``) and re-hashes only the dirty
+paths: effective balances move only on hysteresis crossings, and the
+balance and score columns diff chunk by chunk (kernel K5); past the
+crossover a tree is rebuilt whole (K6, and K3 for the validator leaves).
+Both roots share the folds, mix-ins, small roots and top combine below, so
+they cannot disagree on the shared fields.
+
 The hashing goes through a ``Hashers`` bundle: ``KERNELS`` dispatches by
 device (CUDA kernels for CUDA tensors, plain torch for CPU tensors);
 ``PLAIN`` is the plain torch version of every kernel, which the slice's
@@ -21,15 +30,16 @@ reference path (``post_epoch_state_root_ref``) uses on any device.
 from __future__ import annotations
 
 import hashlib
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _ext
-from ..config import state_fields, top_depth as fork_top_depth
+from ..config import inc_dense_count, inc_dirty_bucket, state_fields, top_depth as fork_top_depth
 from ..lanes import MASK32, bswap32, to_i32, to_u32_lanes
+from . import merkle_inc
 from .merkle import tree_real_hashes, tree_root, tree_root_ref
 from .sha256 import hash_rows, sha256_pairs, sha256_pairs_ref
 
@@ -46,9 +56,18 @@ DYNAMIC_FIELDS = frozenset({
 
 
 class Hashers(NamedTuple):
+    """One implementation of every kernel the state roots use. The last five
+    serve the incremental forest (K3's in-place and indexed entries, and
+    ``merkle_inc.py``)."""
+
     sha256_pairs: Callable
     tree_root: Callable
     validator_leaves: Callable
+    validator_leaves_into: Callable
+    validator_leaves_at: Callable
+    dirty_leaves: Callable
+    apply_update: Callable
+    merkle_levels: Callable
 
 
 class StateRootArrays(NamedTuple):
@@ -131,13 +150,55 @@ def packed_u8_leaves(vals: torch.Tensor, n: int) -> torch.Tensor:
     return to_i32((w[..., 0] << 24) | (w[..., 1] << 16) | (w[..., 2] << 8) | w[..., 3])
 
 
-def validator_leaves_ref(eff, slashed_chunk, node_a, node_f, depth: int) -> torch.Tensor:
-    """Plain torch version of K3: the 2^depth validator-root leaf level
-    (zero rows past N)."""
+def _validator_chain_ref(eff, slashed_chunk, node_a, node_f) -> torch.Tensor:
     h = sha256_pairs_ref
     node_b = hash_rows(u64_chunk_words(eff), slashed_chunk, h)
     node_e = hash_rows(node_a, node_b, h)
-    return pad_pow2(hash_rows(node_e, node_f, h), depth)
+    return hash_rows(node_e, node_f, h)
+
+
+def validator_leaves_ref(eff, slashed_chunk, node_a, node_f, depth: int) -> torch.Tensor:
+    """Plain torch version of K3: the 2^depth validator-root leaf level
+    (zero rows past N)."""
+    return pad_pow2(_validator_chain_ref(eff, slashed_chunk, node_a, node_f), depth)
+
+
+def validator_leaves_into_ref(rows, eff, slashed_chunk, node_a, node_f, count=None, dense=0):
+    """Plain torch version of K3 writing into ``rows``."""
+    if not merkle_inc._gate_open(count, dense, sparse=False):
+        return rows
+    rows[:eff.shape[0]] = _validator_chain_ref(eff, slashed_chunk, node_a, node_f)
+    return rows
+
+
+def _check_validator_inputs(eff, slashed_chunk, node_a, node_f) -> int:
+    n = eff.shape[0]
+    _ext.check_cuda(eff, torch.int64, (n,))
+    for t in (slashed_chunk, node_a, node_f):
+        _ext.check_cuda(t, torch.int32, (n, 8))
+    return n
+
+
+def validator_leaves_into(rows, eff, slashed_chunk, node_a, node_f, count=None, dense: int = 0):
+    """Write the validator roots H(H(A, H(eb_chunk, slashed)), F) of all N
+    validators into rows 0..N-1 of ``rows`` (int32[>= N, 8]; the rows past N
+    are left as they are). With ``count`` (int32[1]), only when
+    ``count > dense``: the dense branch of the incremental update.
+
+    CUDA tensors go through kernel K3; CPU tensors through the plain
+    version."""
+    if eff.device.type == "cpu":
+        return validator_leaves_into_ref(rows, eff, slashed_chunk, node_a, node_f, count, dense)
+    n = _check_validator_inputs(eff, slashed_chunk, node_a, node_f)
+    _ext.check_cuda(rows, torch.int32)
+    if rows.dim() != 2 or rows.shape[0] < n or rows.shape[1] != 8:
+        raise ValueError(f"{n} validator roots do not fit rows {tuple(rows.shape)}")
+    if count is not None:
+        _ext.check_cuda(count, torch.int32, (1,))
+    _ext.launch("validator_leaves", "validator_leaves_launch", eff.device,
+                _ext.ptr(eff), _ext.ptr(slashed_chunk), _ext.ptr(node_a), _ext.ptr(node_f),
+                _ext.ptr(rows), n, _ext.ptr(count), int(dense))
+    return rows
 
 
 def validator_leaves(eff, slashed_chunk, node_a, node_f, depth: int) -> torch.Tensor:
@@ -151,19 +212,57 @@ def validator_leaves(eff, slashed_chunk, node_a, node_f, depth: int) -> torch.Te
     n = eff.shape[0]
     if n > (1 << depth):
         raise ValueError(f"{n} validators do not fit a depth-{depth} tree")
-    _ext.check_cuda(eff, torch.int64, (n,))
-    for t in (slashed_chunk, node_a, node_f):
-        _ext.check_cuda(t, torch.int32, (n, 8))
     out = torch.empty((1 << depth, 8), dtype=torch.int32, device=eff.device)
     out[n:].zero_()
-    _ext.launch("validator_leaves", "validator_leaves_launch", eff.device,
-                _ext.ptr(eff), _ext.ptr(slashed_chunk), _ext.ptr(node_a), _ext.ptr(node_f),
-                _ext.ptr(out), n)
+    return validator_leaves_into(out, eff, slashed_chunk, node_a, node_f)
+
+
+def validator_leaves_at_ref(eff, slashed_chunk, node_a, node_f, idx, count=None, dense=-1):
+    """Plain torch version of K3's indexed entry."""
+    cap = idx.shape[0]
+    out = torch.zeros((cap, 8), dtype=torch.int32, device=eff.device)
+    if not merkle_inc._gate_open(count, dense, sparse=True):
+        return out
+    live = cap if count is None else min(int(count.reshape(-1)[0]), cap)
+    i = idx[:live].to(torch.int64)
+    ok = (i >= 0) & (i < eff.shape[0])
+    i = torch.where(ok, i, torch.zeros_like(i))
+    leaf = _validator_chain_ref(eff[i], slashed_chunk[i], node_a[i], node_f[i])
+    out[:live] = torch.where(ok[:, None], leaf, torch.zeros_like(leaf))
     return out
 
 
-KERNELS = Hashers(sha256_pairs, tree_root, validator_leaves)
-PLAIN = Hashers(sha256_pairs_ref, tree_root_ref, validator_leaves_ref)
+def validator_leaves_at(eff, slashed_chunk, node_a, node_f, idx, count=None,
+                        dense: int = -1) -> torch.Tensor:
+    """Validator roots at the leaf indices ``idx`` (int32[cap]) ->
+    int32[cap, 8]; the SSZ zero chunk for an index outside [0, N). With
+    ``count`` (int32[1]) only rows j < count are computed (the rest are
+    zero), and with ``dense >= 0`` none when ``count > dense``: the sparse
+    branch of the incremental update.
+
+    CUDA tensors go through K3's indexed entry; CPU tensors through the
+    plain version."""
+    if eff.device.type == "cpu":
+        return validator_leaves_at_ref(eff, slashed_chunk, node_a, node_f, idx, count, dense)
+    n = _check_validator_inputs(eff, slashed_chunk, node_a, node_f)
+    _ext.check_cuda(idx, torch.int32)
+    if count is not None:
+        _ext.check_cuda(count, torch.int32, (1,))
+    cap = idx.shape[0]
+    out = torch.zeros((cap, 8), dtype=torch.int32, device=eff.device)
+    _ext.launch("validator_leaves", "validator_leaves_at_launch", eff.device,
+                _ext.ptr(eff), _ext.ptr(slashed_chunk), _ext.ptr(node_a), _ext.ptr(node_f),
+                _ext.ptr(idx), _ext.ptr(count), int(dense), n, cap, _ext.ptr(out),
+                counter="validator_leaves_at")
+    return out
+
+
+KERNELS = Hashers(sha256_pairs, tree_root, validator_leaves, validator_leaves_into,
+                  validator_leaves_at, merkle_inc.dirty_leaves, merkle_inc.apply_update,
+                  merkle_inc.merkle_levels)
+PLAIN = Hashers(sha256_pairs_ref, tree_root_ref, validator_leaves_ref, validator_leaves_into_ref,
+                validator_leaves_at_ref, merkle_inc.dirty_leaves_ref,
+                partial(merkle_inc.apply_update, plain=True), merkle_inc.merkle_levels_ref)
 
 
 def pad_pow2(leaves: torch.Tensor, depth: int) -> torch.Tensor:
@@ -374,3 +473,194 @@ def synthetic_static(n: int, seed: int = 0, device=None, fork: str = "deneb"):
     )
     meta = StateRootMeta(dynamic_slots(state_fields(fork)), n, depth)
     return arrays, meta
+
+
+# --------------------------------------------- incremental (forest) path --
+
+
+class StateForest(NamedTuple):
+    """Resident incremental tree state. ``run_epochs`` updates the node
+    buffers in place (JAX donates them) and returns them in its carry."""
+
+    val_nodes: torch.Tensor  # int32[S, 2^(dvl+1)-1, 8] validator-root forest
+    bal_nodes: torch.Tensor  # int32[S, 2^(dbl+1)-1, 8] balance-chunk forest
+    inact_nodes: torch.Tensor | None  # scores forest (None pre-altair)
+    part_root: torch.Tensor  # int32[8] previous-participation list root (static)
+
+
+class ForestPlan(NamedTuple):
+    """Static plan of an incremental forest; written into checkpoint
+    manifests as a list, so the fields and their order are the JAX
+    package's. Capacities and thresholds are per shard."""
+
+    depth_val: int  # validator-leaf tree depth
+    depth_bal: int  # u64-chunk tree depth (scores share it)
+    shards: int  # leaf-axis shard count (1: the port has no mesh yet)
+    cap_val: int  # dirty capacity, validator leaves
+    cap_bal: int  # dirty capacity, chunk leaves
+    dense_val: int  # dirty count past which the dense rebuild runs
+    dense_bal: int
+    has_inact: bool  # the state has inactivity_scores
+
+
+def forest_plan(meta: StateRootMeta, dirty_cap: int | None = None) -> ForestPlan:
+    """Plan an incremental forest for this registry: tree depths from the
+    leaf counts, dirty capacities from the pow2 bucket grid
+    (``config.inc_dirty_bucket``) for a hint of n/256 dirty validators (or
+    ``dirty_cap``), dense thresholds from the crossover model
+    (``config.inc_dense_count``)."""
+    n = meta.n_validators
+    depth_val = max(n - 1, 0).bit_length()
+    depth_bal = max((n + 3) // 4 - 1, 0).bit_length()
+    hint = int(dirty_cap) if dirty_cap else max(n >> 8, 8)
+    cap_val = min(inc_dirty_bucket(hint), 1 << depth_val)
+    cap_bal = min(inc_dirty_bucket(max(hint // 4, 1)), 1 << depth_bal)
+    return ForestPlan(
+        depth_val=depth_val,
+        depth_bal=depth_bal,
+        shards=1,
+        cap_val=cap_val,
+        cap_bal=cap_bal,
+        dense_val=inc_dense_count(depth_val, cap_val, leaf_hashes=3),
+        dense_bal=inc_dense_count(depth_bal, cap_bal),
+        has_inact="inactivity_scores" in {name for _, name in meta.dynamic_slots},
+    )
+
+
+def _pad_col(vals: torch.Tensor, cap: int) -> torch.Tensor:
+    pad = cap - vals.shape[0]
+    if pad:
+        vals = torch.cat([vals, vals.new_zeros((pad, *vals.shape[1:]))])
+    return vals
+
+
+def _u64_chunk_leaves(vals: torch.Tensor, n: int, depth: int) -> torch.Tensor:
+    """int64[n] (u64) column -> int32[2^depth, 8] packed SSZ chunk leaf
+    level, zero past the live chunks (the full path's padding)."""
+    vals = _pad_col(vals, -(-n // 4) * 4)
+    return pad_pow2(packed_u64_leaves(vals, vals.shape[0]), depth)
+
+
+def _u64_forest(vals, n: int, depth: int, h: Hashers) -> torch.Tensor:
+    nodes = vals.new_empty((1, merkle_inc.tree_nodes(depth), 8), dtype=torch.int32)
+    nodes[0, :1 << depth] = _u64_chunk_leaves(vals, n, depth)
+    return h.merkle_levels(nodes)
+
+
+def build_state_forest(arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan, balances,
+                       effective_balance, inactivity_scores, h: Hashers = KERNELS) -> StateForest:
+    """One-time forest ingest: every validator root and all levels of the
+    three big trees (K3 into the leaf rows, K6), plus the static
+    previous-participation list root."""
+    n = meta.n_validators
+    val_nodes = torch.zeros((1, merkle_inc.tree_nodes(plan.depth_val), 8), dtype=torch.int32,
+                            device=balances.device)
+    h.validator_leaves_into(val_nodes[0], effective_balance, arrays.slashed_chunk,
+                            arrays.val_node_a, arrays.val_node_f)
+    h.merkle_levels(val_nodes)
+    part = list_roots([(*u8_subtree(arrays.prev_part_flags, n, h), PARTICIPATION_LIMIT_CHUNKS_LOG2)],
+                      arrays, h)
+    return StateForest(
+        val_nodes=val_nodes,
+        bal_nodes=_u64_forest(balances, n, plan.depth_bal, h),
+        inact_nodes=_u64_forest(inactivity_scores, n, plan.depth_bal, h) if plan.has_inact else None,
+        part_root=part[0],
+    )
+
+
+def state_root_inc_real_hashes(meta: StateRootMeta, plan: ForestPlan) -> int:
+    """Compressions one incremental post-epoch root is charged in the JAX
+    package's capacity model: per tree the smaller of the sparse update at
+    capacity and the dense rebuild, plus the folds, mix-ins, checkpoints and
+    the top combine, counted as ``state_root_real_hashes`` counts them."""
+    n = meta.n_validators
+
+    def tree_cost(depth: int, cap: int, leaf_hashes: int, dense_leaf_total: int) -> int:
+        sparse = merkle_inc.inc_update_hashes(depth, cap, leaf_hashes)
+        return min(sparse, tree_real_hashes(depth) + dense_leaf_total)
+
+    hashes = tree_cost(plan.depth_val, plan.cap_val, 3, 3 * n)
+    hashes += tree_cost(plan.depth_bal, plan.cap_bal, 0, 0)
+    folds = (VALIDATOR_REGISTRY_LIMIT_LOG2 - plan.depth_val) + (
+        BALANCE_LIMIT_CHUNKS_LOG2 - plan.depth_bal)
+    mixes = 2
+    if plan.has_inact:
+        hashes += tree_cost(plan.depth_bal, plan.cap_bal, 0, 0)
+        folds += BALANCE_LIMIT_CHUNKS_LOG2 - plan.depth_bal
+        mixes += 1
+    return hashes + folds + mixes + 3 + (1 << meta.top_depth)
+
+
+def _update_u64_tree(h: Hashers, nodes, old_vals, vals, plan: ForestPlan) -> torch.Tensor:
+    """Chunk-wise diff of a u64 column into its forest tree: K5 compacts
+    the dirty chunks and writes their new leaves, then either K5 re-hashes
+    their paths or K6 rebuilds the tree, as the live count decides on the
+    device. Returns the live count."""
+    tree = nodes[0]
+    idx, count = h.dirty_leaves(old_vals, vals, 4, 1 << plan.depth_bal, plan.cap_bal, tree)
+    h.apply_update(tree, idx, count, plan.dense_bal)
+    return count
+
+
+def _update_forest(h: Hashers, arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan,
+                   forest: StateForest, old_balances, old_effective_balance, old_inactivity_scores,
+                   balances, effective_balance, inactivity_scores) -> list:
+    """Apply one epoch's column changes to the forest in place, with no host
+    synchronisation: both branches of every tree are launched and the live
+    dirty count on the device picks one (``merkle_inc.apply_update``).
+    Returns the live counts (int32[1] each) of the trees updated."""
+    inputs = (effective_balance, arrays.slashed_chunk, arrays.val_node_a, arrays.val_node_f)
+    # validator registry: dirty = hysteresis crossings; the new leaves are
+    # K3's chain at the dirty rows (sparse) or at every row (dense), the SSZ
+    # zero chunk past the registry
+    idx, count = h.dirty_leaves(old_effective_balance, effective_balance, 1,
+                                1 << plan.depth_val, plan.cap_val)
+    h.apply_update(forest.val_nodes[0], idx, count, plan.dense_val,
+                   leaves_at=lambda idx, count, dense: h.validator_leaves_at(*inputs, idx, count,
+                                                                             dense),
+                   leaves_into=lambda rows, count, dense: h.validator_leaves_into(rows, *inputs,
+                                                                                  count, dense))
+    counts = [count, _update_u64_tree(h, forest.bal_nodes, old_balances, balances, plan)]
+    if plan.has_inact and forest.inact_nodes is not None:
+        counts.append(_update_u64_tree(h, forest.inact_nodes, old_inactivity_scores,
+                                       inactivity_scores, plan))
+    return counts
+
+
+def state_root_from_forest(arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan,
+                           forest: StateForest, just, h: Hashers = KERNELS) -> torch.Tensor:
+    """The full post-epoch state root from a resident forest, with no dirty
+    work: the tree roots folded to their limits and length-mixed, the
+    participation roots, the small roots and the top combine. The root a
+    checkpoint manifest carries and a restore re-verifies."""
+    slot_of = {name: i for i, name in meta.dynamic_slots}
+    lists = {
+        "validators": (merkle_inc.forest_root(forest.val_nodes), plan.depth_val,
+                       VALIDATOR_REGISTRY_LIMIT_LOG2),
+        "balances": (merkle_inc.forest_root(forest.bal_nodes), plan.depth_bal,
+                     BALANCE_LIMIT_CHUNKS_LOG2),
+    }
+    if plan.has_inact and "inactivity_scores" in slot_of:
+        lists["inactivity_scores"] = (merkle_inc.forest_root(forest.inact_nodes), plan.depth_bal,
+                                      BALANCE_LIMIT_CHUNKS_LOG2)
+    roots = list_roots(list(lists.values()), arrays, h)
+    dyn = {slot_of[name]: roots[i] for i, name in enumerate(lists)}
+    if "previous_epoch_participation" in slot_of:
+        dyn[slot_of["previous_epoch_participation"]] = forest.part_root
+        dyn[slot_of["current_epoch_participation"]] = arrays.cur_part_root
+    dyn.update(small_dynamic_roots(slot_of, just, h))
+    return combine_state_root(arrays, meta, dyn, h)
+
+
+def post_epoch_state_root_inc(arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan,
+                              forest: StateForest, old_balances, old_effective_balance,
+                              old_inactivity_scores, balances, effective_balance,
+                              inactivity_scores, just, h: Hashers = KERNELS):
+    """The post-epoch state root through the incremental forest: the
+    columns' changes applied to the forest in place, then the root from
+    the forest. Returns (forest, root), the root bit-identical to
+    ``post_epoch_state_root`` on the same columns. Kernels K1-K3, K5 and K6
+    on a CUDA device, their plain versions on the CPU."""
+    _update_forest(h, arrays, meta, plan, forest, old_balances, old_effective_balance,
+                   old_inactivity_scores, balances, effective_balance, inactivity_scores)
+    return forest, state_root_from_forest(arrays, meta, plan, forest, just, h)

@@ -36,3 +36,25 @@ def test_unknown_fork_or_preset_raises():
         config.epoch_params("deneb", "gnosis")
     with pytest.raises(ValueError):
         config.state_fields("capella")
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"ETH_SPECS_INC_DIRTY_BUCKETS": "3,100,5000", "ETH_SPECS_INC_CROSSOVER": "0.5"},
+    {"ETH_SPECS_INC_DIRTY_BUCKETS": "x", "ETH_SPECS_INC_CROSSOVER": "y"},
+], ids=["default", "overridden", "malformed"])
+def test_incremental_buckets_match_jax(monkeypatch, env):
+    """The dirty-capacity buckets and the crossover model, and their
+    environment reads, equal serve/buckets.py's, so both packages plan the
+    same forest."""
+    from eth_consensus_specs_tpu.serve import buckets
+
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert config.inc_dirty_buckets() == buckets.inc_dirty_buckets()
+    assert config.inc_crossover() == buckets.inc_crossover()
+    for n in (0, 1, 8, 9, 700, 4096, 70000, 10**6):
+        assert config.inc_dirty_bucket(n) == buckets.inc_dirty_bucket(n)
+        assert config.pow2_bucket(max(n, 1)) == buckets.pow2_bucket(max(n, 1))
+    for depth, cap, leaf in ((4, 8, 0), (6, 8, 3), (18, 1024, 0), (20, 4096, 3), (20, 65536, 3)):
+        assert config.inc_dense_count(depth, cap, leaf) == buckets.inc_dense_count(depth, cap, leaf)

@@ -15,9 +15,11 @@ import torch
 
 from eth_consensus_specs_tpu_torch import _ext
 from eth_consensus_specs_tpu_torch.config import epoch_params
-from eth_consensus_specs_tpu_torch.inputs import ALTAIR_CORNERS, altair_corner_inputs, example_altair_inputs
+from eth_consensus_specs_tpu_torch.inputs import (
+    ALTAIR_CORNERS, altair_corner_inputs, example_altair_inputs, lower_balances)
 from eth_consensus_specs_tpu_torch.ops import altair_epoch as tae
-from eth_consensus_specs_tpu_torch.ops import merkle
+from eth_consensus_specs_tpu_torch.ops import merkle, snapshot
+from eth_consensus_specs_tpu_torch.ops import merkle_inc as tmi
 from eth_consensus_specs_tpu_torch.ops import state_root as tsr
 from eth_consensus_specs_tpu_torch.ops.sha256 import sha256_pairs, sha256_pairs_ref
 from eth_consensus_specs_tpu_torch.parallel import resident
@@ -119,3 +121,175 @@ def test_run_epochs_card_matches_cpu_and_counts_launches(cuda):
     assert torch.equal(got.cols.balance.cpu(), want.cols.balance)
     assert set(counts) == {"sha256", "merkle", "validator_leaves", "altair_epoch"}
     assert counts["altair_epoch"] == 4 and counts["validator_leaves"] == 2
+
+
+# ------------------------------------------------ incremental forest (K5, K6) --
+
+def _plain_levels(leaves):
+    nodes = leaves.new_zeros((*leaves.shape[:-2], 2 * leaves.shape[-2] - 1, 8))
+    nodes[..., :leaves.shape[-2], :] = leaves
+    return tmi.merkle_levels_ref(nodes)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 5, 9, 10, 14, 18])
+def test_merkle_levels_kernel(cuda, depth):
+    leaves = _words(1 << depth, 8, depth)
+    got = tmi.build_levels(leaves.to(cuda)).cpu()
+    assert torch.equal(got, _plain_levels(leaves))
+    if depth:
+        assert torch.equal(got[-1], merkle.tree_root_ref(leaves, depth))
+
+
+def test_merkle_levels_kernel_batched_and_gated(cuda):
+    batch = _words(8 * 32, 8, 1).reshape(8, 32, 8)
+    assert torch.equal(tmi.build_levels(batch.to(cuda)).cpu(), _plain_levels(batch))
+    full = tmi.build_levels(_words(64, 8, 2).to(cuda))
+    stale = full.clone()
+    stale[64:] = 0
+    count = torch.tensor([5], dtype=torch.int32, device=cuda)
+    assert torch.equal(tmi.merkle_levels(stale.clone(), count, 5), stale)
+    assert torch.equal(tmi.merkle_levels(stale.clone(), count, 4), full)
+
+
+@pytest.mark.parametrize("n,cap,case", [
+    (1000, 64, "empty"), (1000, 64, "full"), (1000, 64, "random"), (1 << 16, 4096, "random"),
+    (1 << 16, 4096, "over_capacity"), (1 << 20, 4096, "random"),
+])
+def test_dirty_indices_kernel(cuda, n, cap, case):
+    rng = np.random.default_rng(n + cap)
+    mask = {"empty": np.zeros(n, bool), "full": np.ones(n, bool),
+            "random": rng.random(n) < min(0.5, cap / n / 2),
+            "over_capacity": rng.random(n) < 2 * cap / n}[case]
+    got = tmi.dirty_indices(torch.from_numpy(mask).to(cuda), cap)
+    want = tmi.dirty_indices_ref(torch.from_numpy(mask), cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n,per", [(1000, 1), (1 << 16, 1), (1000, 4), (1 << 18, 4)])
+def test_dirty_leaves_kernel(cuda, n, per):
+    rng = np.random.default_rng(n * per)
+    old = rng.integers(0, 2**64, size=n, dtype=np.uint64)
+    new = old.copy()
+    new[rng.choice(n, min(n // 8, 3000), replace=False)] ^= np.uint64(1 << 63)
+    old_t, new_t = (torch.from_numpy(a.view(np.int64)) for a in (old, new))
+    n_leaves = 1 << max(-(-n // per) - 1, 0).bit_length()
+    rows = _words(n_leaves, 8, 5) if per == 4 else None
+    got_rows = None if rows is None else rows.to(cuda)
+    got = tmi.dirty_leaves(old_t.to(cuda), new_t.to(cuda), per, n_leaves, 1024, got_rows)
+    want = tmi.dirty_leaves_ref(old_t, new_t, per, n_leaves, 1024, rows)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if rows is not None:
+        assert torch.equal(got_rows.cpu(), rows)
+
+
+@pytest.mark.parametrize("depth", [1, 10, 16])
+def test_path_update_kernel(cuda, depth):
+    nodes = _plain_levels(_words(1 << depth, 8, depth))
+    new = _words(1 << depth, 8, depth + 1)
+    rng = np.random.default_rng(depth)
+    uniq = rng.choice(1 << depth, min(40, 1 << depth), replace=False)
+    idx = np.concatenate([uniq, uniq[:4] ^ 1, uniq[:3], np.zeros(9, np.int64)]).astype(np.int32)
+    idx_t = torch.from_numpy(idx)
+    vals = new[idx_t.to(torch.int64)]
+    live = len(idx) - 9
+    for count, dense in ((None, -1), (live, live), (live, live - 1)):
+        c = None if count is None else torch.tensor([count], dtype=torch.int32)
+        want = tmi.path_update_ref(nodes.clone(), idx_t, vals, c, dense)
+        got = tmi.path_update(nodes.clone().to(cuda), idx_t.to(cuda), vals.to(cuda),
+                              None if c is None else c.to(cuda), dense)
+        assert torch.equal(got.cpu(), want), (count, dense)
+
+
+@pytest.mark.parametrize("extra", [0, 1], ids=["sparse_at_dense_count", "dense_past_it"])
+def test_apply_dirty_on_card(cuda, extra):
+    """Both branches of one tree's update, decided on the card (K5's count
+    gating K5 and K6), equal to the plain version and to a rebuild."""
+    depth, cap, dense_count = 12, 256, 200
+    leaves = _words(1 << depth, 8, 20)
+    new = leaves.clone()
+    dirty = torch.from_numpy(np.random.default_rng(21).choice(1 << depth, dense_count + extra,
+                                                               replace=False))
+    new[dirty] ^= 0x5A5A5A5A
+    mask = torch.zeros(1 << depth, dtype=torch.bool)
+    mask[dirty] = True
+    new_c = new.to(cuda)
+    got = tmi.apply_dirty(_plain_levels(leaves).to(cuda), mask.to(cuda),
+                          lambda i: new_c[i.to(torch.int64)], cap, dense_count)
+    want = tmi.apply_dirty(_plain_levels(leaves), mask, lambda i: new[i.to(torch.int64)], cap,
+                           dense_count)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, _plain_levels(new))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 16])
+def test_validator_leaves_at_kernel(cuda, n):
+    arrays, _ = tsr.synthetic_static(n, seed=n, device="cpu")
+    cols, _ = example_altair_inputs(n, device="cpu")
+    args = (cols.effective_balance, _words(n, 8, 7), arrays.val_node_a, arrays.val_node_f)
+    rng = np.random.default_rng(n)
+    idx = torch.from_numpy(np.concatenate([rng.integers(0, n, 200), rng.integers(n, n + 50, 20),
+                                           -rng.integers(1, 9, 4)]).astype(np.int32))
+    on_card = tuple(a.to(cuda) for a in args)
+    assert torch.equal(tsr.validator_leaves_at(*on_card, idx.to(cuda)).cpu(),
+                       tsr.validator_leaves_at_ref(*args, idx))
+    for dense in (-1, 150, 149):
+        c = torch.tensor([150], dtype=torch.int32)
+        got = tsr.validator_leaves_at(*on_card, idx.to(cuda), c.to(cuda), dense)
+        assert torch.equal(got.cpu(), tsr.validator_leaves_at_ref(*args, idx, c, dense)), dense
+    rows = torch.zeros((1 << max(n - 1, 0).bit_length(), 8), dtype=torch.int32)
+    for dense in (0, 1):  # the dense side runs iff the count (1) exceeds dense
+        one = torch.tensor([1], dtype=torch.int32)
+        got = tsr.validator_leaves_into(rows.clone().to(cuda), *on_card, one.to(cuda), dense)
+        assert torch.equal(got.cpu(), tsr.validator_leaves_into_ref(rows.clone(), *args, one, dense))
+
+
+@pytest.mark.parametrize("n", [1000, 1024])
+@pytest.mark.parametrize("every", [0, 4], ids=["example", "every_4th_crosses"])
+def test_state_inc_card_matches_plain_and_cpu(cuda, n, every):
+    params = epoch_params("deneb", "mainnet")
+    cols, just = example_altair_inputs(n, device="cpu")
+    if every:
+        cols = lower_balances(cols, every=every)
+    static = tsr.synthetic_static(n, seed=6, device="cpu")
+    on_card = [type(x)(*(None if t is None else t.to(cuda) for t in x)) for x in (cols, just)]
+    arrays_card = type(static[0])(*(t.to(cuda) for t in static[0]))
+    forest, _ = resident.build_state_forest_device(static, cols, device=cuda)
+    _ext.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")  # the epoch loop never waits for the card
+    try:
+        got = resident.run_epochs(params, *on_card, 2, with_root="state_inc",
+                                  static=(arrays_card, static[1]), device=cuda, forest=forest)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = dict(_ext.launches)
+    ref = resident.run_epochs_ref(params, cols, just, 2, with_root="state_inc", static=static,
+                                  device=cuda)
+    cpu = resident.run_epochs(params, cols, just, 2, with_root="state_inc", static=static,
+                              device="cpu")
+    full = resident.run_epochs(params, cols, just, 2, with_root="state", static=static, device=cuda)
+    for want in (ref, cpu, full):
+        assert torch.equal(got.root_acc.cpu(), want.root_acc.cpu())
+        assert torch.equal(got.cols.balance.cpu(), want.cols.balance.cpu())
+    for name in ("val_nodes", "bal_nodes", "inact_nodes", "part_root"):
+        assert torch.equal(getattr(got.forest, name).cpu(), getattr(cpu.forest, name)), name
+    assert torch.equal(got.dirty.cpu(), cpu.dirty)
+    assert {"merkle_inc", "merkle_levels", "validator_leaves_at"} <= set(counts)
+
+
+def test_checkpoint_restore_and_scrub_on_card(cuda, tmp_path):
+    params = epoch_params("deneb", "mainnet")
+    cols, just = example_altair_inputs(1024, device=cuda)
+    static = tsr.synthetic_static(1024, seed=8, device=cuda)
+    carry, root, epoch = resident.run_epochs_checkpointed(
+        params, cols, just, 2, static=static, ckpt_dir=str(tmp_path), ckpt_interval=1, device=cuda)
+    rs = snapshot.restore(str(tmp_path), static=static, verify="device", device=cuda)
+    assert rs.epoch == epoch == 2
+    for name in ("val_nodes", "bal_nodes", "inact_nodes", "part_root"):
+        assert torch.equal(getattr(rs.forest, name), getattr(carry.forest, name)), name
+    assert not snapshot.scrub_forest(rs.forest, k=8).mismatches
+    dmg = snapshot.flip_resident_word(rs.forest, "val_nodes", 2040)
+    assert snapshot.scrub_forest(dmg, k=8).mismatches
+    healed = snapshot.quarantine_rebuild(dmg, "val_nodes")
+    assert snapshot.state_root_bytes(static, rs.plan, healed, rs.just) == root

@@ -89,6 +89,7 @@ def test_real_hashes_count_what_runs(specs, n):
         count[0] += 3 * eff.shape[0]
         return tsr.PLAIN.validator_leaves(eff, *rest)
 
-    tsr._post_epoch_state_root(tsr.Hashers(sha, tree, leaves), pa, pm, pc.balance,
-                               pc.effective_balance, pc.inactivity_scores, pj)
+    h = tsr.PLAIN._replace(sha256_pairs=sha, tree_root=tree, validator_leaves=leaves)
+    tsr._post_epoch_state_root(h, pa, pm, pc.balance, pc.effective_balance, pc.inactivity_scores,
+                               pj)
     assert count[0] == tsr.state_root_real_hashes(pm)
