@@ -19,9 +19,9 @@ Phases, each printing one JSON line:
 4. main_path: deneb mainnet, 2^20 validators, the example columns and a
    synthetic static tree; a warm-up epoch, then ``run_epochs(..., 8,
    with_root="state")`` with every launch counter at 0 just before it.
-   ``root_acc``, the columns and the justification state are held against
-   the plain path (``run_epochs_ref``) on the same card, and a 1,024-validator
-   run against the CPU path;
+   ``root_acc``, the columns and the justification state of a 2-epoch run
+   are held against the plain path (``run_epochs_ref``) on the same card,
+   and a 1,024-validator run against the CPU path;
 5. state_inc: the same inputs through the incremental forest: the forest
    built outside the timing, a warm-up epoch, then five chained 8-epoch
    runs, each continuing from the last one's carry (columns, justification
@@ -40,14 +40,34 @@ Phases, each printing one JSON line:
 7. durability: ``run_epochs_checkpointed`` for 8 epochs with a checkpoint
    every 4 into a temporary directory; ``restore(verify="device")`` equal
    to the carry and the manifest; a clean ``scrub_forest(k=8)``; a flipped
-   internal word caught by the scrub and healed by ``quarantine_rebuild``.
+   internal word caught by the scrub and healed by ``quarantine_rebuild``;
+8. shuffle: ``shuffle_permutation_device`` at mainnet's 90 rounds for
+   2^20 lanes (the registry) and 1,000,000 (not a multiple of 256), two
+   seeds each; every permutation held against the plain chain on the card
+   (``single_block_words``, ``sha256_single_block_ref``,
+   ``shuffle_rounds_ref``) and the numpy host form. Time of the whole call
+   and its host share: the pivots, the blocks, K7 and K8;
+9. epoch_phase0: phase0 mainnet at 1,000,000 validators (``bench.py``'s
+   epoch section), the ``example_inputs`` columns, a warm-up, then 8
+   chained epochs that feed balances and effective balances back in; held
+   against ``epoch_accounting_ref`` on the card and, at 1,024 validators,
+   against the CPU path. ms/epoch and K9's share of the card;
+10. merkle_many: a full serving flush of 64 trees (``max_batch``) through
+   ``merkleize_many_device`` at depth 12 (the device threshold of 4,096
+   chunks) and 16, filled raggedly (tree i holds 2^d - 37 i chunks); every
+   root held against the plain batched reduction on the card, one against
+   hashlib.
 
-Each path runs with every launch counter at 0 just before it and read just
-after. Then the ``{"kernels": [...]}`` line (``launches``: the state_inc
-main path's counts, which take every kernel; ``launches_by_path``: each
-path's) and, last, ``{"ok": true, "device": {...}}``. Any failure raises and
-the script exits non-zero without the last line; so does a machine without
-CUDA, or a directory without the package.
+Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
+(phase0_epoch, on the example columns and every phase0 corner) and K2's
+batched entry (merkle_many_tree_root) against their plain versions at the
+shapes of phases 8-10. Each path runs with every launch counter at 0 just
+before it and read just after. Then the ``{"kernels": [...]}`` line
+(``launches``: the counts of the kernel's own path, the state_inc main path
+for K1-K6; ``launches_by_path``: each path's) and, last, ``{"ok": true,
+"device": {...}}``. Any failure raises and the script exits non-zero
+without the last line; so does a machine without CUDA, or a directory
+without the package.
 """
 
 from __future__ import annotations
@@ -61,6 +81,7 @@ import time
 
 N_VALIDATORS = 1 << 20
 EPOCHS = 8
+PLAIN_EPOCHS = 2  # epochs of the main path held against the plain path
 TIMED_RUNS = 5
 REPEATS = 20
 INNER = 10  # kernel calls back to back in one timed sample
@@ -91,8 +112,13 @@ LOGIC_PER_MESSAGE = LOGIC_DATA_COMPRESSION + LOGIC_PAD_COMPRESSION  # 1,664
 ADDS_PER_MESSAGE = ADDS_DATA_COMPRESSION + ADDS_PAD_COMPRESSION  # 624
 # K4: u64 operations per validator over both launches (masks, five sums, the
 # scalar recompute, the rewards/penalties chain, hysteresis), each counted as
-# two 32-bit instructions that may issue on either pipe.
+# two 32-bit instructions that may issue on either pipe. K9 (phase0) does
+# about as many over its three launches.
 OPS_EPOCH_PER_VALIDATOR = 2 * 120
+# K8: 32-bit instructions per lane and round at the least: the flip and its
+# wrap (2), the max (1), the table address (4), the load (1), the byte and
+# bit extraction (6), the select and the loop (2).
+OPS_SHUFFLE_LANE_ROUND = 16
 # A warp dispatches at most one instruction per clock, so a message hashed
 # by one thread takes at least its 2,288 instructions' worth of clocks; at
 # the boost clock above, that is the floor of each level of K5's path update
@@ -106,14 +132,16 @@ def emit(obj) -> None:
 
 
 def bound(nbytes: float, messages: float = 0, other_ops: float = 0,
-          serial_messages: int = 0) -> tuple[float, str]:
+          serial_messages: int = 0, single_blocks: float = 0) -> tuple[float, str]:
     """Least milliseconds for ``nbytes`` of HBM traffic, ``messages`` SHA-256
-    pair hashes and ``other_ops`` integer instructions free to use either pipe:
-    the larger of the bytes' time and the busier pipe's time, or of
-    ``serial_messages`` hashes that depend one on the next."""
+    pair hashes, ``single_blocks`` lone data compressions and ``other_ops``
+    integer instructions free to use either pipe: the larger of the bytes'
+    time and the busier pipe's time, or of ``serial_messages`` hashes that
+    depend one on the next."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    logic = messages * LOGIC_PER_MESSAGE
-    every = logic + messages * ADDS_PER_MESSAGE + other_ops
+    logic = messages * LOGIC_PER_MESSAGE + single_blocks * LOGIC_DATA_COMPRESSION
+    every = (logic + messages * ADDS_PER_MESSAGE + single_blocks * ADDS_DATA_COMPRESSION
+             + other_ops)
     t_ops = max(logic / ALU_OPS_PER_S, every / INT_OPS_PER_S,
                 serial_messages * MESSAGE_SERIAL_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -254,6 +282,8 @@ def check_kernels(dev):
         name="altair_epoch", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/altair_epoch.cu",
         replaces="eth_consensus_specs_tpu/ops/altair_epoch.py:142", shape=[n], max_abs_err=err,
         ms=cuda_ms(lambda: altair_epoch.altair_epoch_accounting(params, cols, just), inner=INNER),
+        device_ms=device_ms(lambda: altair_epoch.altair_epoch_accounting(params, cols, just),
+                            ("epoch_sums_kernel", "epoch_apply_kernel")),
         plain_ms=cuda_ms(lambda: altair_epoch.altair_epoch_accounting_ref(params, cols, just), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, work_validators=n,
         corners_checked=[f"{fork}:{case}" for fork in ("electra", "deneb") for case in ALTAIR_CORNERS],
@@ -451,6 +481,27 @@ def device_profile(fn) -> dict:
                 by_name={k: ms for k, ms, _ in rows}, counts={k: c for k, _, c in rows})
 
 
+def per_call_ms(prof: dict, calls: int) -> dict:
+    """Device milliseconds per call of each kernel in a profile of ``calls``
+    calls: its mean time times its launches per call (its count over
+    ``calls``, rounded, at least one), so a launch the tracer loses does not
+    count as zero."""
+    return {name: ms / prof["counts"][name] * max(1, round(prof["counts"][name] / calls))
+            for name, ms in prof["by_name"].items()}
+
+
+def device_ms(fn, prefixes: tuple) -> float:
+    """Device milliseconds of one fn() in the kernels whose names start with
+    ``prefixes``, from torch.profiler over INNER calls back to back. Beside
+    the CUDA-event time, which reads the host's enqueue rate when the host
+    is slower than the card."""
+    per = per_call_ms(device_profile(lambda: [fn() for _ in range(INNER)]), INNER)
+    mine = [ms for name, ms in per.items() if name.startswith(prefixes)]
+    if not mine:
+        raise RuntimeError(f"the trace holds no kernel named {prefixes}")
+    return sum(mine)
+
+
 def run_main_path(dev) -> tuple[dict, dict]:
     """Phase 4: the slice's main path at 2^20 validators, held against the plain path."""
     import torch
@@ -481,11 +532,15 @@ def run_main_path(dev) -> tuple[dict, dict]:
     prof = device_profile(
         lambda: run_epochs(params, cols, just, EPOCHS, with_root="state", static=static, device=dev))
 
+    # the plain path is about 2,000 times slower: held over PLAIN_EPOCHS
+    short = run_epochs(params, cols, just, PLAIN_EPOCHS, with_root="state", static=static, device=dev)
     t0 = time.perf_counter()
-    ref = run_epochs_ref(params, cols, just, EPOCHS, with_root="state", static=static,
+    ref = run_epochs_ref(params, cols, just, PLAIN_EPOCHS, with_root="state", static=static,
                          device=dev)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / EPOCHS
+    plain_ms = (time.perf_counter() - t0) * 1e3 / PLAIN_EPOCHS
+    carry_8 = carry
+    carry = short
     for name, got, want in (
         ("root_acc", carry.root_acc, ref.root_acc),
         *((f"cols.{f}", getattr(carry.cols, f), getattr(ref.cols, f))
@@ -494,6 +549,7 @@ def run_main_path(dev) -> tuple[dict, dict]:
     ):
         if not torch.equal(got, want):
             raise RuntimeError(f"main path {name} differs from the plain path on the card")
+    carry = carry_8
     if carry.root_acc.shape != (8,) or not bool((carry.root_acc != 0).any()):
         raise RuntimeError("main path root_acc is empty")
 
@@ -511,7 +567,7 @@ def run_main_path(dev) -> tuple[dict, dict]:
     summary = dict(
         phase="main_path", fork="deneb", preset="mainnet", n_validators=N_VALIDATORS,
         epochs=EPOCHS, with_root="state", ms_per_epoch=ms, ms_per_epoch_runs=times,
-        plain_ms_per_epoch=plain_ms, messages_per_epoch=messages,
+        plain_ms_per_epoch=plain_ms, plain_epochs_held=PLAIN_EPOCHS, messages_per_epoch=messages,
         compressions_per_epoch=2 * messages, compressions_per_s=2 * messages / (ms / 1e3),
         device_busy_ms_per_epoch=prof["device_busy_ms"] / EPOCHS,
         # None where the profiler saw no device activity: not measured
@@ -807,6 +863,328 @@ def run_durability(dev) -> tuple[dict, dict]:
     return summary, launches
 
 
+SHUFFLE_SIZES = (N_VALIDATORS, 1_000_000)  # the registry, and one that leaves a short last chunk
+PHASE0_VALIDATORS = 1_000_000  # bench.py's epoch section
+FLUSH_DEPTHS = (12, 16)  # the device threshold of 4,096 chunks, and a wide subtree
+
+
+def shuffle_seed(i: int) -> bytes:
+    return hashlib.sha256(f"chip_smoke shuffle seed {i}".encode()).digest()
+
+
+def ragged_flush(depth: int, trees: int, seed: int):
+    """``trees`` uint8 chunk arrays, tree i holding 2^depth - 37 i chunks (or none)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (max((1 << depth) - 37 * i, 0), 32), dtype=np.uint8)
+            for i in range(trees)]
+
+
+def check_slice3_kernels(dev):
+    """Phase 3, continued: K7, K8, K9 and K2's batched entry at the shapes of
+    the shuffle, epoch_phase0 and merkle_many phases, each against its plain
+    version."""
+    import numpy as np
+    import torch
+
+    from eth_consensus_specs_tpu_torch.config import MAX_BATCH, phase0_epoch_params, shuffle_round_count
+    from eth_consensus_specs_tpu_torch.inputs import PHASE0_CORNERS, example_inputs, phase0_corner_inputs
+    from eth_consensus_specs_tpu_torch.ops import merkle, sha256, shuffle, state_columns
+
+    rows = []
+    rounds = shuffle_round_count("mainnet")
+
+    # K7 and K8 at the registry: 90 rounds x 4,096 chunks of decision blocks
+    n = N_VALIDATORS
+    chunks = (n + 255) // 256
+    seed = shuffle_seed(0)
+    blocks = shuffle.single_block_words(seed, rounds, chunks, dev)
+    digests = sha256.sha256_single_block(blocks)
+    err = max_abs_err(digests, sha256.sha256_single_block_ref(blocks))
+    got = digests[[0, chunks - 1, rounds * chunks - 1]].cpu().numpy().view(np.uint32).astype(">u4")
+    for row, (r, c) in zip(got, ((0, 0), (0, chunks - 1), (rounds - 1, chunks - 1))):
+        if row.tobytes() != hashlib.sha256(seed + bytes([r]) + c.to_bytes(4, "little")).digest():
+            raise RuntimeError(f"sha256_single_block of round {r} chunk {c} differs from hashlib")
+    msgs = rounds * chunks
+    b_ms, b_by = bound(96 * msgs, single_blocks=msgs)
+    k7_ms = cuda_ms(lambda: sha256.sha256_single_block(blocks), inner=INNER)
+    rows.append(dict(
+        name="sha256_single_block", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/sha256.cu",
+        replaces="eth_consensus_specs_tpu/ops/sha256.py:137", shape=[msgs, 16], max_abs_err=err,
+        ms=k7_ms, plain_ms=cuda_ms(lambda: sha256.sha256_single_block_ref(blocks), 3),
+        device_ms=device_ms(lambda: sha256.sha256_single_block(blocks), ("sha256_single_block",)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, work_compressions=msgs,
+        compressions_per_s=msgs / (k7_ms / 1e3), hashlib_checked=3,
+    ))
+
+    pivots = torch.tensor(shuffle.pivots(n, seed, rounds), dtype=torch.int32, device=dev)
+    err = 0
+    for size in SHUFFLE_SIZES + (1, 257):
+        c = (size + 255) // 256
+        piv = torch.tensor(shuffle.pivots(size, seed, rounds), dtype=torch.int32, device=dev)
+        dig = digests.reshape(rounds, chunks, 8)[:, :c].reshape(-1, 8).contiguous()
+        err = max(err, max_abs_err(shuffle.shuffle_rounds(dig, piv, size),
+                                   shuffle.shuffle_rounds_ref(dig, piv, size)))
+    b_ms, b_by = bound(32 * msgs + 4 * rounds + 4 * n, other_ops=n * rounds * OPS_SHUFFLE_LANE_ROUND)
+    k8_ms = cuda_ms(lambda: shuffle.shuffle_rounds(digests, pivots, n), inner=INNER)
+    rows.append(dict(
+        name="shuffle_rounds", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/shuffle.cu",
+        replaces="eth_consensus_specs_tpu/ops/shuffle.py:78", shape=[n, rounds], max_abs_err=err,
+        ms=k8_ms, plain_ms=cuda_ms(lambda: shuffle.shuffle_rounds_ref(digests, pivots, n), 5),
+        device_ms=device_ms(lambda: shuffle.shuffle_rounds(digests, pivots, n), ("shuffle_rounds",)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, lane_rounds=n * rounds,
+        lane_rounds_per_s=n * rounds / (k8_ms / 1e3), l2_table_bytes=32 * msgs,
+        sizes_checked=list(SHUFFLE_SIZES) + [1, 257],
+    ))
+
+    # K9 on the example columns and each corner the example never reaches
+    n = PHASE0_VALIDATORS
+    err, checked = 0, []
+    for preset in ("mainnet", "minimal"):
+        params = phase0_epoch_params(preset)
+        half = params.epochs_per_slashings_vector // 2
+        for case in ("example",) + (PHASE0_CORNERS if preset == "mainnet" else ()):
+            if case == "example":
+                cols, just = example_inputs(n, slashings_half_vector=half, device=dev)
+            else:
+                cols, just = phase0_corner_inputs(case, n, slashings_half_vector=half, device=dev)
+            got = state_columns.epoch_accounting(params, cols, just)
+            want = state_columns.epoch_accounting_ref(params, cols, just)
+            err = max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
+            checked.append(f"{preset}:{case}")
+    params = phase0_epoch_params("mainnet")
+    cols, just = example_inputs(n, device=dev)
+    col_bytes = sum(t.element_size() * t.numel() for t in cols)
+    b_ms, b_by = bound(col_bytes + 4 * 8 * n, other_ops=n * OPS_EPOCH_PER_VALIDATOR)
+    rows.append(dict(
+        name="phase0_epoch", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/state_columns.cu",
+        replaces="eth_consensus_specs_tpu/ops/state_columns.py:232", shape=[n], max_abs_err=err,
+        ms=cuda_ms(lambda: state_columns.epoch_accounting(params, cols, just), inner=INNER),
+        device_ms=device_ms(lambda: state_columns.epoch_accounting(params, cols, just), ("phase0_",)),
+        plain_ms=cuda_ms(lambda: state_columns.epoch_accounting_ref(params, cols, just), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, work_validators=n,
+        bytes_per_validator=(col_bytes + 4 * 8 * n) / n, corners_checked=checked,
+    ))
+
+    # K2's batched entry at a full flush: 64 trees of 2^12 leaves; of 2^16
+    # timed only (phase 10 holds every root of that flush against the plain
+    # version)
+    timed = {}
+    for depth in FLUSH_DEPTHS:
+        words = torch.stack([merkle.chunks_to_words(torch.from_numpy(t).to(dev), 1 << depth)
+                             for t in ragged_flush(depth, MAX_BATCH, depth)])
+        hashes = MAX_BATCH * merkle.tree_real_hashes(depth)
+        b_ms, b_by = bound(32 * MAX_BATCH * ((1 << depth) + 1), hashes)
+        k_ms = cuda_ms(lambda: merkle.many_tree_root(words, depth), inner=INNER)
+        timed[depth] = dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by,
+                            device_ms=device_ms(lambda: merkle.many_tree_root(words, depth),
+                                                ("merkle_reduce_kernel",)),
+                            compressions_per_s=2 * hashes / (k_ms / 1e3))
+    d = FLUSH_DEPTHS[0]
+    words = torch.stack([merkle.chunks_to_words(torch.from_numpy(t).to(dev), 1 << d)
+                         for t in ragged_flush(d, MAX_BATCH, d)])
+    err = max_abs_err(merkle.many_tree_root(words, d), merkle.many_tree_root_ref(words, d))
+    for trees, depth in ((3, 0), (3, 1), (5, 9), (2, 10)):
+        if depth > d:
+            continue
+        w = words[:trees, : 1 << depth].contiguous()
+        max_abs_err(merkle.many_tree_root(w, depth), merkle.many_tree_root_ref(w, depth))
+    rows.append(dict(
+        name="merkle_many_tree_root", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/merkle.cu",
+        replaces="eth_consensus_specs_tpu/ops/merkle.py:97", shape=[MAX_BATCH, 1 << d, 8],
+        max_abs_err=err, ms=timed[d]["ms"], device_ms=timed[d]["device_ms"],
+        plain_ms=cuda_ms(lambda: merkle.many_tree_root_ref(words, d), 2),
+        bound_ms=timed[d]["bound_ms"], bound_by=timed[d]["bound_by"],
+        library_ms=None, work_compressions=2 * MAX_BATCH * ((1 << d) - 1),
+        compressions_per_s=timed[d]["compressions_per_s"], depth16=timed[FLUSH_DEPTHS[1]],
+    ))
+    return rows
+
+
+def run_shuffle(dev) -> tuple[dict, dict]:
+    """Phase 8: the committee shuffle at the registry's width, held against
+    the plain chain on the card and the numpy host form."""
+    import numpy as np
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.config import shuffle_round_count
+    from eth_consensus_specs_tpu_torch.ops import sha256, shuffle
+
+    rounds = shuffle_round_count("mainnet")
+    seeds = [shuffle_seed(i) for i in range(2)]
+    shuffle.shuffle_permutation_device(1000, seeds[0], rounds, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    perms, first = {}, {}
+    for n in SHUFFLE_SIZES:
+        for i, seed in enumerate(seeds):
+            t0 = time.perf_counter()
+            perms[n, i] = shuffle.shuffle_permutation_device(n, seed, rounds, device=dev)
+            torch.cuda.synchronize()
+            first[f"{n}:{i}"] = (time.perf_counter() - t0) * 1e3
+    launches = dict(_ext.launches)
+
+    host_s = {}
+    for (n, i), perm in perms.items():
+        seed = seeds[i]
+        chunks = (n + 255) // 256
+        piv = torch.tensor(shuffle.pivots(n, seed, rounds), dtype=torch.int32, device=dev)
+        plain = shuffle.shuffle_rounds_ref(
+            sha256.sha256_single_block_ref(shuffle.single_block_words(seed, rounds, chunks, dev)), piv, n)
+        _equal_or_raise(f"shuffle n={n} seed {i} vs the plain chain", [("perm", perm, plain)])
+        t0 = time.perf_counter()
+        host = shuffle.shuffle_permutation(n, seed, rounds)
+        host_s[f"{n}:{i}"] = time.perf_counter() - t0
+        if not np.array_equal(perm.cpu().numpy(), host):
+            raise RuntimeError(f"shuffle n={n} seed {i} differs from the numpy host form")
+
+    # the whole call and its parts at the registry's width
+    n, seed = N_VALIDATORS, seeds[1]
+    chunks = (n + 255) // 256
+    whole = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        shuffle.shuffle_permutation_device(n, seed, rounds, device=dev)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) * 1e3)
+    piv_ms = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        piv = torch.tensor(shuffle.pivots(n, seed, rounds), dtype=torch.int32).to(dev)
+        torch.cuda.synchronize()
+        piv_ms.append((time.perf_counter() - t0) * 1e3)
+    blocks_host = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        blocks = shuffle.single_block_words(seed, rounds, chunks, dev)
+        torch.cuda.synchronize()
+        blocks_host.append((time.perf_counter() - t0) * 1e3)
+    digests = sha256.sha256_single_block(blocks)
+    parts = dict(
+        pivots_host_ms=statistics.median(piv_ms), blocks_host_ms=statistics.median(blocks_host),
+        blocks_device_ms=cuda_ms(lambda: shuffle.single_block_words(seed, rounds, chunks, dev)),
+        k7_ms=cuda_ms(lambda: sha256.sha256_single_block(blocks)),
+        k8_ms=cuda_ms(lambda: shuffle.shuffle_rounds(digests, piv, n)),
+    )
+    ms = statistics.median(whole)
+    prof = device_profile(lambda: shuffle.shuffle_permutation_device(n, seed, rounds, device=dev))
+    summary = dict(
+        phase="shuffle", preset="mainnet", rounds=rounds, sizes=list(SHUFFLE_SIZES), seeds=2,
+        launches=launches, first_call_ms=first, ms=ms, ms_runs=whole, parts=parts,
+        device_busy_ms=prof["device_busy_ms"],
+        device_idle_share=(1 - prof["device_busy_ms"] / ms) if prof["device_busy_ms"] else None,
+        device_top_kernels=prof["top"], numpy_host_s=host_s,
+        equal_plain_chain=True, equal_numpy=True,
+    )
+    return summary, launches
+
+
+def run_epoch_phase0(dev) -> tuple[dict, dict]:
+    """Phase 9: 8 chained phase0 accounting epochs at 1,000,000 validators."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.config import phase0_epoch_params
+    from eth_consensus_specs_tpu_torch.inputs import example_inputs
+    from eth_consensus_specs_tpu_torch.ops.state_columns import epoch_accounting, epoch_accounting_ref
+
+    params = phase0_epoch_params("mainnet")
+    cols, just = example_inputs(PHASE0_VALIDATORS, device=dev)
+
+    def chain(c, fn=epoch_accounting, epochs=EPOCHS):
+        res = None
+        for _ in range(epochs):
+            res = fn(params, c, just)
+            c = c._replace(balance=res.balance, effective_balance=res.effective_balance)
+        return c, res
+
+    chain(cols)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for i in range(TIMED_RUNS):
+        if i == 0:
+            _ext.reset_launches()
+        t0 = time.perf_counter()
+        out, res = chain(cols)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / EPOCHS)
+        if i == 0:
+            launches = dict(_ext.launches)
+    ref_cols, ref_res = chain(cols, epoch_accounting_ref)
+    _equal_or_raise("phase0 epochs vs plain on the card",
+                    [(f"result.{f}", getattr(res, f), getattr(ref_res, f)) for f in res._fields]
+                    + [("cols.balance", out.balance, ref_cols.balance),
+                       ("cols.effective_balance", out.effective_balance, ref_cols.effective_balance)])
+    if not bool((out.balance != cols.balance).any()):
+        raise RuntimeError("phase0 epochs left every balance unchanged")
+
+    prof = device_profile(lambda: chain(cols))
+    per_epoch = per_call_ms(prof, EPOCHS)
+    busy = sum(per_epoch.values())
+    k9 = sum(ms for k, ms in per_epoch.items() if k.startswith("phase0_"))
+    s_cols, s_just = example_inputs(1024, device=dev)
+    gpu = epoch_accounting(params, s_cols, s_just)
+    cpu = epoch_accounting(params, *(type(x)(*(t.cpu() for t in x)) for x in (s_cols, s_just)))
+    _equal_or_raise("phase0 1,024 card vs CPU", [(f, getattr(gpu, f).cpu(), getattr(cpu, f))
+                                                 for f in gpu._fields])
+    ms = statistics.median(times)
+    summary = dict(
+        phase="epoch_phase0", fork="phase0", preset="mainnet", n_validators=PHASE0_VALIDATORS,
+        epochs=EPOCHS, ms_per_epoch=ms, ms_per_epoch_runs=times, launches=launches,
+        launches_per_epoch={k: v / EPOCHS for k, v in launches.items()},
+        device_busy_ms_per_epoch=busy, k9_ms_per_epoch=k9,
+        k9_share_of_busy=k9 / busy if busy else None, k9_share_of_epoch=k9 / ms,
+        device_idle_share=(1 - busy / ms) if busy else None, device_top_kernels=prof["top"], equal_plain=True, n1024_equal_cpu=True,
+        finalized_epoch=int(res.finalized_epoch),
+    )
+    return summary, launches
+
+
+def run_merkle_many(dev) -> tuple[dict, dict]:
+    """Phase 10: a full serving flush of ragged subtrees at depths 12 and 16."""
+    import numpy as np
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.config import MAX_BATCH
+    from eth_consensus_specs_tpu_torch.ops import merkle
+
+    flushes = {d: ragged_flush(d, MAX_BATCH, 100 + d) for d in FLUSH_DEPTHS}
+    merkle.merkleize_many_device([t[:16] for t in flushes[FLUSH_DEPTHS[0]][:2]], 4, pad_batch=2,
+                                 device=dev)  # warm-up
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    roots, flush_ms = {}, {}
+    for d, trees in flushes.items():
+        t0 = time.perf_counter()
+        roots[d] = merkle.merkleize_many_device(trees, d, pad_batch=MAX_BATCH, device=dev)
+        flush_ms[d] = (time.perf_counter() - t0) * 1e3
+    launches = dict(_ext.launches)
+
+    per_depth = {}
+    for d, trees in flushes.items():
+        words = torch.stack([merkle.chunks_to_words(torch.from_numpy(t).to(dev), 1 << d) for t in trees])
+        plain = merkle.many_tree_root_ref(words, d).cpu().numpy().view(np.uint32).astype(">u4")
+        if [r.tobytes() for r in plain] != roots[d]:
+            raise RuntimeError(f"merkle_many depth {d}: a root differs from the plain reduction")
+        if hashlib_tree_root(merkle.chunks_to_words(trees[1], 1 << d).numpy().view(np.uint32)) != roots[d][1]:
+            raise RuntimeError(f"merkle_many depth {d}: tree 1's root differs from hashlib")
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            merkle.merkleize_many_device(trees, d, pad_batch=MAX_BATCH, device=dev)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        per_depth[d] = dict(first_flush_ms=flush_ms[d], flush_ms=statistics.median(runs), flush_runs=runs,
+                            kernel_ms=cuda_ms(lambda: merkle.many_tree_root(words, d), inner=INNER),
+                            chunks=sum(len(t) for t in trees), trees=len(trees))
+    summary = dict(phase="merkle_many", trees=MAX_BATCH, depths=list(FLUSH_DEPTHS), launches=launches,
+                   per_depth=per_depth, equal_plain=True, hashlib_checked=True)
+    return summary, launches
+
+
+
 def main() -> int:
     import torch
 
@@ -830,24 +1208,31 @@ def main() -> int:
     report = _ext.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0, kernels=report))
 
-    rows = check_kernels(dev) + check_forest_kernels(dev)
-    emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi))
+    t0 = time.perf_counter()
+    rows = check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
+    emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,
+              phase_s=time.perf_counter() - t0))
 
     by_path = {}
     for path, phase in (("state", run_main_path), ("state_inc", run_state_inc),
-                        ("dirty_registry", run_dirty_registry), ("durability", run_durability)):
+                        ("dirty_registry", run_dirty_registry), ("durability", run_durability),
+                        ("shuffle", run_shuffle), ("epoch_phase0", run_epoch_phase0),
+                        ("merkle_many", run_merkle_many)):
+        t0 = time.perf_counter()
         summary, by_path[path] = phase(dev)
+        summary["phase_s"] = time.perf_counter() - t0
         summary["nvidia_smi"] = smi
         emit(summary)
 
     for r in rows:
         key = _KERNEL_OF[r["name"]]
-        r["launches"] = by_path["state_inc"].get(key, 0)
+        r["launches"] = by_path[_PATH_OF.get(r["name"], "state_inc")].get(key, 0)
         r["launches_by_path"] = {path: counts.get(key, 0) for path, counts in by_path.items()}
     missing = [r["name"] for r in rows if not any(r["launches_by_path"].values())]
+    missing += [r["name"] for r in rows if r["name"] in _PATH_OF and not r["launches"]]
     emit({"kernels": rows})
     if missing:
-        raise RuntimeError(f"kernels never launched on any path: {missing}")
+        raise RuntimeError(f"kernels never launched on their paths: {missing}")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})
     return 0
@@ -856,7 +1241,12 @@ def main() -> int:
 _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
               "validator_leaves": "validator_leaves", "altair_epoch": "altair_epoch",
               "merkle_levels": "merkle_levels", "merkle_inc": "merkle_inc",
-              "validator_leaves_at": "validator_leaves_at"}
+              "validator_leaves_at": "validator_leaves_at",
+              "sha256_single_block": "sha256_single_block", "shuffle_rounds": "shuffle",
+              "phase0_epoch": "state_columns", "merkle_many_tree_root": "merkle_many"}
+# the path whose counts a kernel's row reports, where it is not state_inc
+_PATH_OF = {"sha256_single_block": "shuffle", "shuffle_rounds": "shuffle",
+            "phase0_epoch": "epoch_phase0", "merkle_many_tree_root": "merkle_many"}
 
 
 if __name__ == "__main__":

@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc")
+KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
+           "shuffle", "state_columns")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -38,8 +39,8 @@ NVCC_FLAGS = (
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # C entry points: argument types before the trailing stream pointer
 SIGNATURES = {
-    "sha256": {"sha256_pairs_launch": [_P, _P, _I64]},
-    "merkle": {"merkle_reduce_launch": [_P, _P, _I64, _I32]},
+    "sha256": {"sha256_pairs_launch": [_P, _P, _I64], "sha256_single_block_launch": [_P, _P, _I64]},
+    "merkle": {"merkle_reduce_launch": [_P, _P, _I64, _I64, _I32]},
     "validator_leaves": {
         "validator_leaves_launch": [_P, _P, _P, _P, _P, _I64, _P, _I32],
         "validator_leaves_at_launch": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
@@ -49,6 +50,10 @@ SIGNATURES = {
     "merkle_inc": {
         "merkle_dirty_launch": [_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P, _I32],
         "merkle_path_update_launch": [_P, _I32, _P, _I32, _P, _P, _I32],
+    },
+    "shuffle": {"shuffle_rounds_launch": [_P, _P, _P, _I64, _I32, _I64]},
+    "state_columns": {
+        "phase0_sums_launch": [_P], "phase0_proposer_launch": [_P], "phase0_apply_launch": [_P],
     },
 }
 

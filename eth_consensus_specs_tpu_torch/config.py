@@ -6,10 +6,14 @@ package's ``AltairEpochParams.from_spec(get_spec(fork, preset))`` reads
 them, and the ``BeaconState`` field order of each fork. The tests hold
 every entry here against the JAX package's spec objects.
 
-It also keeps the incremental forest's dirty-capacity buckets and the
+It also keeps the phase0 accounting-epoch constants
+(``EpochParams.from_spec(get_spec("phase0", preset))``), the shuffle's
+round count, the incremental forest's dirty-capacity buckets and the
 sparse/dense crossover model of ``serve/buckets.py`` (:118-169), with the
 same environment reads, so the port plans the same forest as the JAX
-package.
+package, and the serving layer's flush buckets that the batched subtree
+roots are padded to (``serve/config.py`` :149, :154; ``serve/buckets.py``
+:47).
 """
 
 from __future__ import annotations
@@ -65,6 +69,47 @@ _COMMON = dict(
 _SLASHINGS_VECTOR = {"mainnet": 8192, "minimal": 64}
 _ELECTRA = {"deneb": False, "electra": True}
 
+
+@dataclass(frozen=True)
+class EpochParams:
+    """Constants of the phase0 accounting epoch, under the JAX package's
+    field names (``ops/state_columns.py`` ``EpochParams``)."""
+
+    effective_balance_increment: int
+    base_reward_factor: int
+    base_rewards_per_epoch: int
+    proposer_reward_quotient: int
+    min_epochs_to_inactivity_penalty: int
+    inactivity_penalty_quotient: int
+    proportional_slashing_multiplier: int
+    epochs_per_slashings_vector: int
+    hysteresis_quotient: int
+    hysteresis_downward_multiplier: int
+    hysteresis_upward_multiplier: int
+    max_effective_balance: int
+
+
+_PHASE0_COMMON = dict(
+    effective_balance_increment=1_000_000_000,
+    base_reward_factor=64,
+    base_rewards_per_epoch=4,
+    proposer_reward_quotient=8,
+    min_epochs_to_inactivity_penalty=4,
+    hysteresis_quotient=4,
+    hysteresis_downward_multiplier=1,
+    hysteresis_upward_multiplier=5,
+    max_effective_balance=32_000_000_000,
+)
+# the phase0 presets differ in these three only
+_PHASE0_PRESET = {
+    "mainnet": dict(inactivity_penalty_quotient=1 << 26, proportional_slashing_multiplier=1,
+                    epochs_per_slashings_vector=8192),
+    "minimal": dict(inactivity_penalty_quotient=1 << 25, proportional_slashing_multiplier=2,
+                    epochs_per_slashings_vector=64),
+}
+# SHUFFLE_ROUND_COUNT of each preset
+SHUFFLE_ROUND_COUNT = {"mainnet": 90, "minimal": 10}
+
 _DENEB_FIELDS = (
     "genesis_time", "genesis_validators_root", "slot", "fork",
     "latest_block_header", "block_roots", "state_roots", "historical_roots",
@@ -100,6 +145,20 @@ def epoch_params(fork: str, preset: str) -> AltairEpochParams:
     )
 
 
+def phase0_epoch_params(preset: str) -> EpochParams:
+    """The phase0 accounting-epoch constants under ``preset``."""
+    if preset not in _PHASE0_PRESET:
+        raise ValueError(f"unsupported preset {preset!r}")
+    return EpochParams(**_PHASE0_COMMON, **_PHASE0_PRESET[preset])
+
+
+def shuffle_round_count(preset: str) -> int:
+    """SHUFFLE_ROUND_COUNT of ``preset``."""
+    if preset not in SHUFFLE_ROUND_COUNT:
+        raise ValueError(f"unsupported preset {preset!r}")
+    return SHUFFLE_ROUND_COUNT[preset]
+
+
 def state_fields(fork: str) -> tuple:
     """``BeaconState`` field names of ``fork``, in container order."""
     if fork not in _FIELDS:
@@ -110,6 +169,18 @@ def state_fields(fork: str) -> tuple:
 def top_depth(fork: str) -> int:
     """Depth of the ``BeaconState`` container tree (28 fields -> 5, 37 -> 6)."""
     return max(len(state_fields(fork)) - 1, 0).bit_length()
+
+
+# ------------------------------------------------ serving flush buckets --
+#
+# The serving layer flushes hash requests in batches padded up to one of
+# these sizes, so the batched subtree root (ops/merkle.py
+# merkleize_many_device) sees few shapes; a subtree goes to the card once a
+# flush holds at least DEVICE_SUBTREE_THRESHOLD leaf chunks.
+
+DEVICE_SUBTREE_THRESHOLD = 4096
+FLUSH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+MAX_BATCH = 64
 
 
 # ------------------------------------------- incremental dirty buckets --

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .ops.altair_epoch import AltairEpochColumns
-from .ops.state_columns import JustificationState
+from .ops.state_columns import EpochColumns, JustificationState
 from .ops.state_root import ForestPlan, StateForest, StateRootMeta, arrays_from_host
 
 _SIGNED = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
@@ -41,6 +41,12 @@ def columns_from_numpy(cols, just, device):
     """(AltairEpochColumns, JustificationState) of the port from the JAX
     package's columns and justification state."""
     return _convert(AltairEpochColumns, cols, device), _convert(JustificationState, just, device)
+
+
+def phase0_columns_from_numpy(cols, just, device):
+    """(EpochColumns, JustificationState) of the port from the JAX
+    package's phase0 columns and justification state."""
+    return _convert(EpochColumns, cols, device), _convert(JustificationState, just, device)
 
 
 def static_from_numpy(arrays, meta, device):

@@ -17,8 +17,11 @@
 //       target, head; inactivity; slashing) and its effective balance with
 //       hysteresis. Thread 0 writes the justification outputs.
 // All arithmetic is uint64_t, wrapping exactly as the JAX uint64 lanes do.
+// isqrt_u64, the justification update and the block sums are shared with
+// K9 through epoch_common.cuh.
 // Bound on the H100: memory, about 83 bytes read or written per validator.
 #include "common.cuh"
+#include "epoch_common.cuh"
 
 struct EpochArgs {
   // constants (AltairEpochParams), weights in flag order source, target, head
@@ -36,52 +39,18 @@ struct EpochArgs {
   const uint8_t *prev_flags, *cur_tgt;
   const uint64_t* scores;
   const uint64_t* max_eb;  // per-validator ceiling, or null for the constant
-  // justification state
-  const uint64_t* cur_epoch;
-  const uint8_t* bits;
-  const uint64_t* prev_je;
-  const uint8_t* prev_jr;
-  const uint64_t* cur_je;
-  const uint8_t* cur_jr;
-  const uint64_t* fin_e;
-  const uint8_t* fin_r;
-  const uint8_t *block_root_prev, *block_root_cur;
-  const uint64_t* slashings_sum;
+  JustState just;
   // the five sums of launch (a), zeroed by the caller
   unsigned long long* sums;
   // outputs
   uint64_t *out_bal, *out_eff, *out_scores;
-  uint8_t* out_bits;
-  uint64_t* out_prev_je;
-  uint8_t* out_prev_jr;
-  uint64_t* out_cur_je;
-  uint8_t* out_cur_jr;
-  uint64_t* out_fin_e;
-  uint8_t* out_fin_r;
+  JustOutputs out_just;
 };
-
-__device__ __forceinline__ uint64_t umin(uint64_t a, uint64_t b) { return a < b ? a : b; }
-__device__ __forceinline__ uint64_t umax(uint64_t a, uint64_t b) { return a < b ? b : a; }
-
-// integer_squareroot: float64 seed, then two corrections each way
-// (ops/state_columns.py isqrt_u64).
-__device__ uint64_t isqrt_u64(uint64_t x) {
-  uint64_t r = umin(static_cast<uint64_t>(sqrt(__ull2double_rn(x))), 0xFFFFFFFFull);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    if (r > 0 && r * r > x) r -= 1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint64_t rp = r + 1;
-    if (rp <= 0xFFFFFFFFull && rp * rp <= x) r = rp;
-  }
-  return r;
-}
 
 constexpr int kSums = 5;  // total active, prev source, prev target, prev head, cur target
 
 __global__ void epoch_sums_kernel(EpochArgs a) {
-  const uint64_t cur = *a.cur_epoch;
+  const uint64_t cur = *a.just.cur_epoch;
   const uint64_t prev = cur > 0 ? cur - 1 : 0;
   uint64_t s[kSums] = {0, 0, 0, 0, 0};
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < a.n;
@@ -97,35 +66,14 @@ __global__ void epoch_sums_kernel(EpochArgs a) {
       if (active_prev && ((flags >> k) & 1u) && unslashed) s[1 + k] += e;
     if (active_cur && a.cur_tgt[i] && unslashed) s[4] += e;
   }
-  __shared__ uint64_t part[32][kSums];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    for (int off = 16; off > 0; off >>= 1) s[k] += __shfl_down_sync(0xFFFFFFFFu, s[k], off);
-    if (lane == 0) part[warp][k] = s[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int warps = blockDim.x >> 5;
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) {
-      uint64_t v = lane < warps ? part[lane][k] : 0;
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, off);
-      if (lane == 0) atomicAdd(a.sums + k, static_cast<unsigned long long>(v));
-    }
-  }
-}
-
-__device__ __forceinline__ void copy_root(uint8_t* dst, const uint8_t* src) {
-#pragma unroll
-  for (int b = 0; b < 32; ++b) dst[b] = src[b];
+  block_sums_atomic<kSums>(s, a.sums);
 }
 
 __global__ void epoch_apply_kernel(EpochArgs a) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const uint64_t incr = a.incr;
-  const uint64_t cur = *a.cur_epoch;
+  const uint64_t cur = *a.just.cur_epoch;
   const uint64_t prev = cur > 0 ? cur - 1 : 0;
   const uint64_t total = umax(a.sums[0], incr);
   uint64_t part_bal[3];
@@ -134,33 +82,8 @@ __global__ void epoch_apply_kernel(EpochArgs a) {
   const uint64_t cur_tgt_bal = umax(a.sums[4], incr);
 
   // -- justification and finalization (weigh_justification_and_finalization)
-  const bool do_justif = cur > 1;
-  const bool old_b0 = a.bits[0], old_b1 = a.bits[1], old_b2 = a.bits[2], old_b3 = a.bits[3];
-  const uint64_t old_prev_je = *a.prev_je, old_cur_je = *a.cur_je, old_fin_e = *a.fin_e;
-  const bool just_prev = part_bal[1] * 3 >= total * 2;
-  const bool just_cur = cur_tgt_bal * 3 >= total * 2;
-  const bool b0 = just_cur, b1 = old_b0 || just_prev, b2 = old_b1, b3 = old_b2;
-  const uint64_t new_cur_je = just_cur ? cur : (just_prev ? prev : old_cur_je);
-  const uint8_t* new_cur_jr = just_cur ? a.block_root_cur : (just_prev ? a.block_root_prev : a.cur_jr);
-  uint64_t fin_e = old_fin_e;
-  const uint8_t* fin_r = a.fin_r;
-  if (b1 && b2 && b3 && old_prev_je + 3 == cur) { fin_e = old_prev_je; fin_r = a.prev_jr; }
-  if (b1 && b2 && old_prev_je + 2 == cur) { fin_e = old_prev_je; fin_r = a.prev_jr; }
-  if (b0 && b1 && b2 && old_cur_je + 2 == cur) { fin_e = old_cur_je; fin_r = a.cur_jr; }
-  if (b0 && b1 && old_cur_je + 1 == cur) { fin_e = old_cur_je; fin_r = a.cur_jr; }
-  const uint64_t out_fin_e = do_justif ? fin_e : old_fin_e;
-  if (i == 0) {
-    a.out_bits[0] = do_justif ? b0 : old_b0;
-    a.out_bits[1] = do_justif ? b1 : old_b1;
-    a.out_bits[2] = do_justif ? b2 : old_b2;
-    a.out_bits[3] = do_justif ? b3 : old_b3;
-    *a.out_prev_je = do_justif ? old_cur_je : old_prev_je;
-    copy_root(a.out_prev_jr, do_justif ? a.cur_jr : a.prev_jr);
-    *a.out_cur_je = do_justif ? new_cur_je : old_cur_je;
-    copy_root(a.out_cur_jr, do_justif ? new_cur_jr : a.cur_jr);
-    *a.out_fin_e = out_fin_e;
-    copy_root(a.out_fin_r, do_justif ? fin_r : a.fin_r);
-  }
+  const uint64_t out_fin_e =
+      justification_update(a.just, a.out_just, part_bal[1], cur_tgt_bal, total, i == 0);
   const bool in_leak = prev - out_fin_e > a.min_epochs_to_inactivity_penalty;
   const bool do_acc = cur > 0;
 
@@ -206,7 +129,7 @@ __global__ void epoch_apply_kernel(EpochArgs a) {
   bal -= umin(bal, (do_acc && eligible && !part[1]) ? pen_inact : 0);
 
   // slashings sweep
-  const uint64_t adj = umin(*a.slashings_sum * a.proportional_slashing_multiplier, total);
+  const uint64_t adj = umin(*a.just.slashings_sum * a.proportional_slashing_multiplier, total);
   const bool slash_now = slashed && cur + a.epochs_per_slashings_vector / 2 == wd;
   const uint64_t slash_penalty = a.electra_slashing
                                      ? adj / (total / incr) * (eff / incr)

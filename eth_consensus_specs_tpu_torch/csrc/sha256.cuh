@@ -94,10 +94,15 @@ __device__ __forceinline__ void sha256_compress_pad(uint32_t st[8]) {
   st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
+// st = the initial hash value.
+__device__ __forceinline__ void sha256_init(uint32_t st[8]) {
+  st[0] = 0x6A09E667u; st[1] = 0xBB67AE85u; st[2] = 0x3C6EF372u; st[3] = 0xA54FF53Au;
+  st[4] = 0x510E527Fu; st[5] = 0x9B05688Cu; st[6] = 0x1F83D9ABu; st[7] = 0x5BE0CD19u;
+}
+
 // out = SHA-256(w[0..16]) for one 64-byte message; w is clobbered.
 __device__ __forceinline__ void sha256_pair(uint32_t w[16], uint32_t out[8]) {
-  out[0] = 0x6A09E667u; out[1] = 0xBB67AE85u; out[2] = 0x3C6EF372u; out[3] = 0xA54FF53Au;
-  out[4] = 0x510E527Fu; out[5] = 0x9B05688Cu; out[6] = 0x1F83D9ABu; out[7] = 0x5BE0CD19u;
+  sha256_init(out);
   sha256_compress(out, w);
   sha256_compress_pad(out);
 }

@@ -1,10 +1,10 @@
 """Deterministic example inputs, made without the JAX package.
 
-The port's own copy of ``__graft_entry__._example_inputs`` and
+The port's own copy of ``__graft_entry__._example_inputs`` (phase0) and
 ``_example_altair_inputs``: the same numpy generators (seeds 1234 and
 4321) drawn in the same order, so the columns are identical to the JAX
-package's at every size. ``chip_smoke.py`` builds its 2^20-validator state
-from these and ``ops.state_root.synthetic_static``.
+package's at every size. ``chip_smoke.py`` builds its states from these and
+``ops.state_root.synthetic_static``.
 """
 
 from __future__ import annotations
@@ -14,11 +14,12 @@ import torch
 
 from .device import default_device
 from .ops.altair_epoch import AltairEpochColumns
-from .ops.state_columns import JustificationState
+from .ops.state_columns import EpochColumns, JustificationState
 
 U64_MAX = np.iinfo(np.uint64).max
 HALF_SLASHINGS_VECTOR = 4096  # EPOCHS_PER_SLASHINGS_VECTOR // 2, mainnet
 ALTAIR_CORNERS = ("epoch0", "epoch1", "epoch2", "leak", "all_slashed", "far_future_wide")
+PHASE0_CORNERS = ALTAIR_CORNERS
 
 
 def _t(a: np.ndarray, dev) -> torch.Tensor:
@@ -28,15 +29,10 @@ def _t(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-def example_altair_inputs(n_validators: int, epoch: int = 10, electra: bool = False, device=None):
-    """(AltairEpochColumns, JustificationState) of ``n_validators`` on
-    ``device``: spec-plausible columns with FAR_FUTURE_EPOCH exits, ~1%
-    slashed (half of them inside the correlated-slashing window), random
-    participation flags and scores; with ``electra``, ~10% of validators
-    carry the 2048 ETH ceiling."""
-    dev = default_device(device)
+def _phase0_numpy(n: int, epoch: int, half_vector: int) -> dict:
+    """The phase0 columns of ``_example_inputs`` as numpy arrays, drawn from
+    ``default_rng(1234)`` in its order."""
     rng = np.random.default_rng(1234)
-    n = n_validators
     max_eff = np.uint64(32_000_000_000)
     incr = np.uint64(1_000_000_000)
     eff = (rng.integers(17, 33, n).astype(np.uint64)) * incr
@@ -49,12 +45,63 @@ def example_altair_inputs(n_validators: int, epoch: int = 10, electra: bool = Fa
     wd = np.full(n, U64_MAX, np.uint64)
     in_window = slashed & (rng.random(n) < 0.5)
     wd[slashed] = epoch + 4  # slashed but outside the penalty window
-    wd[in_window] = epoch + HALF_SLASHINGS_VECTOR  # penalty applies
+    wd[in_window] = epoch + half_vector  # penalty applies
     src = rng.random(n) < 0.9
     tgt = src & (rng.random(n) < 0.95)
-    _head = tgt & (rng.random(n) < 0.9)  # drawn to keep the generator in step
+    head = tgt & (rng.random(n) < 0.9)
     cur_tgt = rng.random(n) < 0.8
+    delay = rng.integers(1, 9, n).astype(np.uint64)
+    proposer = rng.integers(0, n, n)
+    return dict(
+        effective_balance=np.minimum(eff, max_eff), balance=bal, slashed=slashed,
+        activation_epoch=act, exit_epoch=exitep, withdrawable_epoch=wd, src_att=src,
+        tgt_att=tgt, head_att=head, cur_tgt_att=cur_tgt, incl_delay=delay,
+        incl_proposer=proposer,
+    )
 
+
+def _example_just(epoch: int, dev) -> JustificationState:
+    def root(b: int) -> torch.Tensor:
+        return torch.full((32,), b, dtype=torch.uint8, device=dev)
+
+    def u64(v: int) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
+    return JustificationState(
+        current_epoch=u64(epoch),
+        justification_bits=torch.tensor([True, True, False, False], device=dev),
+        prev_justified_epoch=u64(epoch - 2),
+        prev_justified_root=root(1),
+        cur_justified_epoch=u64(epoch - 1),
+        cur_justified_root=root(2),
+        finalized_epoch=u64(epoch - 3),
+        finalized_root=root(3),
+        block_root_prev=root(4),
+        block_root_cur=root(5),
+        slashings_sum=u64(64_000_000_000),
+    )
+
+
+def example_inputs(n_validators: int, epoch: int = 10,
+                   slashings_half_vector: int = HALF_SLASHINGS_VECTOR, device=None):
+    """(EpochColumns, JustificationState) of ``n_validators`` on ``device``:
+    the phase0 columns of ``__graft_entry__._example_inputs``, with
+    FAR_FUTURE_EPOCH exits, ~1% slashed (half of them inside the
+    correlated-slashing window of ``slashings_half_vector`` epochs),
+    attestation masks, inclusion delays 1-8 and random includers."""
+    dev = default_device(device)
+    cols = _phase0_numpy(n_validators, epoch, slashings_half_vector)
+    return EpochColumns(**{k: _t(v, dev) for k, v in cols.items()}), _example_just(epoch, dev)
+
+
+def example_altair_inputs(n_validators: int, epoch: int = 10, electra: bool = False, device=None):
+    """(AltairEpochColumns, JustificationState) of ``n_validators`` on
+    ``device``: the phase0 example's registry with random participation
+    flags and scores in place of the attestation masks; with ``electra``,
+    ~10% of validators carry the 2048 ETH ceiling."""
+    dev = default_device(device)
+    n = n_validators
+    base = _phase0_numpy(n, epoch, HALF_SLASHINGS_VECTOR)
     rng = np.random.default_rng(4321)
     prev_flags = (
         rng.integers(0, 2, n) * 1 + rng.integers(0, 2, n) * 2 + rng.integers(0, 2, n) * 4
@@ -68,38 +115,47 @@ def example_altair_inputs(n_validators: int, epoch: int = 10, electra: bool = Fa
     scores = rng.integers(0, 50, n).astype(np.uint64)
 
     cols = AltairEpochColumns(
-        effective_balance=_t(np.minimum(eff, max_eff), dev),
-        balance=_t(bal, dev),
-        slashed=_t(slashed, dev),
-        activation_epoch=_t(act, dev),
-        exit_epoch=_t(exitep, dev),
-        withdrawable_epoch=_t(wd, dev),
+        **{k: _t(base[k], dev) for k in AltairEpochColumns._fields if k in base},
         prev_flags=_t(prev_flags, dev),
-        cur_tgt_att=_t(cur_tgt, dev),
         inactivity_scores=_t(scores, dev),
         max_effective_balance=None if max_eb is None else _t(max_eb, dev),
     )
+    return cols, _example_just(epoch, dev)
 
-    def root(b: int) -> torch.Tensor:
-        return torch.full((32,), b, dtype=torch.uint8, device=dev)
 
+def _corner(case: str, n: int, make, half_vector: int, dev):
+    """The corner ``case`` of the columns ``make(epoch)`` builds; the
+    caller widens its own fork-specific columns for ``far_future_wide``."""
     def u64(v: int) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.int64, device=dev)
 
-    just = JustificationState(
-        current_epoch=u64(epoch),
-        justification_bits=torch.tensor([True, True, False, False], device=dev),
-        prev_justified_epoch=u64(epoch - 2),
-        prev_justified_root=root(1),
-        cur_justified_epoch=u64(epoch - 1),
-        cur_justified_root=root(2),
-        finalized_epoch=u64(epoch - 3),
-        finalized_root=root(3),
-        block_root_prev=root(4),
-        block_root_cur=root(5),
-        slashings_sum=u64(64_000_000_000),
-    )
-    return cols, just
+    if case in ("epoch0", "epoch1", "epoch2"):
+        cols, just = make(3)
+        return cols, just._replace(current_epoch=u64(int(case[5:])), prev_justified_epoch=u64(0),
+                                   cur_justified_epoch=u64(0), finalized_epoch=u64(0))
+    if case == "leak":
+        cols, just = make(100)
+        return cols, just._replace(justification_bits=torch.zeros_like(just.justification_bits),
+                                   prev_justified_epoch=u64(3), cur_justified_epoch=u64(3),
+                                   finalized_epoch=u64(3))
+    epoch = 10
+    cols, just = make(epoch)
+    even = torch.arange(n, device=dev) % 2 == 0
+    if case == "all_slashed":
+        return cols._replace(
+            slashed=torch.ones_like(cols.slashed),
+            withdrawable_epoch=torch.where(even, u64(epoch + half_vector), u64(epoch + 4)),
+        ), just
+    if case == "far_future_wide":
+        far = u64(-1)  # FAR_FUTURE_EPOCH = 2**64 - 1 in an int64 lane
+        idx = torch.arange(n, device=dev)
+        in_window = cols.slashed & even
+        return cols._replace(
+            activation_epoch=torch.where(idx % 5 == 0, far, cols.activation_epoch),
+            exit_epoch=far.expand(n).clone(),
+            withdrawable_epoch=torch.where(in_window, u64(epoch + half_vector), far),
+        ), just._replace(slashings_sum=u64(1 << 62))
+    raise ValueError(f"unknown corner {case!r}; expected one of {ALTAIR_CORNERS}")
 
 
 def altair_corner_inputs(case: str, n_validators: int, electra: bool = False, device=None):
@@ -116,40 +172,35 @@ def altair_corner_inputs(case: str, n_validators: int, electra: bool = False, de
       and the dividends pass 2^63.
     """
     dev = default_device(device)
-    if case.startswith("epoch"):
-        cols, just = example_altair_inputs(n_validators, epoch=3, electra=electra, device=dev)
-        zero = torch.tensor(0, dtype=torch.int64, device=dev)
-        return cols, just._replace(current_epoch=torch.tensor(int(case[5:]), dtype=torch.int64, device=dev),
-                                   prev_justified_epoch=zero, cur_justified_epoch=zero, finalized_epoch=zero)
-    if case == "leak":
-        cols, just = example_altair_inputs(n_validators, epoch=100, electra=electra, device=dev)
-        three = torch.tensor(3, dtype=torch.int64, device=dev)
-        return cols, just._replace(justification_bits=torch.zeros_like(just.justification_bits),
-                                   prev_justified_epoch=three, cur_justified_epoch=three,
-                                   finalized_epoch=three)
-    epoch = 10
-    cols, just = example_altair_inputs(n_validators, epoch=epoch, electra=electra, device=dev)
-    even = torch.arange(n_validators, device=dev) % 2 == 0
-
-    def u64(v: int) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.int64, device=dev)
-
-    if case == "all_slashed":
-        return cols._replace(
-            slashed=torch.ones_like(cols.slashed),
-            withdrawable_epoch=torch.where(even, u64(epoch + HALF_SLASHINGS_VECTOR), u64(epoch + 4)),
-        ), just
+    cols, just = _corner(case, n_validators, lambda e: example_altair_inputs(
+        n_validators, epoch=e, electra=electra, device=dev), HALF_SLASHINGS_VECTOR, dev)
     if case == "far_future_wide":
-        far = u64(-1)  # FAR_FUTURE_EPOCH = 2**64 - 1 in an int64 lane
         idx = torch.arange(n_validators, device=dev)
-        in_window = cols.slashed & even
-        return cols._replace(
-            activation_epoch=torch.where(idx % 5 == 0, far, cols.activation_epoch),
-            exit_epoch=far.expand(n_validators).clone(),
-            withdrawable_epoch=torch.where(in_window, u64(epoch + HALF_SLASHINGS_VECTOR), far),
-            inactivity_scores=torch.where(idx % 3 == 0, u64(1 << 40), cols.inactivity_scores),
-        ), just._replace(slashings_sum=u64(1 << 62))
-    raise ValueError(f"unknown corner {case!r}; expected one of {ALTAIR_CORNERS}")
+        cols = cols._replace(inactivity_scores=torch.where(
+            idx % 3 == 0, torch.tensor(1 << 40, device=dev), cols.inactivity_scores))
+    return cols, just
+
+
+def phase0_corner_inputs(case: str, n_validators: int,
+                         slashings_half_vector: int = HALF_SLASHINGS_VECTOR, device=None):
+    """``example_inputs`` bent to one corner of the phase0 accounting epoch
+    (a name of ``PHASE0_CORNERS``), as ``altair_corner_inputs`` bends the
+    altair columns; ``far_future_wide`` also gives every third attester an
+    inclusion delay of 2^40 and a seventh of the includers indices below 0
+    and past the registry, which the proposer scatter clips."""
+    dev = default_device(device)
+    n = n_validators
+    cols, just = _corner(case, n, lambda e: example_inputs(
+        n, epoch=e, slashings_half_vector=slashings_half_vector, device=dev),
+        slashings_half_vector, dev)
+    if case == "far_future_wide":
+        idx = torch.arange(n, device=dev)
+        prop = torch.where(idx % 7 == 0, -1 - idx, cols.incl_proposer)
+        cols = cols._replace(
+            incl_delay=torch.where(idx % 3 == 0, torch.tensor(1 << 40, device=dev), cols.incl_delay),
+            incl_proposer=torch.where(idx % 7 == 1, n + idx, prop),
+        )
+    return cols, just
 
 
 def lower_balances(cols: AltairEpochColumns, every: int = 256, gwei: int = 2_000_000_000):

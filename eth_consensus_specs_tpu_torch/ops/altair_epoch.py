@@ -19,7 +19,9 @@ import torch
 from .. import _ext
 from ..config import AltairEpochParams
 from ..lanes import udiv64, ule64, ult64, umin64, umod64
-from .state_columns import JustificationState, isqrt_u64, justification_update, total_balance
+from .state_columns import (
+    JUST_DTYPES, JustificationState, empty_justification, isqrt_u64, justification_update,
+    total_balance)
 
 
 class AltairEpochColumns(NamedTuple):
@@ -190,14 +192,6 @@ _COLUMN_DTYPES = {
     "cur_tgt_att": torch.bool, "inactivity_scores": torch.int64,
     "max_effective_balance": torch.int64,
 }
-_JUST_DTYPES = {
-    "current_epoch": (torch.int64, ()), "justification_bits": (torch.bool, (4,)),
-    "prev_justified_epoch": (torch.int64, ()), "prev_justified_root": (torch.uint8, (32,)),
-    "cur_justified_epoch": (torch.int64, ()), "cur_justified_root": (torch.uint8, (32,)),
-    "finalized_epoch": (torch.int64, ()), "finalized_root": (torch.uint8, (32,)),
-    "block_root_prev": (torch.uint8, (32,)), "block_root_cur": (torch.uint8, (32,)),
-    "slashings_sum": (torch.int64, ()),
-}
 
 
 def altair_epoch_accounting(
@@ -216,24 +210,12 @@ def altair_epoch_accounting(
         t = getattr(cols, name)
         if t is not None:
             _ext.check_cuda(t, dtype, (n,))
-    for name, (dtype, shape) in _JUST_DTYPES.items():
+    for name, (dtype, shape) in JUST_DTYPES.items():
         _ext.check_cuda(getattr(just, name), dtype, shape)
     dev = cols.balance.device
-
-    def scalar(dtype, shape=()):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
     out = AltairEpochResult(
-        balance=torch.empty_like(cols.balance),
-        effective_balance=torch.empty_like(cols.effective_balance),
-        inactivity_scores=torch.empty_like(cols.inactivity_scores),
-        justification_bits=scalar(torch.bool, (4,)),
-        prev_justified_epoch=scalar(torch.int64),
-        prev_justified_root=scalar(torch.uint8, (32,)),
-        cur_justified_epoch=scalar(torch.int64),
-        cur_justified_root=scalar(torch.uint8, (32,)),
-        finalized_epoch=scalar(torch.int64),
-        finalized_root=scalar(torch.uint8, (32,)),
+        torch.empty_like(cols.balance), torch.empty_like(cols.effective_balance),
+        torch.empty_like(cols.inactivity_scores), *empty_justification(dev),
     )
     sums = torch.zeros(5, dtype=torch.int64, device=dev)
     w0, w1, w2 = p.weights
@@ -250,7 +232,7 @@ def altair_epoch_accounting(
         p.hysteresis_upward_multiplier, p.max_effective_balance, int(p.electra_slashing),
         n,
         *(addr(getattr(cols, name)) for name in _COLUMN_DTYPES),
-        *(addr(getattr(just, name)) for name in _JUST_DTYPES),
+        *(addr(getattr(just, name)) for name in JUST_DTYPES),
         addr(sums),
         *(addr(t) for t in out),
     )

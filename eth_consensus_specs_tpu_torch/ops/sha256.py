@@ -1,8 +1,13 @@
-"""SHA-256 of N independent 64-byte messages (kernel K1, ``csrc/sha256.cu``).
+"""SHA-256 of N independent messages (kernels K1 and K7, ``csrc/sha256.cu``).
 
-Counterpart of ``eth_consensus_specs_tpu/ops/sha256.py`` ``sha256_pair_words``:
-int32[N, 16] big-endian message words -> int32[N, 8] digest words, each a
-data-block compression plus the constant padding block's.
+Counterparts of ``eth_consensus_specs_tpu/ops/sha256.py``:
+
+* ``sha256_pairs`` (K1) of ``sha256_pair_words``: int32[N, 16] big-endian
+  words of 64-byte messages -> int32[N, 8] digest words, each a data-block
+  compression plus the constant padding block's;
+* ``sha256_single_block`` (K7) of ``sha256_single_block``: int32[N, 16]
+  blocks the caller has already padded (messages of at most 55 bytes) ->
+  int32[N, 8], one compression each.
 """
 
 from __future__ import annotations
@@ -89,6 +94,24 @@ def sha256_pairs_ref(words: torch.Tensor) -> torch.Tensor:
     return to_i32(torch.stack(state, dim=-1))
 
 
+def sha256_single_block_ref(words: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K7: int32[N, 16] padded blocks -> int32[N, 8]."""
+    lanes = to_u32_lanes(words)
+    n = lanes.shape[0]
+    state = [torch.full((n,), v, dtype=torch.int64, device=words.device) for v in IV]
+    return to_i32(torch.stack(_compress_ref(state, [lanes[:, i] for i in range(16)]), dim=-1))
+
+
+def _launch_rows(fn: str, counter: str, words: torch.Tensor) -> torch.Tensor:
+    _ext.check_cuda(words, torch.int32)
+    if words.dim() != 2 or words.shape[1] != 16:
+        raise ValueError(f"expected [N, 16] words, got {tuple(words.shape)}")
+    out = torch.empty((words.shape[0], 8), dtype=torch.int32, device=words.device)
+    _ext.launch("sha256", fn, words.device, _ext.ptr(words), _ext.ptr(out), words.shape[0],
+                counter=counter)
+    return out
+
+
 def sha256_pairs(words: torch.Tensor) -> torch.Tensor:
     """SHA-256 of each row of int32[N, 16] big-endian words -> int32[N, 8].
 
@@ -96,13 +119,19 @@ def sha256_pairs(words: torch.Tensor) -> torch.Tensor:
     version."""
     if words.device.type == "cpu":
         return sha256_pairs_ref(words)
-    _ext.check_cuda(words, torch.int32)
-    if words.dim() != 2 or words.shape[1] != 16:
-        raise ValueError(f"expected [N, 16] words, got {tuple(words.shape)}")
-    out = torch.empty((words.shape[0], 8), dtype=torch.int32, device=words.device)
-    _ext.launch("sha256", "sha256_pairs_launch", words.device,
-                _ext.ptr(words), _ext.ptr(out), words.shape[0])
-    return out
+    return _launch_rows("sha256_pairs_launch", "sha256", words)
+
+
+def sha256_single_block(words: torch.Tensor) -> torch.Tensor:
+    """One compression from the initial hash value of each row of
+    int32[N, 16] big-endian words, already padded by the caller ->
+    int32[N, 8]: the SHA-256 digest of a message of at most 55 bytes.
+
+    CUDA tensors go through kernel K7; CPU tensors through the plain
+    version."""
+    if words.device.type == "cpu":
+        return sha256_single_block_ref(words)
+    return _launch_rows("sha256_single_block_launch", "sha256_single_block", words)
 
 
 def hash_rows(a: torch.Tensor, b: torch.Tensor, sha=sha256_pairs) -> torch.Tensor:

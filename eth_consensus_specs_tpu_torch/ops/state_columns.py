@@ -1,19 +1,26 @@
-"""Scalar justification machine and u64 helpers of the accounting epoch.
+"""The phase0 accounting epoch (kernel K9, ``csrc/state_columns.cu``), and
+the scalar justification machine and u64 helpers every accounting epoch
+shares.
 
-Counterpart of ``eth_consensus_specs_tpu/ops/state_columns.py``
-(``JustificationState`` :102, ``isqrt_u64`` :132, ``_total_balance``,
-``justification_update`` :172), as plain torch over int64 lanes. Kernel K4
-(``csrc/altair_epoch.cu``) carries the same machine in device code; these
-are what the plain path (``altair_epoch_accounting_ref``) calls.
+Counterpart of ``eth_consensus_specs_tpu/ops/state_columns.py``:
+``EpochColumns``, ``JustificationState`` (:102), ``EpochResult``,
+``isqrt_u64`` (:132), ``_total_balance``, ``justification_update`` (:172)
+and ``epoch_accounting_impl`` (:232), over u64 columns carried in int64
+lanes. Kernels K4 (``csrc/altair_epoch.cu``) and K9 carry the same scalar
+machine in device code (``csrc/epoch_common.cuh``); the torch functions
+here are what the plain paths call.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
-from ..lanes import MASK32, mask32, ule64, ult64, umax64
+from .. import _ext
+from ..config import EpochParams
+from ..lanes import MASK32, mask32, udiv64, ule64, ult64, umax64, umin64, umod64
 
 
 class JustificationState(NamedTuple):
@@ -31,6 +38,41 @@ class JustificationState(NamedTuple):
     block_root_prev: torch.Tensor  # get_block_root(state, prev_epoch)
     block_root_cur: torch.Tensor  # get_block_root(state, cur_epoch)
     slashings_sum: torch.Tensor  # sum(state.slashings)
+
+
+class EpochColumns(NamedTuple):
+    """Columnar phase0 registry and previous-epoch participation. The
+    attestation masks are raw "attested for component X" bits; the epoch
+    applies the unslashed filter itself. ``incl_delay``/``incl_proposer``
+    describe each attester's earliest included source attestation (ignored
+    where ``src_att`` is False)."""
+
+    effective_balance: torch.Tensor  # int64[N] (u64)
+    balance: torch.Tensor  # int64[N] (u64)
+    slashed: torch.Tensor  # bool[N]
+    activation_epoch: torch.Tensor  # int64[N] (u64)
+    exit_epoch: torch.Tensor  # int64[N] (u64)
+    withdrawable_epoch: torch.Tensor  # int64[N] (u64)
+    src_att: torch.Tensor  # bool[N] previous-epoch matching-source attester
+    tgt_att: torch.Tensor  # bool[N] previous-epoch matching-target attester
+    head_att: torch.Tensor  # bool[N] previous-epoch matching-head attester
+    cur_tgt_att: torch.Tensor  # bool[N] current-epoch matching-target attester
+    incl_delay: torch.Tensor  # int64[N] (u64)
+    incl_proposer: torch.Tensor  # int64[N], clipped to [0, N-1] where used
+
+
+class EpochResult(NamedTuple):
+    balance: torch.Tensor
+    effective_balance: torch.Tensor
+    justification_bits: torch.Tensor
+    prev_justified_epoch: torch.Tensor
+    prev_justified_root: torch.Tensor
+    cur_justified_epoch: torch.Tensor
+    cur_justified_root: torch.Tensor
+    finalized_epoch: torch.Tensor
+    finalized_root: torch.Tensor
+    rewards: torch.Tensor  # attestation-delta rewards
+    penalties: torch.Tensor  # attestation-delta penalties
 
 
 def isqrt_u64(x: torch.Tensor) -> torch.Tensor:
@@ -102,3 +144,186 @@ def justification_update(just: JustificationState, prev_tgt_bal, cur_tgt_bal, to
         torch.where(do_justif, fin_e, just.finalized_epoch),
         torch.where(do_justif, fin_r, just.finalized_root),
     )
+
+
+def _udiv_any(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unsigned ``a // b`` for a u64 tensor divisor ``b >= 1`` that may
+    reach 2**63 (then the quotient is 0 or 1)."""
+    big = b < 0
+    q = udiv64(a, torch.where(big, torch.ones_like(b), b))
+    return torch.where(big, ule64(b, a).to(torch.int64), q)
+
+
+def epoch_accounting_ref(params: EpochParams, cols: EpochColumns,
+                         just: JustificationState) -> EpochResult:
+    """Plain torch version of K9, line for line the JAX kernel's."""
+    p = params
+    n = cols.balance.shape[0]
+    incr = p.effective_balance_increment
+    dev = cols.balance.device
+
+    def c(v: int) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
+    cur_epoch = just.current_epoch
+    prev_epoch = torch.where(cur_epoch != 0, cur_epoch - 1, c(0))
+
+    eff = cols.effective_balance
+    not_slashed = ~cols.slashed
+    active_cur = ule64(cols.activation_epoch, cur_epoch) & ult64(cur_epoch, cols.exit_epoch)
+    active_prev = ule64(cols.activation_epoch, prev_epoch) & ult64(prev_epoch, cols.exit_epoch)
+    eligible = active_prev | (cols.slashed & ult64(prev_epoch + 1, cols.withdrawable_epoch))
+
+    total_active = total_balance(active_cur, eff, incr)
+
+    # -- justification and finalization (skipped for epochs 0 and 1)
+    prev_tgt_bal = total_balance(cols.tgt_att & not_slashed, eff, incr)
+    cur_tgt_bal = total_balance(cols.cur_tgt_att & not_slashed, eff, incr)
+    bits, prev_je, prev_jr, cur_je, cur_jr, fin_e, fin_r = justification_update(
+        just, prev_tgt_bal, cur_tgt_bal, total_active
+    )
+
+    # -- rewards and penalties (with the post-justification finalized epoch)
+    sqrt_total = isqrt_u64(total_active)
+    base_reward = udiv64(udiv64(eff * p.base_reward_factor, sqrt_total), p.base_rewards_per_epoch)
+    proposer_reward = udiv64(base_reward, p.proposer_reward_quotient)
+
+    finality_delay = prev_epoch - fin_e
+    in_leak = ult64(c(p.min_epochs_to_inactivity_penalty), finality_delay)
+
+    zero = torch.zeros_like(eff)
+    rewards = zero
+    penalties = zero
+    total_units = udiv64(total_active, incr)
+    for mask in (cols.src_att, cols.tgt_att, cols.head_att):
+        att = mask & not_slashed
+        att_bal = total_balance(att, eff, incr)
+        # during leaks attesters are credited as if participation were optimal
+        full = torch.where(in_leak, base_reward,
+                           udiv64(base_reward * udiv64(att_bal, incr), total_units))
+        rewards = rewards + torch.where(eligible & att, full, zero)
+        penalties = penalties + torch.where(eligible & ~att, base_reward, zero)
+
+    # inclusion-delay micro-rewards: the attester's share decays with the
+    # delay, the proposer's share is scatter-added at the earliest includer
+    src_unslashed = cols.src_att & not_slashed
+    att_share = torch.where(
+        src_unslashed, _udiv_any(base_reward - proposer_reward, umax64(cols.incl_delay, c(1))), zero)
+    rewards = rewards + att_share
+    prop_amount = torch.where(src_unslashed, proposer_reward, zero)
+    rewards = rewards + zero.clone().index_add_(0, cols.incl_proposer.clamp(0, n - 1), prop_amount)
+
+    # inactivity leak: quadratic drain on non-target-attesting eligibles
+    leak_base = torch.where(eligible & in_leak, p.base_rewards_per_epoch * base_reward - proposer_reward,
+                            zero)
+    tgt_unslashed = cols.tgt_att & not_slashed
+    leak_extra = torch.where(eligible & in_leak & ~tgt_unslashed,
+                             udiv64(eff * finality_delay, p.inactivity_penalty_quotient), zero)
+    penalties = penalties + leak_base + leak_extra
+
+    do_rewards = cur_epoch != 0
+    rewards = torch.where(do_rewards, rewards, zero)
+    penalties = torch.where(do_rewards, penalties, zero)
+
+    bal = cols.balance + rewards
+    bal = bal - umin64(bal, penalties)
+
+    # -- slashings sweep (every epoch, no genesis guard)
+    adj_slash = umin64(just.slashings_sum * p.proportional_slashing_multiplier, total_active)
+    slash_now = cols.slashed & (cur_epoch + p.epochs_per_slashings_vector // 2 == cols.withdrawable_epoch)
+    slash_penalty = udiv64(udiv64(eff, incr) * adj_slash, total_active) * incr
+    bal = bal - umin64(bal, torch.where(slash_now, slash_penalty, zero))
+
+    # -- effective-balance hysteresis
+    hyst = incr // p.hysteresis_quotient
+    down = hyst * p.hysteresis_downward_multiplier
+    up = hyst * p.hysteresis_upward_multiplier
+    crossed = ult64(bal + down, eff) | ult64(eff + up, bal)
+    new_eff = torch.where(crossed, umin64(bal - umod64(bal, incr), c(p.max_effective_balance)), eff)
+
+    return EpochResult(
+        balance=bal, effective_balance=new_eff, justification_bits=bits,
+        prev_justified_epoch=prev_je, prev_justified_root=prev_jr,
+        cur_justified_epoch=cur_je, cur_justified_root=cur_jr,
+        finalized_epoch=fin_e, finalized_root=fin_r, rewards=rewards, penalties=penalties,
+    )
+
+
+_PARAM_FIELDS = tuple(EpochParams.__dataclass_fields__)
+_COLUMN_DTYPES = {
+    "effective_balance": torch.int64, "balance": torch.int64, "slashed": torch.bool,
+    "activation_epoch": torch.int64, "exit_epoch": torch.int64,
+    "withdrawable_epoch": torch.int64, "src_att": torch.bool, "tgt_att": torch.bool,
+    "head_att": torch.bool, "cur_tgt_att": torch.bool, "incl_delay": torch.int64,
+    "incl_proposer": torch.int64,
+}
+JUST_DTYPES = {
+    "current_epoch": (torch.int64, ()), "justification_bits": (torch.bool, (4,)),
+    "prev_justified_epoch": (torch.int64, ()), "prev_justified_root": (torch.uint8, (32,)),
+    "cur_justified_epoch": (torch.int64, ()), "cur_justified_root": (torch.uint8, (32,)),
+    "finalized_epoch": (torch.int64, ()), "finalized_root": (torch.uint8, (32,)),
+    "block_root_prev": (torch.uint8, (32,)), "block_root_cur": (torch.uint8, (32,)),
+    "slashings_sum": (torch.int64, ()),
+}
+
+
+class _Phase0Args(ctypes.Structure):
+    """Mirror of ``struct Phase0Args`` in ``csrc/state_columns.cu``: every
+    field is 8 bytes, so the two layouts agree without padding. Names are
+    unique (ctypes fills positional arguments by name)."""
+
+    _fields_ = (
+        [(name, ctypes.c_uint64) for name in _PARAM_FIELDS]
+        + [("n", ctypes.c_int64)]
+        + [(name, ctypes.c_void_p) for name in (
+            *_COLUMN_DTYPES, *JUST_DTYPES, "sums", *(f"out_{f}" for f in EpochResult._fields))]
+    )
+
+
+def kernel_args(params: EpochParams, cols: EpochColumns, just: JustificationState,
+                sums: torch.Tensor, out: EpochResult) -> _Phase0Args:
+    """K9's argument block: the constants, the row count, then the device
+    addresses of the columns, the justification state, the sums and the
+    outputs, in the kernel's order."""
+    return _Phase0Args(
+        *(getattr(params, name) for name in _PARAM_FIELDS), cols.balance.shape[0],
+        *(getattr(cols, name).data_ptr() for name in _COLUMN_DTYPES),
+        *(getattr(just, name).data_ptr() for name in JUST_DTYPES),
+        sums.data_ptr(), *(t.data_ptr() for t in out),
+    )
+
+
+def empty_justification(dev) -> tuple:
+    """Uninitialised justification outputs on ``dev``, in result order:
+    (bits, prev_je, prev_jr, cur_je, cur_jr, fin_e, fin_r)."""
+    shapes = ((torch.bool, (4,)), (torch.int64, ()), (torch.uint8, (32,)), (torch.int64, ()),
+              (torch.uint8, (32,)), (torch.int64, ()), (torch.uint8, (32,)))
+    return tuple(torch.empty(shape, dtype=dtype, device=dev) for dtype, shape in shapes)
+
+
+def epoch_accounting(params: EpochParams, cols: EpochColumns,
+                     just: JustificationState) -> EpochResult:
+    """One phase0 accounting epoch. CUDA columns go through kernel K9 (three
+    launches: the five sums, the proposer scatter, the per-validator pass);
+    CPU columns through the plain version."""
+    if cols.balance.device.type == "cpu":
+        return epoch_accounting_ref(params, cols, just)
+    n = cols.balance.shape[0]
+    if n < 1:
+        raise ValueError("K9 takes at least one validator")
+    for name, dtype in _COLUMN_DTYPES.items():
+        _ext.check_cuda(getattr(cols, name), dtype, (n,))
+    for name, (dtype, shape) in JUST_DTYPES.items():
+        _ext.check_cuda(getattr(just, name), dtype, shape)
+    dev = cols.balance.device
+    out = EpochResult(
+        torch.empty_like(cols.balance), torch.empty_like(cols.effective_balance),
+        *empty_justification(dev),
+        torch.zeros_like(cols.balance),  # the proposer scatter adds into it
+        torch.empty_like(cols.balance),
+    )
+    sums = torch.zeros(5, dtype=torch.int64, device=dev)
+    argp = ctypes.byref(kernel_args(params, cols, just, sums, out))
+    for fn in ("phase0_sums_launch", "phase0_proposer_launch", "phase0_apply_launch"):
+        _ext.launch("state_columns", fn, dev, argp)
+    return out

@@ -7,6 +7,7 @@ import pytest
 
 from eth_consensus_specs_tpu.forks import get_spec
 from eth_consensus_specs_tpu.ops.altair_epoch import AltairEpochParams
+from eth_consensus_specs_tpu.ops.state_columns import EpochParams
 from eth_consensus_specs_tpu_torch import config
 
 
@@ -15,6 +16,14 @@ from eth_consensus_specs_tpu_torch import config
 def test_epoch_params_match_spec(fork, preset):
     want = dataclasses.asdict(AltairEpochParams.from_spec(get_spec(fork, preset)))
     assert dataclasses.asdict(config.epoch_params(fork, preset)) == want
+
+
+@pytest.mark.parametrize("preset", ["mainnet", "minimal"])
+def test_phase0_params_and_round_count_match_spec(preset):
+    spec = get_spec("phase0", preset)
+    want = dataclasses.asdict(EpochParams.from_spec(spec))
+    assert dataclasses.asdict(config.phase0_epoch_params(preset)) == want
+    assert config.shuffle_round_count(preset) == spec.SHUFFLE_ROUND_COUNT
 
 
 @pytest.mark.parametrize("fork", ["deneb", "electra"])
@@ -36,6 +45,10 @@ def test_unknown_fork_or_preset_raises():
         config.epoch_params("deneb", "gnosis")
     with pytest.raises(ValueError):
         config.state_fields("capella")
+    with pytest.raises(ValueError):
+        config.phase0_epoch_params("gnosis")
+    with pytest.raises(ValueError):
+        config.shuffle_round_count("gnosis")
 
 
 @pytest.mark.parametrize("env", [

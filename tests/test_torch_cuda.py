@@ -14,14 +14,18 @@ import pytest
 import torch
 
 from eth_consensus_specs_tpu_torch import _ext
-from eth_consensus_specs_tpu_torch.config import epoch_params
+from eth_consensus_specs_tpu_torch.config import epoch_params, phase0_epoch_params
 from eth_consensus_specs_tpu_torch.inputs import (
-    ALTAIR_CORNERS, altair_corner_inputs, example_altair_inputs, lower_balances)
+    ALTAIR_CORNERS, PHASE0_CORNERS, altair_corner_inputs, example_altair_inputs, example_inputs,
+    lower_balances, phase0_corner_inputs)
 from eth_consensus_specs_tpu_torch.ops import altair_epoch as tae
 from eth_consensus_specs_tpu_torch.ops import merkle, snapshot
 from eth_consensus_specs_tpu_torch.ops import merkle_inc as tmi
+from eth_consensus_specs_tpu_torch.ops import shuffle as tsh
+from eth_consensus_specs_tpu_torch.ops import state_columns as tsc
 from eth_consensus_specs_tpu_torch.ops import state_root as tsr
-from eth_consensus_specs_tpu_torch.ops.sha256 import sha256_pairs, sha256_pairs_ref
+from eth_consensus_specs_tpu_torch.ops.sha256 import (
+    sha256_pairs, sha256_pairs_ref, sha256_single_block, sha256_single_block_ref)
 from eth_consensus_specs_tpu_torch.parallel import resident
 
 pytestmark = pytest.mark.cuda
@@ -293,3 +297,68 @@ def test_checkpoint_restore_and_scrub_on_card(cuda, tmp_path):
     assert snapshot.scrub_forest(dmg, k=8).mismatches
     healed = snapshot.quarantine_rebuild(dmg, "val_nodes")
     assert snapshot.state_root_bytes(static, rs.plan, healed, rs.just) == root
+
+
+# ------------------------- shuffle, phase0 epoch, batched roots (K7-K9, K2) --
+
+@pytest.mark.parametrize("n", [1, 257, 4096])
+def test_sha256_single_block_kernel(cuda, n):
+    seed = hashlib.sha256(b"k7").digest()
+    blocks = tsh.single_block_words(seed, 3, n, "cpu")
+    got = sha256_single_block(blocks.to(cuda)).cpu()
+    assert torch.equal(got, sha256_single_block_ref(blocks))
+    msg = seed + bytes([2]) + (n - 1).to_bytes(4, "little")
+    assert got[-1].numpy().view(np.uint32).astype(">u4").tobytes() == hashlib.sha256(msg).digest()
+
+
+@pytest.mark.parametrize("rounds", [90, 10])
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 1000, 4096, 100_003])
+def test_shuffle_kernel(cuda, n, rounds):
+    """K8 against its plain twin on the card and the host form: one lane,
+    short last chunks, pivots below the index (the wrap of a negative flip)."""
+    seed = hashlib.sha256(n.to_bytes(4, "little")).digest()
+    _ext.reset_launches()
+    got = tsh.shuffle_permutation_device(n, seed, rounds, device=cuda)
+    assert _ext.launches["shuffle"] == 1 and _ext.launches["sha256_single_block"] == 1
+    chunks = (n + 255) // 256
+    digests = sha256_single_block(tsh.single_block_words(seed, rounds, chunks, cuda))
+    pivots = torch.tensor(tsh.pivots(n, seed, rounds), dtype=torch.int32, device=cuda)
+    assert torch.equal(got, tsh.shuffle_rounds_ref(digests, pivots, n))
+    assert np.array_equal(got.cpu().numpy(), tsh.shuffle_permutation(n, seed, rounds))
+
+
+@pytest.mark.parametrize("preset", ["mainnet", "minimal"])
+@pytest.mark.parametrize("case", ("example",) + PHASE0_CORNERS)
+def test_phase0_epoch_kernel(cuda, preset, case):
+    half = {"mainnet": 4096, "minimal": 32}[preset]
+    params = phase0_epoch_params(preset)
+    if case == "example":
+        cols, just = example_inputs(1000, slashings_half_vector=half, device=cuda)
+    else:
+        cols, just = phase0_corner_inputs(case, 1000, slashings_half_vector=half, device=cuda)
+    got = tsc.epoch_accounting(params, cols, just)
+    want = tsc.epoch_accounting_ref(params, cols, just)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    cpu = tsc.epoch_accounting(params, *(type(x)(*(t.cpu() for t in x)) for x in (cols, just)))
+    assert torch.equal(got.balance.cpu(), cpu.balance)
+
+
+@pytest.mark.parametrize("trees,depth", [(1, 0), (3, 0), (1, 1), (3, 5), (64, 5), (3, 9), (3, 10),
+                                         (64, 12), (1, 16), (8, 16)])
+def test_many_tree_root_kernel(cuda, trees, depth):
+    leaves = _words(trees << depth, 8, depth).reshape(trees, 1 << depth, 8)
+    _ext.reset_launches()
+    got = merkle.many_tree_root(leaves.to(cuda), depth).cpu()
+    assert _ext.launches["merkle_many"] == -(-depth // merkle.MAX_LEVELS_PER_LAUNCH)
+    assert torch.equal(got, merkle.many_tree_root_ref(leaves, depth))
+    for b in {0, trees - 1}:
+        assert torch.equal(got[b], merkle.tree_root(leaves[b].to(cuda), depth).cpu())
+
+
+def test_merkleize_many_device_on_card(cuda):
+    rng = np.random.default_rng(5)
+    trees = [rng.integers(0, 256, ((4096 - 37 * i) % 4097, 32), dtype=np.uint8) for i in range(64)]
+    got = merkle.merkleize_many_device(trees, 12, pad_batch=64, device=cuda)
+    assert got == merkle.merkleize_many_device(trees, 12, pad_batch=64, device="cpu")
+    assert merkle.merkleize_subtree_device(trees[5], 12, device=cuda) == got[5]
