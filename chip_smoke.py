@@ -56,15 +56,29 @@ Phases, each printing one JSON line:
    ``merkleize_many_device`` at depth 12 (the device threshold of 4,096
    chunks) and 16, filled raggedly (tree i holds 2^d - 37 i chunks); every
    root held against the plain batched reduction on the card, one against
-   hashlib.
+   hashlib;
+11. bls_block: ``verify_many`` on a deneb mainnet block (128 aggregates over
+   128 distinct messages, fresh messages each call): a warm call, three
+   timed calls with their host stages (``parts_ms``) apart from the card's
+   time, a block with item 17 tampered (exactly that verdict false), and
+   every verdict of the checked blocks against the host oracle's per-item
+   FastAggregateVerify in a pool of worker processes. The committee is cut
+   from 512 to a fixed 128, printed as ``reduced`` with the measured host
+   key-validation time that justifies it: the run fails if twice the
+   committee's one-time validation would fit 60 s.
 
 Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
 (phase0_epoch, on the example columns and every phase0 corner) and K2's
 batched entry (merkle_many_tree_root) against their plain versions at the
-shapes of phases 8-10. Each path runs with every launch counter at 0 just
+shapes of phases 8-10, and K10 (g1_sum_many at [128, 512], [8, 32768] and
+corner items, against (sum of k) * G on the host), K11 (miller_product at
+129, 9 and 1 pairs, the last two against the host Miller loop) and K12
+(final_exp_is_one on a product that is 1 and one that is not, against the
+host pairing check). Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own path, the state_inc main path
-for K1-K6; ``launches_by_path``: each path's) and, last, ``{"ok": true,
+for K1-K6, summed over its kernels where an entry launches two, as K11's
+loop and fold; ``launches_by_path``: each path's) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
 without the last line; so does a machine without CUDA, or a directory
 without the package.
@@ -1184,6 +1198,328 @@ def run_merkle_many(dev) -> tuple[dict, dict]:
     return summary, launches
 
 
+# --- slice 4: batched BLS aggregate verification (K10-K12) -----------------------
+
+BLS_ITEMS = 128  # MAX_ATTESTATIONS of a deneb block
+BLS_COMMITTEE = 512  # 2^20 validators / (32 slots x 64 committees)
+# bls_block's committee: the largest power of two whose one-time host key
+# validation (2.4-3.6 ms a key measured on the H100 machine's host) fits
+# KEY_BUDGET_S; fixed so that every run measures one workload
+BLS_BLOCK_COMMITTEE = 128
+ELECTRA_SHAPE = (8, 32768)  # 8 aggregates over 64 committees each
+BLS_TIMED_CALLS = 3
+BLS_TAMPERED = 17
+KEY_BUDGET_S = 60.0  # the one-time host validation of the block's keys
+# 32-bit instructions of one Fq product (12 x 32-bit CIOS Montgomery): 2 x 144
+# multiply-adds for a * b and m * p, each an IMAD.WIDE, and about 160 carry
+# additions. Fq additions are not counted, so the bounds below are low.
+FQ_MUL_INSTR = 450
+FQ_PER_G1_ADD = 16  # add-2007-bl: 11 products and 5 squarings
+FQ_PER_FQ6_MUL = 18  # 6 Karatsuba Fq2 products of 3
+FQ_PER_FQ12_MUL = 54  # Karatsuba over Fq6 (3 Fq6 products)
+FQ_PER_FQ12_SQR = 36  # complex squaring: 2 Fq6 products
+FQ_PER_LINE = 50  # 12 sparse Fq2 products (36), 12 py scalings, a5 (2)
+FQ_PER_POWX = 63 * FQ_PER_FQ12_SQR + 5 * FQ_PER_FQ12_MUL
+
+
+def committee_indices(items: int, lanes: int, keys_count: int, stride: int):
+    """The key indices of a synthetic committee layout: item i takes keys
+    (i * stride + j) mod keys_count for j < lanes."""
+    return [[(i * stride + j) % keys_count for j in range(lanes)] for i in range(items)]
+
+
+def miller_fq_products(pairs: int, steps: int, squarings: int) -> int:
+    """The Fq products the Miller loops need: squarings and line products
+    (the kernel's conversions of its canonical inputs are not counted)."""
+    return pairs * (squarings * FQ_PER_FQ12_SQR + steps * FQ_PER_LINE)
+
+
+def final_exp_fq_products() -> int:
+    """The Fq products of K12's chain, without its input conversion."""
+    from eth_consensus_specs_tpu_torch.crypto.fields import P
+
+    p2 = P - 2
+    fq_inv = p2.bit_length() + bin(p2).count("1")
+    fq2_inv = 2 + fq_inv + 2
+    fq6_inv = 3 * 2 + 9 * 3 + fq2_inv  # 3 Fq2 squarings, 9 Fq2 products
+    fq12_inv = 4 * FQ_PER_FQ6_MUL + fq6_inv
+    return (fq12_inv + 5 * FQ_PER_POWX + 9 * FQ_PER_FQ12_MUL + FQ_PER_FQ12_SQR
+            + 18 + 2 * 12)  # one Frobenius (6 Fq2 products), two p^2-Frobenius
+
+
+def fq_bound(products: float, serial_products: float) -> tuple[float, str]:
+    """Least milliseconds for ``products`` Fq products spread over the card,
+    or ``serial_products`` that depend one on the next (one warp, one
+    instruction a clock): the larger of the two."""
+    t_thru = products * FQ_MUL_INSTR / INT_OPS_PER_S * 1e3
+    t_chain = serial_products * FQ_MUL_INSTR / CLOCK_HZ * 1e3
+    return max(t_thru, t_chain), "operations"
+
+
+def check_bls_kernels(dev):
+    """Phase 3, continued: K10 at a deneb block's [128, 512] and an electra
+    block's [8, 32768], and on corner items; K11 at 129, 9 and 1 pairs; K12
+    on a product that is 1 and one that is not. Each against its plain
+    version on the card and against the host oracle in canonical ints."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g1_infinity
+    from eth_consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_g2
+    from eth_consensus_specs_tpu_torch.inputs import g1_keys
+    from eth_consensus_specs_tpu_torch.ops import g1_msm
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    rows = []
+    g = g1_generator()
+    n_keys = BLS_ITEMS * BLS_COMMITTEE
+    keys = g1_keys(n_keys)  # key k is (k + 1) * G
+
+    def lanes_of(index_lists):
+        return [[keys[k] for k in ks] for ks in index_lists]
+
+    # K10: both block shapes, every sum against (sum of k) * G on the host
+    shapes, timed = {}, {}
+    for items, lanes, stride in ((BLS_ITEMS, BLS_COMMITTEE, BLS_COMMITTEE),
+                                 (*ELECTRA_SHAPE, 4096)):
+        idx = committee_indices(items, lanes, n_keys, stride)
+        X, Y, Z = (torch.from_numpy(a).to(dev) for a in g1_msm.pack_lanes(lanes_of(idx)))
+        out = g1_msm.sum_many(X, Y, Z)
+        err = max_abs_err(out, g1_msm.sum_many_ref(X, Y, Z))
+        got = g1_msm.sums_to_points(out)
+        for i, ks in enumerate(idx):
+            if got[i] != g.mul(sum(k + 1 for k in ks)):
+                raise RuntimeError(
+                    f"g1_sum_many [{items}, {lanes}] item {i} differs from the host sum")
+        products = items * (lanes - 1) * FQ_PER_G1_ADD
+        serial = (lanes.bit_length() - 1) * FQ_PER_G1_ADD
+        b_ms, b_by = fq_bound(products, serial)
+        b_bytes = 3 * 48 * items * lanes / HBM_BYTES_PER_S * 1e3
+        k_ms = cuda_ms(lambda: g1_msm.sum_many(X, Y, Z), repeats=10)
+        shapes[(items, lanes)] = dict(
+            shape=[items, lanes], max_abs_err=err, ms=k_ms,
+            device_ms=device_ms(lambda: g1_msm.sum_many(X, Y, Z), ("g1_sum_many_kernel",)),
+            plain_ms=cuda_ms(lambda: g1_msm.sum_many_ref(X, Y, Z), 2),
+            bound_ms=max(b_ms, b_bytes), bound_by=b_by if b_ms >= b_bytes else "bytes",
+            fq_products=products, serial_fq_products=serial, host_checked=items)
+    # corner items at the deneb width: ragged, padded, P + P, P - P, all Z = 0
+    p = keys[5]
+    corners = [keys[:BLS_COMMITTEE], keys[:37], [p, p] + keys[10:20], [p, -p] + keys[20:30],
+               [g1_infinity()] * BLS_COMMITTEE, [g1_infinity(), p, g1_infinity(), keys[9]]]
+    X, Y, Z = (torch.from_numpy(a).to(dev) for a in g1_msm.pack_lanes(corners, BLS_COMMITTEE))
+    out = g1_msm.sum_many(X, Y, Z)
+    err = max_abs_err(out, g1_msm.sum_many_ref(X, Y, Z))
+    want = []
+    for pts in corners:
+        acc = g1_infinity()
+        for q in pts:
+            acc = acc + q
+        want.append(acc)
+    if g1_msm.sums_to_points(out) != want:
+        raise RuntimeError("g1_sum_many corner items differ from the host sums")
+    deneb = shapes[(BLS_ITEMS, BLS_COMMITTEE)]
+    rows.append(dict(
+        name="g1_sum_many", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/g1_sum.cu",
+        replaces="eth_consensus_specs_tpu/ops/g1_msm.py:168",
+        **{k: deneb[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        max_abs_err=max(deneb["max_abs_err"], err), library_ms=None,
+        electra=shapes[ELECTRA_SHAPE], corners_checked=len(corners),
+        fq_products=deneb["fq_products"], serial_fq_products=deneb["serial_fq_products"],
+    ))
+
+    # K11 at a block's 129 pairs (128 messages and the signature pair), 9 and 1
+    qs = [hash_to_g2(b"smoke-pair-%d" % i) for i in range(BLS_ITEMS)]
+    pairs = [(keys[i], qs[i]) for i in range(BLS_ITEMS)] + [(-g, qs[0])]
+    err = 0
+    args = {}
+    for n in (1, 9, len(pairs)):
+        a = [torch.from_numpy(x).to(dev) for x in pd.pack_pairs(pairs[:n])]
+        got = pd.miller_product(*a)
+        err = max(err, max_abs_err(got, pd.miller_product_ref(*a)))
+        if n < len(pairs):
+            want = oracle.Fq12.one()
+            for pt, q in pairs[:n]:
+                want = want * oracle.miller_loop(pt, oracle.untwist(q))
+            if pd.fq12_from_words(got) != want:
+                raise RuntimeError(f"miller_product of {n} pairs differs from the host oracle")
+        args[n] = a
+    a = args[len(pairs)]
+    squarings = sum(pd._SQR_FLAGS.tolist())
+    products = (miller_fq_products(len(pairs), pd.N_STEPS, squarings)
+                + (len(pairs) - 1) * FQ_PER_FQ12_MUL)
+    serial = (miller_fq_products(1, pd.N_STEPS, squarings)
+              + (len(pairs) - 1).bit_length() * FQ_PER_FQ12_MUL)
+    b_ms, b_by = fq_bound(products, serial)
+    rows.append(dict(
+        name="miller_product", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/miller.cu",
+        replaces="eth_consensus_specs_tpu/ops/pairing_device.py:170",
+        shape=[len(pairs), pd.N_STEPS],
+        max_abs_err=err, ms=cuda_ms(lambda: pd.miller_product(*a), repeats=10),
+        device_ms=device_ms(lambda: pd.miller_product(*a), ("miller_",)),
+        plain_ms=cuda_ms(lambda: pd.miller_product_ref(*a), 2),
+        ms_9_pairs=cuda_ms(lambda: pd.miller_product(*args[9]), repeats=10),
+        ms_1_pair=cuda_ms(lambda: pd.miller_product(*args[1]), repeats=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
+        serial_fq_products=serial, oracle_checked=[1, 9],
+    ))
+
+    # K12 on a product that is 1 and one that is not: e(6P, 5Q) e(-cP, Q)
+    q = qs[1]
+    verdicts, err = {}, 0
+    for c in (30, 31):
+        pr = [(g.mul(6), q.mul(5)), (-g.mul(c), q)]
+        f = pd.miller_product(*[torch.from_numpy(x).to(dev) for x in pd.pack_pairs(pr)])
+        got = pd.final_exp_is_one(f)
+        err = max(err, max_abs_err(got, pd.final_exp_is_one_ref(f)))
+        if bool(got) != oracle.pairing_check(pr) or bool(got) != (c == 30):
+            raise RuntimeError(f"final_exp_is_one differs from the oracle on e(6P, 5Q) e(-{c}P, Q)")
+        verdicts[c] = bool(got)
+    f = pd.miller_product(*a)  # the 129-pair product: not 1
+    err = max(err, max_abs_err(pd.final_exp_is_one(f), pd.final_exp_is_one_ref(f)))
+    products = final_exp_fq_products()
+    b_ms, b_by = fq_bound(products, products)
+    rows.append(dict(
+        name="final_exp_is_one", route="cuda",
+        source="eth_consensus_specs_tpu_torch/csrc/final_exp.cu",
+        replaces="eth_consensus_specs_tpu/ops/pairing_device.py:259", shape=[2, 3, 2, 12],
+        max_abs_err=err, ms=cuda_ms(lambda: pd.final_exp_is_one(f), repeats=5),
+        device_ms=device_ms(lambda: pd.final_exp_is_one(f), ("final_exp_is_one_kernel",)),
+        plain_ms=cuda_ms(lambda: pd.final_exp_is_one_ref(f), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
+        serial_fq_products=products,
+        verdicts_checked={"one": verdicts[30], "not_one": verdicts[31]},
+    ))
+    return rows
+
+
+def _oracle_verdict(item) -> bool:
+    """FastAggregateVerify of one item on the host: affine sums and the
+    pairing oracle (a worker of the pool in run_bls_block)."""
+    from eth_consensus_specs_tpu_torch.crypto.signature import fast_aggregate_verify
+
+    return fast_aggregate_verify(*item)
+
+
+def run_bls_block(dev) -> tuple[dict, dict]:
+    """Phase 11: ``verify_many`` on a deneb mainnet block: 128 aggregates
+    over 128 distinct messages, fresh messages for every call; a warm call,
+    three timed calls, a batch with item 17 tampered; every verdict against
+    the host oracle's per-item FastAggregateVerify. The card's busy time is
+    its three kernels timed by CUDA events on one call's packed inputs:
+    torch.profiler returned no device events for windows around this work."""
+    import multiprocessing as mp
+    import random
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g1_to_bytes
+    from eth_consensus_specs_tpu_torch.crypto.signature import _load_pk
+    from eth_consensus_specs_tpu_torch.inputs import attestation_block, g1_keys
+    from eth_consensus_specs_tpu_torch.ops import bls_batch, g1_msm, pairing_device
+
+    # the cut: validate a sample of fresh keys to size the one-time validation
+    sample = [g1_to_bytes(k) for k in g1_keys(64, first=1 << 40)]
+    t0 = time.perf_counter()
+    for b in sample:
+        if _load_pk(b) is None:
+            raise RuntimeError("a valid key was rejected")
+    ms_per_key = (time.perf_counter() - t0) * 1e3 / len(sample)
+    committee = BLS_BLOCK_COMMITTEE
+    if BLS_ITEMS * 2 * committee * ms_per_key / 1e3 <= KEY_BUDGET_S:
+        raise RuntimeError(
+            f"{ms_per_key:.3f} ms/key no longer justifies the committee cut to {committee}: "
+            f"twice it would validate within {KEY_BUDGET_S:.0f} s")
+    reduced = {"committee": [BLS_COMMITTEE, committee],
+               "why": f"one-time host key validation, {ms_per_key:.3f} ms/key, "
+                      f"{BLS_ITEMS * BLS_COMMITTEE * ms_per_key / 1e3:.1f} s at full size "
+                      f"against a {KEY_BUDGET_S:.0f} s budget"}
+    keys = g1_keys(BLS_ITEMS * committee)
+    rng = random.Random(4)
+
+    def block(call, tamper=()):
+        return attestation_block(BLS_ITEMS, committee, distinct=BLS_ITEMS, call=call,
+                                 tamper=tamper, keys=keys)[0]
+
+    batches = {0: block(0)}
+    t0 = time.perf_counter()
+    first = bls_batch.verify_many(batches[0], device=dev, rng=rng)
+    first_s = time.perf_counter() - t0  # includes validating every key once
+    if first != [True] * BLS_ITEMS:
+        raise RuntimeError("the warm block was not accepted")
+
+    _ext.reset_launches()
+    runs, parts_runs = [], []
+    for call in range(1, BLS_TIMED_CALLS + 1):
+        batches[call] = block(call)
+        parts = {}
+        t0 = time.perf_counter()
+        verdicts = bls_batch.verify_many(batches[call], device=dev, rng=rng, parts=parts)
+        runs.append((time.perf_counter() - t0) * 1e3)
+        parts_runs.append({k: v * 1e3 for k, v in parts.items()})
+        if verdicts != [True] * BLS_ITEMS:
+            raise RuntimeError(f"timed block {call} was not accepted")
+    launches = dict(_ext.launches)
+
+    tampered_call = BLS_TIMED_CALLS + 1
+    batches[tampered_call] = block(tampered_call, tamper=(BLS_TAMPERED,))
+    parts_t = {}
+    t0 = time.perf_counter()
+    got = bls_batch.verify_many(batches[tampered_call], device=dev, rng=rng, parts=parts_t)
+    tampered_ms = (time.perf_counter() - t0) * 1e3
+    want = [True] * BLS_TAMPERED + [False] + [True] * (BLS_ITEMS - BLS_TAMPERED - 1)
+    if got != want:
+        raise RuntimeError("the tampered block's verdicts are not item 17 alone")
+
+    # the card's work of one call: its inputs packed on the host as the call
+    # packs them, then K10, K11 and K12, each timed by CUDA events
+    items = batches[BLS_TIMED_CALLS]
+    parsed = [bls_batch._parse_item(it, rng) for it in items]
+    lanes = [torch.from_numpy(a).to(dev) for a in g1_msm.pack_lanes([p[0] for p in parsed])]
+    rpk = bls_batch._rlc_pubkey_terms(parsed, dev)
+    pairs = [(rp, bls_batch._h2g2(msg)) for rp, (_, msg, _, _) in zip(rpk, parsed)]
+    sig_acc = bls_batch.g2_multi_exp([p[2] for p in parsed], [p[3] for p in parsed])
+    pairs.append((-g1_generator(), sig_acc))
+    packed = [torch.from_numpy(a).to(dev) for a in pairing_device.pack_pairs(pairs)]
+    if not bool(pairing_device.final_exp_is_one(pairing_device.miller_product(*packed))):
+        raise RuntimeError("the traced block's pairing check failed")
+
+    f = pairing_device.miller_product(*packed)
+    kernel_ms = {
+        "g1_sum_many": cuda_ms(lambda: g1_msm.sum_many(*lanes), repeats=5),
+        "miller_product": cuda_ms(lambda: pairing_device.miller_product(*packed), repeats=5),
+        "final_exp_is_one": cuda_ms(lambda: pairing_device.final_exp_is_one(f), repeats=5),
+    }
+
+    # the host oracle, item by item, on every batch checked above
+    t0 = time.perf_counter()
+    checked = {c: batches[c] for c in [*range(1, BLS_TIMED_CALLS + 1), tampered_call]}
+    with ProcessPoolExecutor(max_workers=7, mp_context=mp.get_context("spawn")) as pool:
+        oracle = {c: list(pool.map(_oracle_verdict, items)) for c, items in checked.items()}
+    oracle_s = time.perf_counter() - t0
+    for c, verdicts in oracle.items():
+        expect = want if c == tampered_call else [True] * BLS_ITEMS
+        if verdicts != expect:
+            raise RuntimeError(f"block {c}: the card's verdicts differ from the host oracle's")
+
+    ms = statistics.median(runs)
+    host_parts = {k: statistics.median(p.get(k, 0.0) for p in parts_runs) for k in parts_runs[0]}
+    busy = sum(kernel_ms.values())
+    summary = dict(
+        phase="bls_block", fork="deneb", preset="mainnet", items=BLS_ITEMS, committee=committee,
+        distinct_messages=BLS_ITEMS, pairs=BLS_ITEMS + 1, reduced=reduced, ms=ms, ms_runs=runs,
+        parts_ms=host_parts, parts_ms_runs=parts_runs, first_call_s=first_s,
+        launches=launches, launches_per_call={k: v / BLS_TIMED_CALLS for k, v in launches.items()},
+        tampered_ms=tampered_ms, tampered_parts_ms={k: v * 1e3 for k, v in parts_t.items()},
+        tampered_verdicts_ok=True, device_kernel_ms=kernel_ms, device_busy_ms=busy,
+        device_idle_share=1 - busy / ms,
+        oracle_batches=len(checked), oracle_items=sum(len(v) for v in checked.values()),
+        oracle_s=oracle_s, equal_host_oracle=True,
+    )
+    return summary, launches
+
+
 
 def main() -> int:
     import torch
@@ -1209,7 +1545,8 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0, kernels=report))
 
     t0 = time.perf_counter()
-    rows = check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
+    rows = (check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
+            + check_bls_kernels(dev))
     emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,
               phase_s=time.perf_counter() - t0))
 
@@ -1217,19 +1554,23 @@ def main() -> int:
     for path, phase in (("state", run_main_path), ("state_inc", run_state_inc),
                         ("dirty_registry", run_dirty_registry), ("durability", run_durability),
                         ("shuffle", run_shuffle), ("epoch_phase0", run_epoch_phase0),
-                        ("merkle_many", run_merkle_many)):
+                        ("merkle_many", run_merkle_many), ("bls_block", run_bls_block)):
         t0 = time.perf_counter()
         summary, by_path[path] = phase(dev)
         summary["phase_s"] = time.perf_counter() - t0
         summary["nvidia_smi"] = smi
         emit(summary)
 
+    missing = []
     for r in rows:
-        key = _KERNEL_OF[r["name"]]
-        r["launches"] = by_path[_PATH_OF.get(r["name"], "state_inc")].get(key, 0)
-        r["launches_by_path"] = {path: counts.get(key, 0) for path, counts in by_path.items()}
-    missing = [r["name"] for r in rows if not any(r["launches_by_path"].values())]
-    missing += [r["name"] for r in rows if r["name"] in _PATH_OF and not r["launches"]]
+        keys = _KERNEL_OF[r["name"]]
+        keys = keys if isinstance(keys, tuple) else (keys,)
+        r["launches_by_path"] = {path: sum(counts.get(k, 0) for k in keys)
+                                 for path, counts in by_path.items()}
+        r["launches"] = r["launches_by_path"][_PATH_OF.get(r["name"], "state_inc")]
+        missing += [f"{r['name']} ({k})" for k in keys
+                    if not any(counts.get(k, 0) for counts in by_path.values())
+                    or (r["name"] in _PATH_OF and not by_path[_PATH_OF[r["name"]]].get(k, 0))]
     emit({"kernels": rows})
     if missing:
         raise RuntimeError(f"kernels never launched on their paths: {missing}")
@@ -1243,10 +1584,14 @@ _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
               "merkle_levels": "merkle_levels", "merkle_inc": "merkle_inc",
               "validator_leaves_at": "validator_leaves_at",
               "sha256_single_block": "sha256_single_block", "shuffle_rounds": "shuffle",
-              "phase0_epoch": "state_columns", "merkle_many_tree_root": "merkle_many"}
+              "phase0_epoch": "state_columns", "merkle_many_tree_root": "merkle_many",
+              "g1_sum_many": "g1_sum", "miller_product": ("miller", "miller_fold"),
+              "final_exp_is_one": "final_exp"}
 # the path whose counts a kernel's row reports, where it is not state_inc
 _PATH_OF = {"sha256_single_block": "shuffle", "shuffle_rounds": "shuffle",
-            "phase0_epoch": "epoch_phase0", "merkle_many_tree_root": "merkle_many"}
+            "phase0_epoch": "epoch_phase0", "merkle_many_tree_root": "merkle_many",
+            "g1_sum_many": "bls_block", "miller_product": "bls_block",
+            "final_exp_is_one": "bls_block"}
 
 
 if __name__ == "__main__":

@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
-           "shuffle", "state_columns")
+           "shuffle", "state_columns", "g1_sum", "miller", "final_exp")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -55,6 +55,10 @@ SIGNATURES = {
     "state_columns": {
         "phase0_sums_launch": [_P], "phase0_proposer_launch": [_P], "phase0_apply_launch": [_P],
     },
+    "g1_sum": {"g1_sum_many_launch": [_P, _P, _P, _P, _I64, _I64]},
+    "miller": {"miller_loop_launch": [_P, _P, _P, _P, _P, _I64],
+               "miller_fold_launch": [_P, _P, _I64]},
+    "final_exp": {"final_exp_is_one_launch": [_P, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -93,3 +93,65 @@ def to_numpy(x):
         return x
     items = (to_numpy(t) for t in x)
     return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+# --- BLS12-381: limb rows, prepared coefficients and points ---------------------
+
+# The JAX package's two limb layouts of Fq, both Montgomery with R = 2^390:
+# ``field_limbs`` 13 x 30-bit and ``lazy_limbs``/``fq12_tower`` 15 x 26-bit,
+# values possibly redundant (below 2p, or limbs not carried).
+_JAX_LIMB_BITS = {"field_limbs": 30, "lazy_limbs": 26}
+_R390 = 1 << 390
+
+
+def ints_from_jax_limbs(arr, layout: str = "lazy_limbs"):
+    """JAX Montgomery limb rows ``[..., n]`` -> canonical ints, nested like
+    the leading dims."""
+    from .crypto.fields import P
+
+    bits = _JAX_LIMB_BITS[layout]
+    a = np.asarray(arr).astype(np.uint64)
+    rinv = pow(_R390, -1, P)
+    flat = [sum(int(v) << (bits * i) for i, v in enumerate(row)) * rinv % P
+            for row in a.reshape(-1, a.shape[-1])]
+    return np.array(flat, dtype=object).reshape(a.shape[:-1]).tolist()
+
+
+def words_from_jax_limbs(arr, layout: str = "lazy_limbs") -> np.ndarray:
+    """JAX Montgomery limb rows -> the port's canonical u32 words
+    ``int32[..., 12]``, what K11, K12 and their plain versions take."""
+    from .ops.field_limbs import ints_to_words
+
+    return ints_to_words(ints_from_jax_limbs(arr, layout))
+
+
+def card_words_from_jax_limbs(arr, layout: str = "field_limbs") -> np.ndarray:
+    """JAX Montgomery limb rows -> ``int32[..., 12]`` words of the card's
+    Montgomery form (x * 2^384 mod p), what K10 and its plain version take."""
+    from .ops.field_limbs import ints_to_card_words
+
+    return ints_to_card_words(ints_from_jax_limbs(arr, layout))
+
+
+def coeffs_from_jax(rows) -> np.ndarray:
+    """JAX ``pairing_device.prepare_g2`` rows ``[N_STEPS, 2, 2, 15]`` -> the
+    port's coefficients ``int32[N_STEPS, 2, 2, 12]``."""
+    return words_from_jax_limbs(rows, "lazy_limbs")
+
+
+def point_from_bytes(data: bytes):
+    """A port Point from a compressed G1 (48-byte) or G2 (96-byte) encoding,
+    e.g. the JAX package's ``g1_to_bytes``/``g2_to_bytes`` of its Point."""
+    from .crypto.curve import g1_from_bytes, g2_from_bytes
+
+    return g1_from_bytes(bytes(data)) if len(data) == 48 else g2_from_bytes(bytes(data))
+
+
+def point_to_bytes(p) -> bytes:
+    """The compressed encoding of a port Point (G1 or G2), which the JAX
+    package's ``g1_from_bytes``/``g2_from_bytes`` read back."""
+    from .crypto.curve import Fq, g1_to_bytes, g2_to_bytes
+
+    if p.is_infinity():
+        return g1_to_bytes(p) if p.b == Fq(4) else g2_to_bytes(p)
+    return g1_to_bytes(p) if isinstance(p.x, Fq) else g2_to_bytes(p)

@@ -9,6 +9,8 @@ package's at every size. ``chip_smoke.py`` builds its states from these and
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -211,3 +213,76 @@ def lower_balances(cols: AltairEpochColumns, every: int = 256, gwei: int = 2_000
     or leak ejections)."""
     idx = torch.arange(cols.balance.shape[0], device=cols.balance.device)
     return cols._replace(balance=torch.where(idx % every == 0, cols.balance - gwei, cols.balance))
+
+
+# --- a block of attestation aggregates ------------------------------------------
+
+
+def g1_keys(count: int, first: int = 1) -> list:
+    """The G1 points k * G for k = first, ..., first + count - 1, made by
+    successive Jacobian additions of G and one batch inversion to affine."""
+    from .crypto.curve import B1, F1, G1_GEN, Point, jac_add
+    from .crypto.fields import P, Fq
+
+    g = (G1_GEN[0].n, G1_GEN[1].n, 1)
+    acc = F1.to_point(g, B1).mul(first) if first > 1 else None
+    j = F1.from_point(acc) if acc is not None else g
+    jac = []
+    for _ in range(count):
+        jac.append(j)
+        j = jac_add(F1, j, g)
+    # batch inversion of the Z coordinates (none is 0: k < r)
+    prefix = [1]
+    for _, _, z in jac:
+        prefix.append(prefix[-1] * z % P)
+    inv = pow(prefix[-1], -1, P)
+    out = [None] * count
+    for i in range(count - 1, -1, -1):
+        x, y, z = jac[i]
+        zi = inv * prefix[i] % P
+        inv = inv * z % P
+        zi2 = zi * zi % P
+        out[i] = Point(Fq(x * zi2), Fq(y * zi2 * zi), B1)
+    return out
+
+
+def block_message(call: int, i: int) -> bytes:
+    """The signed message of aggregate ``i`` in block ``call``."""
+    return hashlib.sha256(b"block-att-%d-%d" % (call, i)).digest()
+
+
+def attestation_block(items: int, committee: int, distinct: int | None = None, seed: int = 0,
+                      call: int = 0, tamper=(), keys: list | None = None) -> tuple[list, list]:
+    """A block of attestation aggregates in the JAX form: a list of
+    (pubkeys: list[bytes], message: bytes, signature: bytes), and the
+    secret-key sum of each item.
+
+    Item i's committee is the keys k * G, k = first + i * committee + j
+    (first = 1 + seed * 2^24), so its aggregate secret is the sum of its k
+    and its aggregate signature (sum k) * H(m) is one G2 multiplication.
+    Item i signs ``block_message(call, i % distinct)``; an item in
+    ``tamper`` carries another message under the same signature, so it does
+    not verify. ``keys`` (from ``g1_keys`` with the same first key) skips
+    making the points again."""
+    from .crypto.curve import g1_to_bytes, g2_to_bytes
+    from .crypto.hash_to_curve import hash_to_g2
+
+    distinct = distinct or items
+    first = 1 + seed * (1 << 24)
+    keys = keys if keys is not None else g1_keys(items * committee, first)
+    if len(keys) < items * committee:
+        raise ValueError(f"need {items * committee} keys, got {len(keys)}")
+    pk_bytes = [g1_to_bytes(p) for p in keys[: items * committee]]
+    h = {}
+    out, secrets = [], []
+    for i in range(items):
+        msg = block_message(call, i % distinct)
+        if msg not in h:
+            h[msg] = hash_to_g2(msg)
+        ks = range(first + i * committee, first + (i + 1) * committee)
+        sk = sum(ks)
+        sig = g2_to_bytes(h[msg].mul(sk))
+        signed = msg if i not in tamper else hashlib.sha256(b"tampered-%d-%d" % (call, i)).digest()
+        out.append((pk_bytes[i * committee:(i + 1) * committee], signed, sig))
+        secrets.append(sk)
+    return out, secrets

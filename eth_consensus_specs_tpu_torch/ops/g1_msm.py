@@ -1,0 +1,191 @@
+"""Per-item G1 point sums: every committee's aggregate public key in one
+launch (kernel K10).
+
+Counterpart of ``eth_consensus_specs_tpu/ops/g1_msm.py``: ``sum_many``
+replaces ``sum_many_kernel`` (:168), the vmapped pairwise ``_tree_sum``
+(:140) over the complete Jacobian ``_add`` (:80, add-2007-bl with every case
+selected by mask) and ``_dbl`` (:55, dbl-2009-l). The tree is the JAX one:
+at each level lane j takes lane j + n/2 as its second operand, so the plain
+version, the kernel and the JAX program produce the same Jacobian
+coordinates, not only the same point.
+
+Points cross to the card in the kernels' Montgomery form x * 2^384 mod p,
+as ``int32[..., 12]`` u32 words (``field_limbs.from_card_words``), as the
+JAX ``sum_many_kernel`` takes Montgomery rows: X, Y, Z of every lane, Z = 0
+for infinity and padding, Z = one (2^384 mod p) for an affine key. The sums
+come back in that form too. A cached key carries its 96-byte row in that
+form (``crypto.curve.Point.row``), so a batch packs with one
+``bytes.join`` and no Python ints. The one inversion per item that brings
+a sum back to affine stays on the host, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _ext
+from ..crypto.curve import B1, Point, g1_infinity
+from ..crypto.fields import P as P_INT
+from ..crypto.fields import Fq
+from ..device import default_device
+from . import field_limbs as fl
+
+N_WORDS = fl.N_WORDS
+
+
+def _dbl(X, Y, Z):
+    """dbl-2009-l (a = 0). Infinity (Z = 0) and Y = 0 both give Z3 = 0."""
+    A, B, YZ = fl.mul(torch.stack([X, Y, Y]), torch.stack([X, Y, Z]))
+    C, t = fl.sqr(torch.stack([B, fl.add(X, B)]))
+    D = fl.dbl(fl.sub(fl.sub(t, A), C))
+    E = fl.add(fl.dbl(A), A)
+    X3 = fl.norm(fl.sub(fl.sqr(E), fl.dbl(D)))
+    C8 = fl.dbl(fl.dbl(fl.dbl(C)))
+    Y3 = fl.norm(fl.sub(fl.mul(E, fl.sub(D, X3)), C8))
+    return X3, Y3, fl.norm(fl.dbl(YZ))
+
+
+def _add(X1, Y1, Z1, X2, Y2, Z2):
+    """Complete Jacobian add (add-2007-bl core), every case by mask: P + P
+    doubles, P + (-P) gives Z = 0, a Z = 0 operand passes the other one
+    through."""
+    Z1Z1, Z2Z2 = fl.sqr(torch.stack([Z1, Z2]))
+    U1, U2, YZ1, YZ2 = fl.mul(torch.stack([X1, X2, Y1, Y2]), torch.stack([Z2Z2, Z1Z1, Z2, Z1]))
+    S1, S2 = fl.mul(torch.stack([YZ1, YZ2]), torch.stack([Z2Z2, Z1Z1]))
+    H = fl.sub(U2, U1)
+    rr = fl.sub(S2, S1)
+    r2 = fl.dbl(rr)
+    I = fl.sqr(fl.dbl(H))
+    J, V = fl.mul(torch.stack([H, U1]), I)
+    X3 = fl.norm(fl.sub(fl.sub(fl.sqr(r2), J), fl.dbl(V)))
+    SJ = fl.mul(S1, J)
+    Y3 = fl.norm(fl.sub(fl.mul(r2, fl.sub(V, X3)), fl.dbl(SJ)))
+    ZZ = fl.sub(fl.sub(fl.sqr(fl.add(Z1, Z2)), Z1Z1), Z2Z2)
+    Z3 = fl.mul(ZZ, H)
+
+    p1_inf, p2_inf = fl.is_zero(Z1), fl.is_zero(Z2)
+    same_x, same_y = fl.is_zero(H), fl.is_zero(rr)
+    dX, dY, dZ = _dbl(X1, Y1, Z1)
+    same = same_x & same_y
+    outX = fl.select(same, dX, X3)
+    outY = fl.select(same, dY, Y3)
+    outZ = fl.select(same, dZ, fl.select(same_x, torch.zeros_like(Z3), Z3))
+    outX = fl.select(p1_inf, X2, fl.select(p2_inf, X1, outX))
+    outY = fl.select(p1_inf, Y2, fl.select(p2_inf, Y1, outY))
+    outZ = fl.select(p1_inf, Z2, fl.select(p2_inf, Z1, outZ))
+    return outX, outY, outZ
+
+
+def _tree_sum(X, Y, Z):
+    """Pairwise sum over the lane axis (-2, a power of two): lane j takes
+    lane j + n/2 at every level."""
+    n = X.shape[-2]
+    while n > 1:
+        h = n // 2
+        X, Y, Z = _add(X[..., :h, :], Y[..., :h, :], Z[..., :h, :],
+                       X[..., h:n, :], Y[..., h:n, :], Z[..., h:n, :])
+        n = h
+    return X[..., 0, :], Y[..., 0, :], Z[..., 0, :]
+
+
+def sum_many_ref(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K10: int32[I, L, 12] X, Y, Z -> int32[I, 3, 12]
+    Jacobian sums, both in the card's Montgomery words."""
+    rX, rY, rZ = _tree_sum(*(fl.from_card_words(a) for a in (X, Y, Z)))
+    return torch.stack([fl.to_card_words(a) for a in (rX, rY, rZ)], dim=-2)
+
+
+def _check_sum_args(X, Y, Z) -> None:
+    if X.dim() != 3 or X.shape[-1] != N_WORDS or X.shape[1] < 1:
+        raise ValueError(f"expected int32[I, L, {N_WORDS}] lanes, got {tuple(X.shape)}")
+    lanes = X.shape[1]
+    if lanes & (lanes - 1):
+        raise ValueError(f"the lane count must be a power of two, got {lanes}")
+    if Y.shape != X.shape or Z.shape != X.shape:
+        raise ValueError("X, Y and Z must have one shape")
+
+
+def sum_many(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """Per-item Jacobian sums of ``[I, L, 12]`` lanes (L a power of two)
+    -> ``int32[I, 3, 12]``, both in the card's Montgomery words.
+
+    CUDA tensors go through kernel K10 (``csrc/g1_sum.cu``, one block per
+    item, one launch); CPU tensors through the plain version."""
+    _check_sum_args(X, Y, Z)
+    if X.device.type == "cpu":
+        return sum_many_ref(X, Y, Z)
+    for t in (X, Y, Z):
+        _ext.check_cuda(t, torch.int32)
+    items, lanes = X.shape[0], X.shape[1]
+    out = torch.empty((items, 3, N_WORDS), dtype=torch.int32, device=X.device)
+    _ext.launch("g1_sum", "g1_sum_many_launch", X.device, _ext.ptr(X), _ext.ptr(Y), _ext.ptr(Z),
+                _ext.ptr(out), items, lanes)
+    return out
+
+
+# --- host boundary ------------------------------------------------------------
+
+_ZERO_ROW = bytes(96)
+_ONE = fl.ints_to_card_words(1)  # Z of an affine point
+
+
+def lane_pad(n: int) -> int:
+    """The power of two at or above ``n`` (at least 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def pack_lanes(point_lists: list[list[Point]], lanes: int | None = None) -> tuple:
+    """numpy int32 X, Y, Z ``[I, L, 12]`` of affine G1 points in the card's
+    Montgomery words (L the power of two of the largest list, or
+    ``lanes``), from each point's cached row; infinity and padding lanes
+    have Z = 0."""
+    n = len(point_lists)
+    widest = max(len(p) for p in point_lists)
+    lanes = lanes or lane_pad(widest)
+    if widest > lanes:
+        raise ValueError(f"a list of {widest} points does not fit {lanes} lanes")
+    buf = b"".join(b"".join(p.row for p in pts) + _ZERO_ROW * (lanes - len(pts))
+                   for pts in point_lists)
+    xy = np.frombuffer(buf, dtype="<u4").astype(np.uint32).view(np.int32)
+    xy = xy.reshape(n, lanes, 2, N_WORDS)
+    Z = np.zeros((n, lanes, N_WORDS), np.int32)
+    for i, pts in enumerate(point_lists):
+        Z[i, : len(pts)] = _ONE
+        for j, p in enumerate(pts):
+            if p.is_infinity():
+                Z[i, j] = 0
+    return np.ascontiguousarray(xy[:, :, 0]), np.ascontiguousarray(xy[:, :, 1]), Z
+
+
+def jacobian_to_point(x: int, y: int, z: int) -> Point:
+    """Affine G1 point of canonical Jacobian ints: one inverse."""
+    if z == 0:
+        return g1_infinity()
+    zinv = pow(z, -1, P_INT)
+    zinv2 = zinv * zinv % P_INT
+    return Point(Fq(x * zinv2 % P_INT), Fq(y * zinv2 % P_INT * zinv % P_INT), B1)
+
+
+def sums_to_points(out: torch.Tensor) -> list[Point]:
+    """``int32[I, 3, 12]`` Jacobian sums (card Montgomery words) -> affine
+    Points."""
+    return [jacobian_to_point(*xyz) for xyz in fl.card_words_to_ints(out)]
+
+
+def sum_g1_many_device(point_lists: list[list[Point]], device=None) -> list[Point]:
+    """Per-item point sums for many committees in one launch:
+    ``[sum(points) for points in point_lists]`` on ``device`` (the card by
+    default). Lanes pad to the power of two of the largest committee."""
+    if not point_lists:
+        return []
+    dev = default_device(device)
+    if not any(point_lists):
+        return [g1_infinity() for _ in point_lists]
+    X, Y, Z = (torch.from_numpy(a).to(dev) for a in pack_lanes(point_lists))
+    return sums_to_points(sum_many(X, Y, Z))
+
+
+def sum_g1_device(points: list[Point], device=None) -> Point:
+    """Device point sum of one list."""
+    return sum_g1_many_device([points], device=device)[0] if points else g1_infinity()

@@ -362,3 +362,100 @@ def test_merkleize_many_device_on_card(cuda):
     got = merkle.merkleize_many_device(trees, 12, pad_batch=64, device=cuda)
     assert got == merkle.merkleize_many_device(trees, 12, pad_batch=64, device="cpu")
     assert merkle.merkleize_subtree_device(trees[5], 12, device=cuda) == got[5]
+
+
+# --- K10-K12: the BLS kernels against their plain versions on corners ----------
+
+
+def _g1_corner_lists(lanes: int):
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_infinity
+    from eth_consensus_specs_tpu_torch.inputs import g1_keys
+
+    keys = g1_keys(max(lanes, 4), first=11)
+    p = keys[0]
+    return [
+        keys[:lanes],  # full
+        keys[: max(1, lanes // 2 - 1)],  # ragged, padded lanes
+        [p, p] + keys[1: lanes - 1] if lanes >= 2 else [p],  # P + P at the first level
+        [p, -p] + keys[2:lanes] if lanes >= 2 else [p],  # P + (-P)
+        [g1_infinity()] * lanes,  # every Z = 0
+        [g1_infinity(), p] + [g1_infinity()] * (lanes - 2) if lanes >= 2 else [g1_infinity()],
+    ]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 256, 1024])
+def test_g1_sum_kernel(cuda, lanes):
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_infinity
+    from eth_consensus_specs_tpu_torch.ops import g1_msm
+
+    lists = _g1_corner_lists(lanes)
+    X, Y, Z = (torch.from_numpy(a) for a in g1_msm.pack_lanes(lists, lanes))
+    _ext.reset_launches()
+    got = g1_msm.sum_many(X.to(cuda), Y.to(cuda), Z.to(cuda))
+    assert _ext.launches["g1_sum"] == 1
+    assert torch.equal(got, g1_msm.sum_many_ref(X.to(cuda), Y.to(cuda), Z.to(cuda)))
+    want = []
+    for pts in lists:
+        acc = g1_infinity()
+        for p in pts:
+            acc = acc + p
+        want.append(acc)
+    assert g1_msm.sums_to_points(got) == want
+
+
+def _pairs(n: int, inactive=()):
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_infinity, g1_generator
+    from eth_consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_g2
+
+    g = g1_generator()
+    return [(g1_infinity() if i in inactive else g.mul(3 + 7 * i), hash_to_g2(b"pair-%d" % i))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("n,inactive", [(1, ()), (2, (1,)), (9, (0, 4)), (33, ())])
+def test_miller_product_kernel(cuda, n, inactive):
+    from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    args = [torch.from_numpy(a).to(cuda) for a in pd.pack_pairs(_pairs(n, inactive))]
+    _ext.reset_launches()
+    got = pd.miller_product(*args)
+    assert _ext.launches["miller"] == 1 and _ext.launches["miller_fold"] == 1
+    assert torch.equal(got, pd.miller_product_ref(*args))
+    if n == 1:
+        p, q = _pairs(1)[0]
+        assert pd.fq12_from_words(got) == oracle.miller_loop(p, oracle.untwist(q))
+
+
+def test_final_exp_kernel(cuda):
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator
+    from eth_consensus_specs_tpu_torch.crypto.fields import Fq12
+    from eth_consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_g2
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    g, q = g1_generator(), hash_to_g2(b"bilinear")
+    cases = {
+        "true": [(g.mul(6), q.mul(5)), (-g.mul(30), q)],
+        "false": [(g.mul(6), q.mul(5)), (-g.mul(31), q)],
+    }
+    for name, pairs in cases.items():
+        f = pd.miller_product(*[torch.from_numpy(a).to(cuda) for a in pd.pack_pairs(pairs)])
+        _ext.reset_launches()
+        got = pd.final_exp_is_one(f)
+        assert _ext.launches["final_exp"] == 1
+        assert bool(got) == (name == "true") == bool(pd.final_exp_is_one_ref(f))
+    one = torch.from_numpy(pd.fq12_to_words(Fq12.one())).to(cuda)
+    assert bool(pd.final_exp_is_one(one))
+
+
+def test_verify_many_on_card(cuda):
+    import random
+
+    from eth_consensus_specs_tpu_torch.inputs import attestation_block
+    from eth_consensus_specs_tpu_torch.ops import bls_batch
+
+    items, _ = attestation_block(6, 4, distinct=4, tamper=(3,))
+    assert bls_batch.verify_many(items, device=cuda, rng=random.Random(2)) == [
+        True, True, True, False, True, True]
+    assert bls_batch.verify_many(items, device="cpu", rng=random.Random(2)) == [
+        True, True, True, False, True, True]
