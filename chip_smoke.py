@@ -65,7 +65,19 @@ Phases, each printing one JSON line:
    FastAggregateVerify in a pool of worker processes. The committee is cut
    from 512 to a fixed 128, printed as ``reduced`` with the measured host
    key-validation time that justifies it: the run fails if twice the
-   committee's one-time validation would fit 60 s.
+   committee's one-time validation would fit 60 s. Its 128 distinct messages
+   hash to G2 through K13 and K14 (``hash_to_field`` on the host), timed
+   apart in ``parts_ms`` (``h2c.*``) and by CUDA events;
+12. agg_slot: one mainnet slot at 2^20 validators, 32,768 attesters in 64
+   committees of 512 over 64 subnets, every 17th abstaining, 2 roots, 2
+   invalid committees (``inputs.slot_committees``, the defaults of
+   ``scripts/agg_bench.py`` but mainnet's committee): ``aggregate_slot`` on
+   the card (K15 and K10 at each tier) held against ``aggregate_slot_host``
+   at every tier (points, bytes, bits), ``verify_slot`` (false on every root
+   that holds an invalid committee, true on a root once its invalid
+   committee is dropped), ``isolate_invalid_subnets`` equal to the injected
+   (subnet, root) set; ms per slot of each, signatures aggregated per
+   second.
 
 Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
 (phase0_epoch, on the example columns and every phase0 corner) and K2's
@@ -74,7 +86,15 @@ shapes of phases 8-10, and K10 (g1_sum_many at [128, 512], [8, 32768] and
 corner items, against (sum of k) * G on the host), K11 (miller_product at
 129, 9 and 1 pairs, the last two against the host Miller loop) and K12
 (final_exp_is_one on a product that is 1 and one that is not, against the
-host pairing check). Each path runs with every launch counter at 0 just
+host pairing check), K13 (h2c_map) and K14 (h2c_finish) at a block's 128
+messages plus rows holding u = 0 and u with c1 = 0 (against the host
+``hash_to_g2`` and ``map_to_curve_g2``; K13's square root alone also on
+values in Fq, the branch no message is known to reach), and K15
+(g2_sum_many at ``agg_slot``'s tier shapes [1, 512], [64, 1] and [2, 32],
+at [64, 512] and on corner items: all infinity, one lane, P + P, P - P,
+ragged, against the host ``_sum_g2``; ``agg_slot`` holds K15 and K10 word
+for word against their plain versions again on each tier's own points).
+Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own path, the state_inc main path
 for K1-K6, summed over its kernels where an entry launches two, as K11's
@@ -1402,10 +1422,11 @@ def _oracle_verdict(item) -> bool:
 
 def run_bls_block(dev) -> tuple[dict, dict]:
     """Phase 11: ``verify_many`` on a deneb mainnet block: 128 aggregates
-    over 128 distinct messages, fresh messages for every call; a warm call,
-    three timed calls, a batch with item 17 tampered; every verdict against
-    the host oracle's per-item FastAggregateVerify. The card's busy time is
-    its three kernels timed by CUDA events on one call's packed inputs:
+    over 128 distinct messages, fresh messages for every call, hashed to G2
+    by K13 and K14; a warm call, three timed calls, a batch with item 17
+    tampered; every verdict against the host oracle's per-item
+    FastAggregateVerify. The card's busy time is its five kernels timed by
+    CUDA events on one call's packed inputs:
     torch.profiler returned no device events for windows around this work."""
     import multiprocessing as mp
     import random
@@ -1417,7 +1438,8 @@ def run_bls_block(dev) -> tuple[dict, dict]:
     from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g1_to_bytes
     from eth_consensus_specs_tpu_torch.crypto.signature import _load_pk
     from eth_consensus_specs_tpu_torch.inputs import attestation_block, g1_keys
-    from eth_consensus_specs_tpu_torch.ops import bls_batch, g1_msm, pairing_device
+    from eth_consensus_specs_tpu_torch.ops import (
+        bls_batch, field_limbs, g1_msm, h2c_device, pairing_device)
 
     # the cut: validate a sample of fresh keys to size the one-time validation
     sample = [g1_to_bytes(k) for k in g1_keys(64, first=1 << 40)]
@@ -1486,7 +1508,12 @@ def run_bls_block(dev) -> tuple[dict, dict]:
         raise RuntimeError("the traced block's pairing check failed")
 
     f = pairing_device.miller_product(*packed)
+    u = torch.from_numpy(field_limbs.ints_to_words(
+        h2c_device.field_elements([msg for _, msg, _, _ in parsed]))).to(dev)
+    jac = h2c_device.h2c_map(u)
     kernel_ms = {
+        "h2c_map": cuda_ms(lambda: h2c_device.h2c_map(u), repeats=5),
+        "h2c_finish": cuda_ms(lambda: h2c_device.h2c_finish(jac), repeats=5),
         "g1_sum_many": cuda_ms(lambda: g1_msm.sum_many(*lanes), repeats=5),
         "miller_product": cuda_ms(lambda: pairing_device.miller_product(*packed), repeats=5),
         "final_exp_is_one": cuda_ms(lambda: pairing_device.final_exp_is_one(f), repeats=5),
@@ -1521,6 +1548,349 @@ def run_bls_block(dev) -> tuple[dict, dict]:
 
 
 
+# --- slice 5: G2 on the card: hash-to-G2 (K13, K14), committee sums (K15) ---------
+
+FQ_PER_FQ2_MUL = 3  # Karatsuba
+FQ_PER_FQ2_SQR = 2
+FQ_PER_G2_ADD = 5 * FQ_PER_FQ2_SQR + 11 * FQ_PER_FQ2_MUL  # add-2007-bl in Fq2: 43
+FQ_PER_G2_DBL = 5 * FQ_PER_FQ2_SQR + 2 * FQ_PER_FQ2_MUL  # dbl-2009-l in Fq2: 16
+AGG_VALIDATORS = 1 << 20
+AGG_SUBNETS = 64
+AGG_COMMITTEE = AGG_VALIDATORS // 32 // AGG_SUBNETS  # 512: mainnet's committee
+AGG_ATTESTERS = AGG_VALIDATORS // 32  # one slot's attesters
+AGG_ROOTS = 2
+AGG_INVALID = 2
+AGG_TIMED = 3
+
+
+def _pow_products(e: int, loop_bits: int) -> int:
+    """Fq products of a square-and-multiply loop over ``loop_bits`` bits of
+    the public exponent e, as the kernels run it (a squaring every bit)."""
+    return loop_bits + bin(e).count("1")
+
+
+def h2c_element_products(second_root: bool, tv2_zero: bool) -> int:
+    """Fq products K13 spends on one field element: load, SSWU prelude, the
+    inverse of tv2 (unless tv2 = 0), g(x1) and its square root (norm power,
+    then one power of h = (a + sn)/2), the second candidate when g(x1) is not
+    a square, sgn0 and the isogeny (as ``csrc/h2c.cu`` runs them)."""
+    from eth_consensus_specs_tpu_torch.crypto.fields import P
+
+    p_sqrt = _pow_products((P + 1) // 4, 379)
+    p_half = _pow_products((P - 3) // 4, 379)
+    p_inv = _pow_products(P - 2, 381)
+    sqrt = 2 + p_sqrt + 1 + 1 + p_half + 1 + 1 + 2
+    iso = 11 * FQ_PER_FQ2_MUL + 4 * FQ_PER_FQ2_MUL + 2 * FQ_PER_FQ2_SQR + 6 * FQ_PER_FQ2_MUL
+    n = 2 + FQ_PER_FQ2_SQR + FQ_PER_FQ2_MUL + FQ_PER_FQ2_SQR  # load, u^2, tv1, tv1^2
+    n += 0 if tv2_zero else 2 + p_inv + 3 + FQ_PER_FQ2_MUL
+    n += FQ_PER_FQ2_SQR + FQ_PER_FQ2_MUL + sqrt  # g(x1), its root
+    if second_root:
+        n += FQ_PER_FQ2_MUL + FQ_PER_FQ2_SQR + FQ_PER_FQ2_MUL + sqrt  # x2, g(x2), its root
+    return n + 2 + iso  # sgn0(y), the isogeny
+
+
+def h2c_element_needed_products() -> int:
+    """Fq products the SSWU map needs for one field element, with one root
+    serving both candidates and no inverse (RFC 9380's sqrt_ratio carried to
+    this design's square root by Fq powers): the prelude; x1 = N/D and
+    g(x1) = U/V as fractions; the norm's ratio root (one power a (a b)^e,
+    which also decides the candidate: g(x2) = tv1^3 g(x1) gives the other
+    norm root by constants); one h power for the square candidate's root;
+    sgn0 and the isogeny. The built design spends more
+    (:func:`h2c_element_products`): the tv2 inverse, and a second pair of
+    powers where g(x1) is not a square."""
+    from eth_consensus_specs_tpu_torch.crypto.fields import P
+
+    p_ratio = _pow_products((P - 3) // 4, 379)
+    iso = 11 * FQ_PER_FQ2_MUL + 4 * FQ_PER_FQ2_MUL + 2 * FQ_PER_FQ2_SQR + 6 * FQ_PER_FQ2_MUL
+    n = 2 + FQ_PER_FQ2_SQR + FQ_PER_FQ2_MUL + FQ_PER_FQ2_SQR  # load, u^2, tv1, tv1^2
+    n += 2 * FQ_PER_FQ2_MUL  # N = B'(tv2 + 1), D = -A' tv2
+    n += 2 * FQ_PER_FQ2_SQR + 5 * FQ_PER_FQ2_MUL  # U = N^3 + A' N D^2 + B' D^3, V = D^3
+    n += FQ_PER_FQ2_MUL + 4  # W = U conj(V), the norms of W and V
+    n += 1 + p_ratio + 2  # the norm's ratio root and its check
+    n += FQ_PER_FQ2_MUL + 2  # x2 = tv1 x1, its norm root by constants
+    n += 3 + p_ratio + 6  # h as a ratio, its power, the root's two coordinates
+    return n + 2 + iso  # sgn0(y), the isogeny
+
+
+def h2c_finish_products() -> int:
+    """Fq products K14 spends on one point: two [|x|] ladders, the psi terms
+    and four adds, the affine conversion (one Fq2 inversion) and the store."""
+    from eth_consensus_specs_tpu_torch.crypto.fields import P
+
+    ladder = 63 * FQ_PER_G2_DBL + 5 * FQ_PER_G2_ADD
+    psi = 2 * FQ_PER_FQ2_MUL
+    clear = 2 * ladder + 5 * FQ_PER_G2_ADD + 3 * psi + FQ_PER_G2_DBL
+    affine = 2 + _pow_products(P - 2, 381) + 3 + FQ_PER_FQ2_SQR + 3 * FQ_PER_FQ2_MUL
+    return clear + affine + 4
+
+
+def sswu_shape(u) -> tuple[bool, bool]:
+    """(g(x1) is not a square, tv2 = 0) for one host Fq2 u: the branches K13
+    takes on it (the host map's own steps)."""
+    from eth_consensus_specs_tpu_torch.crypto import hash_to_curve as h2c
+    from eth_consensus_specs_tpu_torch.crypto.fields import Fq2
+
+    tv1 = h2c.Z_SSWU * u.square()
+    tv2 = tv1.square() + tv1
+    if tv2.is_zero():
+        x1 = h2c.B_PRIME * (h2c.Z_SSWU * h2c.A_PRIME).inv()
+    else:
+        x1 = (-h2c.B_PRIME) * h2c.A_PRIME.inv() * (Fq2.one() + tv2.inv())
+    gx1 = (x1.square() + h2c.A_PRIME) * x1 + h2c.B_PRIME
+    return gx1.sqrt() is None, tv2.is_zero()
+
+
+def h2c_map_products(rows) -> tuple[int, int]:
+    """(all Fq products, the longest chain) K13 needs on ``rows`` of host u
+    pairs: per message its two elements, then the pair's add by one thread."""
+    from eth_consensus_specs_tpu_torch.crypto.fields import Fq2
+
+    per = [[h2c_element_products(*sswu_shape(Fq2.from_ints(*e))) for e in pair] for pair in rows]
+    total = sum(a + b + FQ_PER_G2_ADD for a, b in per)
+    return total, max(max(a, b) for a, b in per) + FQ_PER_G2_ADD
+
+
+def check_g2_kernels(dev):
+    """Phase 3, continued: K13 and K14 at a deneb block's 128 messages and on
+    rows holding u = 0 and u with c1 = 0; K13's square root on values in Fq;
+    K15 at ``agg_slot``'s three tier shapes ([1, 512], [64, 1], [2, 32], by
+    the shape function its tiers launch at), at [64, 512] and on corner
+    items. Each against its plain version on the card (word for word) and
+    the host oracle."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch.crypto.curve import g2_generator, g2_infinity
+    from eth_consensus_specs_tpu_torch.crypto.fields import P, Fq, Fq2
+    from eth_consensus_specs_tpu_torch.crypto.hash_to_curve import (
+        clear_cofactor_g2, hash_to_g2, map_to_curve_g2)
+    from eth_consensus_specs_tpu_torch.crypto.signature import _sum_g2
+    from eth_consensus_specs_tpu_torch.inputs import point_multiples, block_message
+    from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
+    from eth_consensus_specs_tpu_torch.ops import g2_aggregate as ga
+    from eth_consensus_specs_tpu_torch.ops import h2c_device as hd
+
+    rows = []
+    msgs = [block_message(100, i) for i in range(BLS_ITEMS)]
+    block = hd.field_elements(msgs)
+    corner_rows = [[[0, 0], [3, 0]], [[P - 1, 0], [12345, 0]]]  # u = 0 (tv2 = 0); c1 = 0
+    u = torch.from_numpy(fl.ints_to_words(block + corner_rows)).to(dev)
+    jac = hd.h2c_map(u)
+    err_map = max_abs_err(jac, hd.h2c_map_ref(u))
+    xy, inf = hd.h2c_finish(jac)
+    rxy, rinf = hd.h2c_finish_ref(jac)
+    err_finish = max(max_abs_err(xy, rxy), max_abs_err(inf, rinf))
+    want = [hash_to_g2(m) for m in msgs] + [
+        clear_cofactor_g2(map_to_curve_g2(Fq2.from_ints(*a)) + map_to_curve_g2(Fq2.from_ints(*b)))
+        for a, b in corner_rows]
+    if hd.points_from_words(xy, inf) != want:
+        raise RuntimeError("h2c_map/h2c_finish differ from the host hash_to_g2 or map_to_curve_g2")
+    # the square root alone: values in Fq (b = 0), zero, a non-square, general squares
+    cases = [Fq2(Fq(11), Fq(0)).square(), Fq2(Fq(0), Fq(13)).square(), Fq2(Fq(5), Fq(0)),
+             Fq2(Fq(P - 5), Fq(0)), Fq2(Fq(0), Fq(0)), Fq2(Fq(3), Fq(1)),
+             Fq2(Fq(5), Fq(7)).square(), Fq2(Fq(P - 2), Fq(P - 5)).square()]
+    v = torch.from_numpy(fl.ints_to_words([[c.c0.n, c.c1.n] for c in cases]))
+    root, ok = hd.fq2_sqrt(v.to(dev))
+    if not torch.equal(ok.cpu(), hd.fq2_sqrt(v)[1]):
+        raise RuntimeError("the kernels' Fq2 square root flags differ from the plain version")
+    for c, r, flag in zip(cases, fl.words_to_ints(root), ok.tolist()):
+        if flag and Fq2.from_ints(*r).square() != c:
+            raise RuntimeError(f"the kernels' Fq2 square root of {c} is wrong")
+    u_block = u[:BLS_ITEMS].contiguous()
+    jac_block = jac[:BLS_ITEMS].contiguous()
+    design, design_serial = h2c_map_products(block)
+    serial = h2c_element_needed_products() + FQ_PER_G2_ADD
+    products = BLS_ITEMS * (2 * serial - FQ_PER_G2_ADD)
+    b_ms, b_by = fq_bound(products, serial)
+    rows.append(dict(
+        name="h2c_map", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/h2c.cu",
+        replaces="eth_consensus_specs_tpu/ops/h2c_device.py:307", shape=[BLS_ITEMS, 2, 2, 12],
+        max_abs_err=err_map, ms=cuda_ms(lambda: hd.h2c_map(u_block), repeats=5),
+        plain_ms=cuda_ms(lambda: hd.h2c_map_ref(u_block), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
+        serial_fq_products=serial, design_fq_products=design,
+        design_serial_fq_products=design_serial, host_checked=len(want), corner_rows=corner_rows,
+        sqrt_cases_checked=len(cases),
+        second_root_elements=sum(sswu_shape(Fq2.from_ints(*e))[0] for pair in block for e in pair),
+    ))
+    per_point = h2c_finish_products()
+    b_ms, b_by = fq_bound(BLS_ITEMS * per_point, per_point)
+    rows.append(dict(
+        name="h2c_finish", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/h2c.cu",
+        replaces="eth_consensus_specs_tpu/ops/h2c_device.py:333", shape=[BLS_ITEMS, 3, 2, 12],
+        max_abs_err=err_finish, ms=cuda_ms(lambda: hd.h2c_finish(jac_block), repeats=5),
+        plain_ms=cuda_ms(lambda: hd.h2c_finish_ref(jac_block), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=BLS_ITEMS * per_point,
+        serial_fq_products=per_point, host_checked=len(want),
+    ))
+
+    # K15: k * G2 for k = 1 .. 32,768, item i the lanes i L + 1 .. (i + 1) L;
+    # agg_slot's tiers: a committee a subnet, the 64 (subnet, root) partials
+    # of one lane, the 2 roots' 32 partials
+    g = g2_generator()
+    pts = point_multiples(g, 1, 64 * AGG_COMMITTEE)
+    tiers = [ga.g2_many_sum_shape(*t) for t in (
+        (1, AGG_COMMITTEE), (AGG_SUBNETS, 1), (AGG_ROOTS, AGG_SUBNETS // AGG_ROOTS))]
+    shapes = {}
+    for items, lanes in tiers + [(64, AGG_COMMITTEE)]:
+        lists = [pts[i * lanes:(i + 1) * lanes] for i in range(items)]
+        X, Y, Z = (torch.from_numpy(a).to(dev) for a in ga._points_to_lanes(lists, items, lanes))
+        out = ga.g2_sum_many(X, Y, Z)
+        err = max_abs_err(out, ga.g2_sum_many_ref(X, Y, Z))
+        want_sums = [g.mul(sum(range(i * lanes + 1, (i + 1) * lanes + 1))) for i in range(items)]
+        if ga.sums_to_points(out) != want_sums:
+            raise RuntimeError(f"g2_sum_many [{items}, {lanes}] differs from the host sums")
+        products = items * (lanes - 1) * FQ_PER_G2_ADD
+        serial = (lanes.bit_length() - 1) * FQ_PER_G2_ADD
+        b_ms, b_by = fq_bound(products, serial)
+        b_bytes = (3 * items * lanes + 3 * items) * 96 / HBM_BYTES_PER_S * 1e3
+        shapes[(items, lanes)] = dict(
+            shape=[items, lanes], max_abs_err=err, ms=cuda_ms(lambda: ga.g2_sum_many(X, Y, Z),
+                                                              repeats=10),
+            plain_ms=cuda_ms(lambda: ga.g2_sum_many_ref(X, Y, Z), 1),
+            bound_ms=max(b_ms, b_bytes), bound_by=b_by if b_ms >= b_bytes else "bytes",
+            fq_products=products, serial_fq_products=serial, host_checked=items)
+    p, inf = pts[5], g2_infinity()
+    corners = [[inf] * AGG_COMMITTEE, [p], [p, p] + pts[10:20], [p, -p] + pts[20:30], pts[:37],
+               [inf, p, inf, pts[9]]]
+    X, Y, Z = (torch.from_numpy(a).to(dev)
+               for a in ga._points_to_lanes(corners, len(corners), AGG_COMMITTEE))
+    out = ga.g2_sum_many(X, Y, Z)
+    err = max_abs_err(out, ga.g2_sum_many_ref(X, Y, Z))
+    if ga.sums_to_points(out) != [_sum_g2(c) for c in corners]:
+        raise RuntimeError("g2_sum_many corner items differ from the host _sum_g2")
+    tier0 = shapes[tiers[0]]
+    rows.append(dict(
+        name="g2_sum_many", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/g2_sum.cu",
+        replaces="eth_consensus_specs_tpu/ops/g2_aggregate.py:103",
+        **{k: tier0[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "fq_products", "serial_fq_products")},
+        max_abs_err=max(max(r["max_abs_err"] for r in shapes.values()), err), library_ms=None,
+        at_64x512=shapes[(64, AGG_COMMITTEE)], at_tier1=shapes[tiers[1]],
+        at_tier2=shapes[tiers[2]], corners_checked=len(corners),
+    ))
+    return rows
+
+
+def _tiers_equal(a, b) -> bool:
+    """(slot aggregates, subnet aggregates) equal at every tier: points,
+    compressed bytes and participation bits."""
+    (slot_a, subs_a), (slot_b, subs_b) = a, b
+    if len(slot_a) != len(slot_b) or len(subs_a) != len(subs_b):
+        return False
+    for x, y in zip(subs_a, subs_b):
+        if ((x.subnet, x.root, x.sig, x.pubkey, x.sig_bytes, x.pubkey_bytes)
+                != (y.subnet, y.root, y.sig, y.pubkey, y.sig_bytes, y.pubkey_bytes)
+                or not (x.bits == y.bits).all()):
+            return False
+    for x, y in zip(slot_a, slot_b):
+        if ((x.root, x.sig, x.pubkey, x.sig_bytes, x.pubkey_bytes)
+                != (y.root, y.sig, y.pubkey, y.sig_bytes, y.pubkey_bytes)
+                or not (x.bits == y.bits).all()):
+            return False
+    return True
+
+
+def run_agg_slot(dev) -> tuple[dict, dict]:
+    """Phase 12: one mainnet slot's attestations through the committee tree
+    on the card, its verification and the bisection's isolation, each held
+    against the host: 32,768 attesters in 64 committees of 512 over 64
+    subnets, 2 roots, 2 invalid committees, every 17th validator abstaining.
+    The card's busy time is each tier's K15 and K10 launch timed by CUDA
+    events at the tier's shape, times the tier's launches."""
+    import random
+
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.inputs import slot_committees
+    from eth_consensus_specs_tpu_torch.ops import agg_tree, bls_batch, g1_msm
+    from eth_consensus_specs_tpu_torch.ops import g2_aggregate as ga
+
+    t0 = time.perf_counter()
+    atts, bad = slot_committees(AGG_ATTESTERS, AGG_SUBNETS, AGG_COMMITTEE, AGG_ROOTS, AGG_INVALID)
+    build_s = time.perf_counter() - t0
+    signatures = sum(len(a.sigs) for a in atts)
+    t0 = time.perf_counter()
+    warm = agg_tree.aggregate_slot(atts, device=dev)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = agg_tree.aggregate_slot_host(atts)
+    host_s = time.perf_counter() - t0
+    if not _tiers_equal(warm, host):
+        raise RuntimeError("the card's aggregation tiers differ from the host oracle's")
+    bad_roots = {root for _, root in bad}
+    want = [sa.root not in bad_roots for sa in warm[0]]
+    rng = random.Random(7)
+
+    bls_batch._H2G2_CACHE.clear()
+    _ext.reset_launches()
+    tree_ms, verify_ms, isolate_ms, launches = [], [], [], None
+    for rep in range(AGG_TIMED):
+        t0 = time.perf_counter()
+        tiers = agg_tree.aggregate_slot(atts, device=dev)
+        t1 = time.perf_counter()
+        verdicts = agg_tree.verify_slot(tiers[0], device=dev, rng=rng)
+        t2 = time.perf_counter()
+        isolated = agg_tree.isolate_invalid_subnets(tiers[1], device=dev, rng=rng)
+        t3 = time.perf_counter()
+        if rep == 0:
+            launches = dict(_ext.launches)
+        tree_ms.append((t1 - t0) * 1e3)
+        verify_ms.append((t2 - t1) * 1e3)
+        isolate_ms.append((t3 - t2) * 1e3)
+        if not _tiers_equal(tiers, host):
+            raise RuntimeError(f"timed slot {rep}: tiers differ from the host oracle's")
+        if verdicts != want:
+            raise RuntimeError(f"timed slot {rep}: verify_slot gave {verdicts}, not {want}")
+        if isolated != bad:
+            raise RuntimeError(f"timed slot {rep}: isolated {isolated}, injected {bad}")
+    # a root once its invalid committee is dropped verifies; the other does not
+    last = warm[0][-1].root
+    kept = [a for a in atts if (a.subnet, a.root) not in bad or a.root != last]
+    clean = agg_tree.verify_slot(agg_tree.aggregate_slot(kept, device=dev)[0], device=dev, rng=rng)
+    if clean != [False, True]:
+        raise RuntimeError(f"with root {last.hex()[:8]}'s invalid committee dropped: {clean}")
+
+    # the card's busy time of one tree: each tier's launches, on the tier's
+    # own points at the shapes its wrappers pad to, each kernel held word
+    # for word against its plain version on the card
+    subs = tiers[1]
+    roots = sorted({sa.root for sa in subs})
+    tier_lists = {
+        "tier0": ([list(atts[0].sigs)], [list(atts[0].pubkeys)], AGG_SUBNETS),
+        "tier1": ([[sa.sig] for sa in subs], [[sa.pubkey] for sa in subs], 1),
+        "tier2": ([[sa.sig for sa in subs if sa.root == r] for r in roots],
+                  [[sa.pubkey for sa in subs if sa.root == r] for r in roots], 1),
+    }
+    busy, tier_ms = 0.0, {}
+    for name, (g2_lists, g1_lists, count) in tier_lists.items():
+        shape = ga.g2_many_sum_shape(len(g2_lists), max(len(x) for x in g2_lists))
+        g2_lanes = [torch.from_numpy(a).to(dev) for a in ga._points_to_lanes(g2_lists, *shape)]
+        g1_lanes = [torch.from_numpy(a).to(dev) for a in g1_msm.pack_lanes(g1_lists)]
+        err = max(max_abs_err(ga.g2_sum_many(*g2_lanes), ga.g2_sum_many_ref(*g2_lanes)),
+                  max_abs_err(g1_msm.sum_many(*g1_lanes), g1_msm.sum_many_ref(*g1_lanes)))
+        k15 = cuda_ms(lambda: ga.g2_sum_many(*g2_lanes), repeats=5)
+        k10 = cuda_ms(lambda: g1_msm.sum_many(*g1_lanes), repeats=5)
+        tier_ms[name] = dict(g2_shape=list(shape), g2_sum_many=k15,
+                             g1_shape=list(g1_lanes[0].shape[:2]), g1_sum_many=k10,
+                             launches_each=count, max_abs_err=err)
+        busy += count * (k15 + k10)
+    ms = statistics.median(tree_ms)
+    summary = dict(
+        phase="agg_slot", preset="mainnet", validators=AGG_VALIDATORS, attesters=AGG_ATTESTERS,
+        committees=len(atts), committee=AGG_COMMITTEE, subnets=AGG_SUBNETS, roots=AGG_ROOTS,
+        invalid=AGG_INVALID, signatures=signatures, registry_build_s=build_s, warm_s=warm_s,
+        host_oracle_s=host_s, tree_ms=ms, tree_ms_runs=tree_ms,
+        verify_ms=statistics.median(verify_ms), verify_ms_runs=verify_ms,
+        isolate_ms=statistics.median(isolate_ms), isolate_ms_runs=isolate_ms,
+        signatures_per_s=signatures / (ms / 1e3), launches=launches, verdicts=want,
+        isolated=[[s, r.hex()] for s, r in bad], clean_root_verdicts=clean,
+        device_tier_ms=tier_ms, device_busy_ms=busy, device_idle_share=1 - busy / ms,
+        equal_host_oracle=True,
+    )
+    return summary, launches
+
 def main() -> int:
     import torch
 
@@ -1546,7 +1916,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = (check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
-            + check_bls_kernels(dev))
+            + check_bls_kernels(dev) + check_g2_kernels(dev))
     emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,
               phase_s=time.perf_counter() - t0))
 
@@ -1554,7 +1924,8 @@ def main() -> int:
     for path, phase in (("state", run_main_path), ("state_inc", run_state_inc),
                         ("dirty_registry", run_dirty_registry), ("durability", run_durability),
                         ("shuffle", run_shuffle), ("epoch_phase0", run_epoch_phase0),
-                        ("merkle_many", run_merkle_many), ("bls_block", run_bls_block)):
+                        ("merkle_many", run_merkle_many), ("bls_block", run_bls_block),
+                        ("agg_slot", run_agg_slot)):
         t0 = time.perf_counter()
         summary, by_path[path] = phase(dev)
         summary["phase_s"] = time.perf_counter() - t0
@@ -1586,12 +1957,14 @@ _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
               "sha256_single_block": "sha256_single_block", "shuffle_rounds": "shuffle",
               "phase0_epoch": "state_columns", "merkle_many_tree_root": "merkle_many",
               "g1_sum_many": "g1_sum", "miller_product": ("miller", "miller_fold"),
-              "final_exp_is_one": "final_exp"}
+              "final_exp_is_one": "final_exp", "h2c_map": "h2c_map",
+              "h2c_finish": "h2c_finish", "g2_sum_many": "g2_sum"}
 # the path whose counts a kernel's row reports, where it is not state_inc
 _PATH_OF = {"sha256_single_block": "shuffle", "shuffle_rounds": "shuffle",
             "phase0_epoch": "epoch_phase0", "merkle_many_tree_root": "merkle_many",
             "g1_sum_many": "bls_block", "miller_product": "bls_block",
-            "final_exp_is_one": "bls_block"}
+            "final_exp_is_one": "bls_block", "h2c_map": "bls_block", "h2c_finish": "bls_block",
+            "g2_sum_many": "agg_slot"}
 
 
 if __name__ == "__main__":

@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
-           "shuffle", "state_columns", "g1_sum", "miller", "final_exp")
+           "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "h2c", "g2_sum")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -59,6 +59,9 @@ SIGNATURES = {
     "miller": {"miller_loop_launch": [_P, _P, _P, _P, _P, _I64],
                "miller_fold_launch": [_P, _P, _I64]},
     "final_exp": {"final_exp_is_one_launch": [_P, _P]},
+    "h2c": {"h2c_map_launch": [_P, _P, _I64], "h2c_finish_launch": [_P, _P, _P, _I64],
+            "fq2_sqrt_launch": [_P, _P, _P, _I64]},
+    "g2_sum": {"g2_sum_many_launch": [_P, _P, _P, _P, _I64, _I64]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,8 @@
 The JAX package's columns, justification state, static state-root
 content and incremental forest are NamedTuples of arrays; these functions
 read them by attribute name as numpy arrays (no JAX import) and make the
-port's tensors on an explicit device. ``to_numpy`` turns the port's results
+port's tensors on an explicit device. Curve points, G2 lane arrays and
+committee attestations come across the same way, read by attribute. ``to_numpy`` turns the port's results
 back into numpy with the unsigned dtypes the JAX package uses, for
 comparing the two and for writing checkpoints in the JAX package's format.
 """
@@ -155,3 +156,37 @@ def point_to_bytes(p) -> bytes:
     if p.is_infinity():
         return g1_to_bytes(p) if p.b == Fq(4) else g2_to_bytes(p)
     return g1_to_bytes(p) if isinstance(p.x, Fq) else g2_to_bytes(p)
+
+
+def point_from_jax(p):
+    """A port Point from a JAX ``crypto.curve.Point`` (G1 or G2), read by
+    attribute: its coordinates are taken as they are, not re-validated."""
+    from .crypto.curve import B1, B2, Point
+    from .crypto.fields import Fq, Fq2
+
+    g2 = hasattr(p.b, "c0")
+    if p.x is None:
+        return Point.infinity(B2 if g2 else B1)
+    if g2:
+        return Point(Fq2.from_ints(p.x.c0.n, p.x.c1.n), Fq2.from_ints(p.y.c0.n, p.y.c1.n), B2)
+    return Point(Fq(p.x.n), Fq(p.y.n), B1)
+
+
+def g2_lanes_from_jax(X, Y, Z) -> tuple:
+    """JAX G2 lane arrays (``uint64[..., 2, 15]`` lazy Montgomery limbs,
+    R = 2^390, as ``g2_aggregate._points_to_lanes`` makes them) -> the
+    card's Montgomery words ``int32[..., 2, 12]`` each, what K15 and its
+    plain version take."""
+    return tuple(card_words_from_jax_limbs(a, "lazy_limbs") for a in (X, Y, Z))
+
+
+def attestation_from_jax(att):
+    """The port's ``ops.agg_tree.CommitteeAttestation`` from the JAX
+    package's (subnet, root, pubkeys, sigs, bits)."""
+    from .ops.agg_tree import CommitteeAttestation
+
+    return CommitteeAttestation(
+        subnet=int(att.subnet), root=bytes(att.root),
+        pubkeys=tuple(point_from_jax(p) for p in att.pubkeys),
+        sigs=tuple(point_from_jax(p) for p in att.sigs),
+        bits=tuple(bool(b) for b in att.bits))

@@ -40,10 +40,11 @@ BLS_X_ABS = -BLS_X
 class Point:
     """Affine point on y^2 = x^3 + b over a tower field; None coords = O.
 
-    ``row`` is a G1 point's row for the card (x then y, each in the
-    kernels' Montgomery form c * 2^384 mod p as 12 little-endian u32 limbs:
-    96 bytes), made once and kept with the point, so that a batch of cached
-    public keys packs for the card without touching Python ints."""
+    ``row`` is the point's row for the card: x then y, each Fq coordinate
+    in the kernels' Montgomery form c * 2^384 mod p as 12 little-endian u32
+    limbs (a G1 row is 96 bytes; a G2 row 192, each Fq2 as c0 then c1). It
+    is made once and kept with the point, so that a batch of cached public
+    keys or signatures packs for the card without touching Python ints."""
 
     __slots__ = ("x", "y", "b", "_row")
 
@@ -66,8 +67,12 @@ class Point:
     @property
     def row(self) -> bytes:
         if self._row is None:
-            self._row = bytes(96) if self.is_infinity() else b"".join(
-                ((c.n << 384) % P).to_bytes(48, "little") for c in (self.x, self.y))
+            if self.is_infinity():
+                self._row = bytes(96 if self.b == B1 else 192)
+            else:
+                coords = (self.x, self.y) if isinstance(self.x, Fq) else (
+                    self.x.c0, self.x.c1, self.y.c0, self.y.c1)
+                self._row = b"".join(((c.n << 384) % P).to_bytes(48, "little") for c in coords)
         return self._row
 
     def __eq__(self, o):

@@ -3,9 +3,12 @@ port's batch verification and its inputs need.
 
 The port's copy of the parts of ``eth_consensus_specs_tpu/crypto/signature.py``
 that the batched path uses: ``sk_to_pk``, ``sign``, ``aggregate``,
-``key_validate``, ``_load_pk`` with its bounded cache, ``_load_sig`` and the
-host ``fast_aggregate_verify`` (the oracle the card's verdicts are held
-against). Byte formats are the standard 48/96-byte compressed encodings.
+``key_validate``, ``_load_pk`` with its bounded cache, ``_load_sig``, the
+host folds ``_sum_g2`` and ``_sum_g1`` (the oracles of the card's committee
+sums) and the host ``fast_aggregate_verify`` (the oracle the card's
+verdicts are held against). The JAX package's folds go through its native
+C core where it is built; these are the plain affine additions, which give
+the same points. Byte formats are the standard 48/96-byte compressed encodings.
 """
 
 from __future__ import annotations
@@ -92,6 +95,17 @@ def _sum(points: list[Point], zero: Point) -> Point:
     for p in points:
         acc = acc + p
     return acc
+
+
+def _sum_g2(points: list[Point]) -> Point:
+    """The host fold of G2 points (signatures), one affine addition each:
+    the oracle of the card's committee sums (``ops/g2_aggregate``)."""
+    return _sum(points, g2_infinity())
+
+
+def _sum_g1(points: list[Point]) -> Point:
+    """The host fold of G1 points (public keys)."""
+    return _sum(points, g1_infinity())
 
 
 def aggregate(signatures: list[bytes]) -> bytes:

@@ -219,31 +219,10 @@ def lower_balances(cols: AltairEpochColumns, every: int = 256, gwei: int = 2_000
 
 
 def g1_keys(count: int, first: int = 1) -> list:
-    """The G1 points k * G for k = first, ..., first + count - 1, made by
-    successive Jacobian additions of G and one batch inversion to affine."""
-    from .crypto.curve import B1, F1, G1_GEN, Point, jac_add
-    from .crypto.fields import P, Fq
+    """The G1 points k * G for k = first, ..., first + count - 1."""
+    from .crypto.curve import g1_generator
 
-    g = (G1_GEN[0].n, G1_GEN[1].n, 1)
-    acc = F1.to_point(g, B1).mul(first) if first > 1 else None
-    j = F1.from_point(acc) if acc is not None else g
-    jac = []
-    for _ in range(count):
-        jac.append(j)
-        j = jac_add(F1, j, g)
-    # batch inversion of the Z coordinates (none is 0: k < r)
-    prefix = [1]
-    for _, _, z in jac:
-        prefix.append(prefix[-1] * z % P)
-    inv = pow(prefix[-1], -1, P)
-    out = [None] * count
-    for i in range(count - 1, -1, -1):
-        x, y, z = jac[i]
-        zi = inv * prefix[i] % P
-        inv = inv * z % P
-        zi2 = zi * zi % P
-        out[i] = Point(Fq(x * zi2), Fq(y * zi2 * zi), B1)
-    return out
+    return point_multiples(g1_generator(), first, count)
 
 
 def block_message(call: int, i: int) -> bytes:
@@ -286,3 +265,81 @@ def attestation_block(items: int, committee: int, distinct: int | None = None, s
         out.append((pk_bytes[i * committee:(i + 1) * committee], signed, sig))
         secrets.append(sk)
     return out, secrets
+
+
+# --- one slot's committee contributions -----------------------------------------
+
+
+def point_multiples(base, first: int, count: int) -> list:
+    """The points k * base for k = first, ..., first + count - 1 (G1 or G2),
+    made by successive Jacobian additions of base and one batch inversion."""
+    from .crypto.curve import Point, _field_of, jac_add
+
+    F = _field_of(base)
+    g = F.from_point(base)
+    j = F.from_point(base.mul(first))
+    jac = []
+    for _ in range(count):
+        jac.append(j)
+        j = jac_add(F, j, g)
+    prefix = [F.one]
+    for _, _, z in jac:
+        prefix.append(F.mul(prefix[-1], z))
+    inv = F.inv(prefix[-1])
+    out = [None] * count
+    for i in range(count - 1, -1, -1):
+        x, y, z = jac[i]
+        zi = F.mul(inv, prefix[i])
+        inv = F.mul(inv, z)
+        zi2 = F.sqr(zi)
+        out[i] = F.to_point((F.mul(x, zi2), F.mul(F.mul(y, zi2), zi), F.one), base.b)
+    return out
+
+
+def slot_committees(n_validators: int, subnets: int, committee: int, n_roots: int = 2,
+                    invalid: int = 0, drop: int = 17) -> tuple[list, list]:
+    """One slot's committee contributions, the port's copy of
+    ``scripts/agg_bench.py:81`` ``build_registry``: validator i holds
+    sk = i + 1 (key (i + 1) * G1, signature (i + 1) * H(root)); committees
+    are contiguous index ranges, committee c on subnet c % subnets;
+    attestation data roots (``bytes([r + 1]) * 32``) go to contiguous
+    blocks of committees; every ``drop``-th validator abstains (its bit is
+    clear, it contributes nothing); the first participant of each of
+    ``invalid`` evenly spread committees signs garbage (its signature plus
+    G2's generator, still in the subgroup). Keys and signatures are made by
+    incremental additions, no scalar multiplication per validator. Returns
+    (attestations, the sorted (subnet, root) pairs that must not verify)."""
+    from .crypto.curve import g2_generator
+    from .crypto.hash_to_curve import hash_to_g2
+    from .ops.agg_tree import CommitteeAttestation
+
+    n_committees = max(n_validators // committee, 1)
+    roots = [bytes([r + 1]) * 32 for r in range(n_roots)]
+    bad_committees = {(i * n_committees) // invalid for i in range(invalid)} if invalid else set()
+    root_of = [roots[(c * n_roots) // n_committees] for c in range(n_committees)]
+    pks = g1_keys(n_committees * committee)
+    sigs = []
+    c = 0
+    while c < n_committees:  # one run of signatures per block of committees sharing a root
+        end = c
+        while end < n_committees and root_of[end] == root_of[c]:
+            end += 1
+        sigs += point_multiples(hash_to_g2(root_of[c]), c * committee + 1, (end - c) * committee)
+        c = end
+    g2 = g2_generator()
+    atts, expected_bad = [], set()
+    for c in range(n_committees):
+        members, bits = [], []
+        for v in range(c * committee, (c + 1) * committee):
+            absent = drop > 0 and v % drop == drop - 1
+            bits.append(not absent)
+            if not absent:
+                members.append(v)
+        csigs = [sigs[v] for v in members]
+        if c in bad_committees and csigs:
+            csigs[0] = csigs[0] + g2
+            expected_bad.add((c % subnets, root_of[c]))
+        atts.append(CommitteeAttestation(subnet=c % subnets, root=root_of[c],
+                                         pubkeys=tuple(pks[v] for v in members),
+                                         sigs=tuple(csigs), bits=tuple(bits)))
+    return atts, sorted(expected_bad)

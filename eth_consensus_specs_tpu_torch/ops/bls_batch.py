@@ -15,8 +15,10 @@ odd r_i. The flow of ``verify_many`` and ``batch_verify_aggregates``:
    its item), the signature through ``_load_sig``;
 2. K10 sums every item's committee in one launch (``g1_msm.sum_many``);
    each sum is multiplied by its r_i on the host;
-3. items that share a message merge into one pair; each distinct message
-   is hashed to G2 on the host (cached, at most 512 entries), the G2 sum
+3. items that share a message merge into one pair; the distinct messages
+   are hashed to G2 (cached, at most 512 entries): when more than one is
+   new, by K13 and K14 on the card (``h2c_device.hash_to_g2_device``, the
+   host's ``hash_to_field`` before them), else on the host; the G2 sum
    sum_i r_i * sig_i is a host multi-exponentiation, and ``prepare_g2``
    makes each Q's line coefficients on the host;
 4. K11 runs every pair's Miller loop and multiplies the values, K12 checks
@@ -26,14 +28,18 @@ odd r_i. The flow of ``verify_many`` and ``batch_verify_aggregates``:
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``, which runs the same flow through the kernels' plain
 torch versions. ``rng`` is the source of the r_i: a ``random.Random``, or
-``None`` for ``secrets.randbits``. ``parts``, where given, is a dict that
-collects the seconds of each host stage and of the kernels' calls (up to
-their results), keyed by stage; the ``obs`` spans, once ported, take its
-place.
+``None`` for ``secrets.randbits``. The device picks the hash to G2: K13
+and K14 on a CUDA device, ``crypto.hash_to_curve.hash_to_g2`` on the CPU
+(the plain K13/K14 pipeline is ``h2c_device.hash_to_g2_device(...,
+device="cpu")``). The JAX package makes its device hash opt-in
+(``ETH_SPECS_TPU_DEVICE_H2C``) for XLA's compile time; a prebuilt kernel
+has none, so on the card it is the default. ``parts``, where given, is a dict that collects the seconds of
+each host stage and of the kernels' calls (up to their results), keyed by
+stage (``h2c.*`` are the parts of ``hash_to_g2``); the ``obs`` spans, once
+ported, take its place.
 
 Not ported yet: the ``obs`` spans and counters and the watchdog's
-``check_bls_item`` re-check, the ``mesh`` arguments, and device
-hash-to-G2 (``ETH_SPECS_TPU_DEVICE_H2C``).
+``check_bls_item`` re-check, and the ``mesh`` arguments.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from ..crypto.curve import B2, F2, Point, g1_generator, g2_infinity
 from ..crypto.hash_to_curve import DST_G2, hash_to_g2
 from ..crypto.signature import _load_pk, _load_sig
 from ..device import default_device
-from . import g1_msm, pairing_device
+from . import g1_msm, h2c_device, pairing_device
 
 # hash-to-G2 results keyed by (dst, message). All mutation holds the lock:
 # a server may verify off-thread, and an unlocked evict (clear + update)
@@ -208,7 +214,11 @@ def _rlc_pairing_check(parsed: list, rpk: list, device, parts: dict | None = Non
     for (_, msg, _, _), rp in zip(parsed, rpk):
         merged[msg] = rp if msg not in merged else merged[msg] + rp
     with _stage(parts, "hash_to_g2"):
-        _prime_h2g2_cache(list(merged))
+        if device.type == "cuda" and len(merged) > 1:
+            _prime_h2g2_cache(list(merged), lambda msgs, dst: h2c_device.hash_to_g2_device(
+                msgs, dst, device=device, parts=parts))
+        else:
+            _prime_h2g2_cache(list(merged))
         qs = {msg: _h2g2(msg) for msg in merged}
     with _stage(parts, "g2_rlc_sum"):
         sig_acc = g2_multi_exp([sig for _, _, sig, _ in parsed], [r for _, _, _, r in parsed])

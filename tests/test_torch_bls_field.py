@@ -6,7 +6,9 @@ oracle (``crypto/fields``) and its lazy-limb device arithmetic
 (``ops/lazy_limbs``, ``ops/fq12_tower``, run eagerly on the CPU); results are
 compared as canonical ints, exactly. The constants of the CUDA header
 ``csrc/bls_fp.cuh`` and the Miller schedule of ``csrc/miller.cu`` are
-recomputed here from their definitions.
+recomputed here from their definitions, and so are those of
+``csrc/g2_jac.cuh`` and ``csrc/h2c.cu`` (hash-to-G2, K13 and K14) from the
+JAX package's curve and ciphersuite.
 """
 
 import random
@@ -208,3 +210,28 @@ def test_cuda_header_constants():
     flags = re.search(r"SQR_FLAGS\[kSteps\] = \{(.*?)\};", miller, re.S).group(1)
     assert [int(v) for v in re.findall(r"\d", flags)] == pd._SQR_FLAGS.tolist()
     assert f"kSteps = {pd.N_STEPS};" in miller
+
+
+def _mont2(a) -> list[int]:
+    r = 1 << 384
+    return _words(a.c0.n * r % P) + _words(a.c1.n * r % P)
+
+
+def test_g2_cuda_constants():
+    from eth_consensus_specs_tpu.crypto import hash_to_curve as jh2c
+    from eth_consensus_specs_tpu.ops.g2_jacobian import BLS_X_ABS
+
+    g2 = (CSRC / "g2_jac.cuh").read_text()
+    psi = [jf.XI.pow((P - 1) // 3).inv(), jf.XI.pow((P - 1) // 2).inv()]
+    assert _header_array(g2, "PSI_XY") == [w for c in psi for w in _mont2(c)]
+    assert f"kBlsXAbs = 0x{BLS_X_ABS:x}ull" in g2
+    h2c = (CSRC / "h2c.cu").read_text()
+    A, B, Z = jh2c.A_PRIME, jh2c.B_PRIME, jh2c.Z_SSWU
+    sswu = [A, B, Z, -B * A.inv(), B * (Z * A).inv()]
+    assert _header_array(h2c, "SSWU_C") == [w for c in sswu for w in _mont2(c)]
+    assert _header_array(h2c, "FP_INV2") == _words(pow(2, P - 2, P) * (1 << 384) % P)
+    iso = jh2c._K1 + jh2c._K2 + jh2c._K3 + jh2c._K4
+    assert _header_array(h2c, "ISO_K") == [w for c in iso for w in _mont2(c)]
+    assert _header_array(h2c, "SQRT_EXP") == _words((P + 1) // 4) + _words((P - 3) // 4)
+    assert ((P + 1) // 4).bit_length() == ((P - 3) // 4).bit_length() == 379  # bit 378 first
+    assert pow(P - 1, (P + 1) // 4, P) == P - 1  # the root of -a is -a^((p+1)/4)

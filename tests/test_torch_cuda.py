@@ -459,3 +459,104 @@ def test_verify_many_on_card(cuda):
         True, True, True, False, True, True]
     assert bls_batch.verify_many(items, device="cpu", rng=random.Random(2)) == [
         True, True, True, False, True, True]
+
+
+@pytest.mark.parametrize("n", [1, 17, 128])
+def test_h2c_kernels(cuda, n):
+    from eth_consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_g2
+    from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
+    from eth_consensus_specs_tpu_torch.ops import h2c_device as hd
+
+    msgs = [b"card-h2c-%d" % i for i in range(n)]
+    rows = hd.field_elements(msgs)
+    if n > 1:  # u = 0 (tv2 = 0) and u with c1 = 0 among them
+        rows[0] = [[0, 0], [5, 7]]
+        rows[1] = [[3, 0], [12345, 0]]
+    u = torch.from_numpy(fl.ints_to_words(rows)).to(cuda)
+    _ext.reset_launches()
+    jac = hd.h2c_map(u)
+    xy, inf = hd.h2c_finish(jac)
+    assert _ext.launches["h2c_map"] == 1 and _ext.launches["h2c_finish"] == 1
+    assert torch.equal(jac, hd.h2c_map_ref(u))
+    rxy, rinf = hd.h2c_finish_ref(jac)
+    assert torch.equal(xy, rxy) and torch.equal(inf, rinf)
+    got = hd.points_from_words(xy, inf)
+    assert got[2:] == [hash_to_g2(m) for m in msgs[2:]]
+    assert hd.hash_to_g2_device(msgs[:3], device=cuda) == [hash_to_g2(m) for m in msgs[:3]]
+
+
+def test_fq2_sqrt_kernel(cuda):
+    from eth_consensus_specs_tpu_torch.crypto.fields import P, Fq, Fq2
+    from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
+    from eth_consensus_specs_tpu_torch.ops import h2c_device as hd
+
+    cases = [Fq2(Fq(5), Fq(7)).square(), Fq2(Fq(11), Fq(0)).square(), Fq2(Fq(0), Fq(13)).square(),
+             Fq2(Fq(3), Fq(1)), Fq2(Fq(0), Fq(0)), Fq2(Fq(P - 2), Fq(P - 5)).square(),
+             Fq2(Fq(5), Fq(0)), Fq2(Fq(P - 5), Fq(0))]
+    v = torch.from_numpy(fl.ints_to_words([[c.c0.n, c.c1.n] for c in cases]))
+    root, ok = hd.fq2_sqrt(v.to(cuda))
+    _, ok_ref = hd.fq2_sqrt(v)
+    assert torch.equal(ok.cpu(), ok_ref)
+    for c, r, flag in zip(cases, fl.words_to_ints(root), ok.tolist()):
+        if flag:
+            assert Fq2.from_ints(*r).square() == c
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 512])
+def test_g2_sum_kernel(cuda, lanes):
+    from eth_consensus_specs_tpu_torch.crypto.curve import g2_generator, g2_infinity
+    from eth_consensus_specs_tpu_torch.crypto.signature import _sum_g2
+    from eth_consensus_specs_tpu_torch.ops import g2_aggregate as ga
+
+    g, inf = g2_generator(), g2_infinity()
+    p = g.mul(4)
+    lists = [[g.mul(k + 1) for k in range(lanes)], [g.mul(3)], [inf] * lanes,
+             [p, p] if lanes >= 2 else [p], [p, -p] if lanes >= 2 else [inf],
+             [inf, p, inf, g.mul(9)][:lanes], [g.mul(k + 2) for k in range(max(1, lanes // 2 - 1))]]
+    X, Y, Z = (torch.from_numpy(a).to(cuda) for a in ga._points_to_lanes(lists, 8, lanes))
+    _ext.reset_launches()
+    got = ga.g2_sum_many(X, Y, Z)
+    assert _ext.launches["g2_sum"] == 1
+    assert torch.equal(got, ga.g2_sum_many_ref(X, Y, Z))
+    assert ga.sums_to_points(got[: len(lists)]) == [_sum_g2(pts) for pts in lists]
+
+
+def test_aggregate_slot_on_card(cuda):
+    import random
+
+    from eth_consensus_specs_tpu_torch.inputs import slot_committees
+    from eth_consensus_specs_tpu_torch.ops import agg_tree, bls_batch
+
+    atts, bad = slot_committees(256, 8, 16, n_roots=2, invalid=2)
+    _ext.reset_launches()
+    slot, subs = agg_tree.aggregate_slot(atts, device=cuda)
+    assert _ext.launches["g2_sum"] == 8 + 2 and _ext.launches["g1_sum"] == 8 + 2
+    hslot, hsubs = agg_tree.aggregate_slot_host(atts)
+    assert [(s.sig, s.pubkey, s.bits.tolist()) for s in slot] == \
+        [(s.sig, s.pubkey, s.bits.tolist()) for s in hslot]
+    assert [(s.subnet, s.root, s.sig, s.pubkey) for s in subs] == \
+        [(s.subnet, s.root, s.sig, s.pubkey) for s in hsubs]
+    assert agg_tree.verify_slot(slot, device=cuda, rng=random.Random(1)) == [False, False]
+    bls_batch._H2G2_CACHE.clear()
+    _ext.reset_launches()
+    assert agg_tree.isolate_invalid_subnets(subs, device=cuda, rng=random.Random(2)) == bad
+    assert _ext.launches["h2c_map"] >= 1
+
+
+def test_verify_many_hashes_on_card(cuda):
+    import random
+
+    from eth_consensus_specs_tpu_torch.inputs import attestation_block
+    from eth_consensus_specs_tpu_torch.ops import bls_batch
+
+    items, _ = attestation_block(6, 4, distinct=5, call=9, tamper=(4,))
+    want = [True, True, True, True, False, True]
+    bls_batch._H2G2_CACHE.clear()
+    _ext.reset_launches()
+    assert bls_batch.verify_many(items, device=cuda, rng=random.Random(3)) == want
+    assert _ext.launches["h2c_map"] == 1 and _ext.launches["h2c_finish"] == 1
+    bls_batch._H2G2_CACHE.clear()
+    bls_batch._prime_h2g2_cache(list(dict.fromkeys(msg for _, msg, _ in items)))
+    _ext.reset_launches()
+    assert bls_batch.verify_many(items, device=cuda, rng=random.Random(3)) == want
+    assert _ext.launches["h2c_map"] == 0
