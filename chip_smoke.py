@@ -77,7 +77,19 @@ Phases, each printing one JSON line:
    that holds an invalid committee, true on a root once its invalid
    committee is dropped), ``isolate_invalid_subnets`` equal to the injected
    (subnet, root) set; ms per slot of each, signatures aggregated per
-   second.
+   second;
+13. kzg_flush: ``verify_many_blobs`` on a 64-blob serving flush of full
+   4096-element blobs (``scripts/das_bench.py``'s defaults: degree-8
+   polynomials, the tampered items at i * 64 / 2), two of them dense
+   ``sample_blob`` triples so that K16 sees full rows: a warm flush, three
+   timed clean flushes with their stages (``parts_ms``: parse, words, K16,
+   Horner, Fiat-Shamir, packing, K17, K11 + K12), three with items 0 and 32
+   tampered (the bisection, 23 RLC checks); the clean flush against the
+   host batch oracle, the tampered items and two clean ones against the
+   per-item oracle; K16, K17, K11 and K12 timed on one flush's inputs;
+14. das_fft: ``bench.py``'s das cell at its card size, 8 chained forward
+   FFTs over 16 rows of 8192 points, fresh values each repeat, the last
+   chain held against the plain version on the card.
 
 Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
 (phase0_epoch, on the example columns and every phase0 corner) and K2's
@@ -93,12 +105,19 @@ values in Fq, the branch no message is known to reach), and K15
 (g2_sum_many at ``agg_slot``'s tier shapes [1, 512], [64, 1] and [2, 32],
 at [64, 512] and on corner items: all infinity, one lane, P + P, P - P,
 ragged, against the host ``_sum_g2``; ``agg_slot`` holds K15 and K10 word
-for word against their plain versions again on each tier's own points).
+for word against their plain versions again on each tier's own points),
+K16 (fr_fft at the flush's [64, 4096] inverse, the das cell's [16, 8192]
+both ways and n = 2, 4, 16, on dense rows and corner rows, word for word
+and against the host ``fft_field``) and K17 (g1_msm_many at [2, 129],
+[2, 65], [2, 7], [2, 3], [1, 300] and on scalar and point corners, word for word
+and on affine points against the host ``msm_g1``).
 Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
-(``launches``: the counts of the kernel's own path, the state_inc main path
-for K1-K6, summed over its kernels where an entry launches two, as K11's
-loop and fold; ``launches_by_path``: each path's) and, last, ``{"ok": true,
+(``launches``: the counts of the kernel's own paths, the state_inc main path
+for K1-K6, both kzg_flush and das_fft for K16, summed over its kernels where
+an entry launches two, as K11's loop and fold and K16's chunk and global
+stage; ``launches_by_path``: each path's; every kernel must have launched on
+one of its own paths) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
 without the last line; so does a machine without CUDA, or a directory
 without the package.
@@ -1891,6 +1910,370 @@ def run_agg_slot(dev) -> tuple[dict, dict]:
     )
     return summary, launches
 
+# --- KZG blob verification: the Fr FFT (K16), full-scalar MSMs (K17) --------------
+
+KZG_BLOBS = 64  # scripts/das_bench.py's flush: 64 full blobs, degree 8, 2 tampered
+KZG_DEGREE = 8
+KZG_INVALID = 2
+KZG_DENSE = (17, 49)  # two sample_blob triples: full rows through the FFT
+KZG_TIMED = 3
+KZG_ORACLE_CLEAN = (5, 17)  # clean items the host also verifies one by one
+DAS_FFT = (16, 8192)  # bench.py's das cell on the card: batch 16, n 8192, chain 8
+DAS_CHAIN = 8
+DAS_REPEATS = 5
+# 32-bit instructions of one Fr product (8 x 32-bit CIOS Montgomery, fr.cuh):
+# 2 x 64 multiply-adds for a * b and m * r, each an IMAD.WIDE, and about 70
+# carry additions. Fr additions are not counted, so the bounds below are low.
+FR_MUL_INSTR = 200
+FQ_PER_G1_DBL = 7  # dbl-2009-l: 2 products and 5 squarings
+# G1's endomorphism phi(x, y) = (beta * x, y) acts as the scalar lambda =
+# z^2 - 1 (128 bits; lambda^2 + lambda + 1 = 0 mod r), so k * P = k1 * P +
+# k2 * phi(P) with k1, k2 = k mod lambda, k // lambda, each 128 bits at most
+# (Gallant, Lambert and Vanstone, CRYPTO 2001)
+GLV_LAMBDA = 0xD201000000010000 ** 2 - 1
+MSM_WINDOW = 4  # the window width of the needed chain: one add a window
+FR_MAX_TOP = 0x73EDA753  # r's top word: words below it are below r
+
+
+def fr_fft_products(rows: int, n: int, inverse: bool) -> int:
+    """The Fr products of ``rows`` DITs of n points: one a butterfly, and
+    the n^-1 scaling of an inverse."""
+    log_n = n.bit_length() - 1
+    return rows * (n // 2 * log_n + (n if inverse else 0))
+
+
+def fr_fft_bound(rows: int, n: int, inverse: bool) -> tuple[float, str]:
+    """Least milliseconds of a batch of FFTs: each value read and written
+    once (32 B) and the twiddles read once, against the Fr products on both
+    integer pipes."""
+    t_bytes = (2 * rows * n + n - 1) * 32 / HBM_BYTES_PER_S * 1e3
+    t_ops = fr_fft_products(rows, n, inverse) * FR_MUL_INSTR / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def msm_needed_products(scalar_lists: list) -> tuple[int, int]:
+    """(all, the longest dependent chain) of the Fq products the MSMs need
+    at least: each scalar split in two halves by G1's endomorphism (one
+    product for beta * x), each half a lane of its own that takes, from its
+    top bit, a doubling a bit and one add a window of MSM_WINDOW bits (the
+    windows' tables are not counted, so this is low); then a tree over an
+    item's half-lanes."""
+    total, serial = 0, 0
+    for scalars in scalar_lists:
+        chains = []
+        for k in map(int, scalars):
+            halves = [h for h in divmod(k, GLV_LAMBDA) if h]
+            for h in halves:
+                bits = h.bit_length()
+                chains.append((bits - 1) * FQ_PER_G1_DBL
+                              + (-(-bits // MSM_WINDOW) - 1) * FQ_PER_G1_ADD + (len(halves) - 1))
+        if not chains:
+            continue
+        total += sum(chains) + (len(chains) - 1) * FQ_PER_G1_ADD
+        serial = max(serial, max(chains) + (len(chains) - 1).bit_length() * FQ_PER_G1_ADD)
+    return total, serial
+
+
+def msm_design_products(scalar_lists: list, threads: int = 256) -> tuple[int, int]:
+    """(all, the longest dependent chain) of the Fq products K17's design
+    runs: per lane, from its top set bit, a doubling a bit and an add a
+    further set bit; per item the adds that sum its lanes, as K17 sums them
+    (a running sum a thread, then a tree over the threads)."""
+    total, serial = 0, 0
+    for scalars in scalar_lists:
+        lanes = len(scalars)
+        chains = [(k.bit_length() - 1) * FQ_PER_G1_DBL + (bin(k).count("1") - 1) * FQ_PER_G1_ADD
+                  if k else 0 for k in map(int, scalars)]
+        t = min(lanes, threads)
+        depth = -(-lanes // t) - 1 + (t - 1).bit_length()
+        total += sum(chains) + (lanes - 1) * FQ_PER_G1_ADD
+        serial = max(serial, max(chains) + depth * FQ_PER_G1_ADD)
+    return total, serial
+
+
+def random_fr_words(gen, shape, dev):
+    """Uniform words of values below r (every top word below r's), made on
+    ``dev`` by ``gen``."""
+    import torch
+
+    w = torch.randint(0, 1 << 32, (*shape, 8), generator=gen, device=dev, dtype=torch.int64)
+    w[..., 7] %= FR_MAX_TOP
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def check_kzg_kernels(dev):
+    """Phase 3, continued: K16 at the flush's [64, 4096] inverse (rows in
+    stored order, as the flush runs it), at the das cell's [16, 8192]
+    forward and inverse, and at n = 2, 4 and 16, on dense random rows and
+    rows of corners (0, 1, r - 1, 2^254), word for word against its plain
+    version on the card and against the host ``fft_field`` on sampled rows;
+    K17 at a 64-blob flush's [2, 129] (its items A and B: 64 and 129
+    lanes), a 32-blob subset's [2, 65], a 3-blob one's [2, 7], a bisection
+    leaf's [2, 3], [1, 300] (threads summing several lanes) and
+    corner items (scalars 0, 1, r - 1, 2^256 - 1, r, r + 2; an infinity
+    lane; P and -P; one lane), word for word against its plain version and
+    on affine points against the host ``msm_g1``."""
+    import random
+
+    import torch
+
+    from eth_consensus_specs_tpu_torch.crypto import das, kzg
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_infinity
+    from eth_consensus_specs_tpu_torch.crypto.fields import R
+    from eth_consensus_specs_tpu_torch.crypto.msm import msm_g1
+    from eth_consensus_specs_tpu_torch.inputs import g1_keys
+    from eth_consensus_specs_tpu_torch.ops import fr_fft, g1_msm
+    from eth_consensus_specs_tpu_torch.ops import limb_field as lf
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(16)
+    corners = torch.from_numpy(lf.ints_to_words([0, 1, R - 1, 1 << 254])).to(dev)
+
+    def fft_case(b, n, inverse, bitrev):
+        vals = random_fr_words(gen, (b, n), dev)
+        vals[0, : min(n, 4)] = corners[: min(n, 4)]
+        if b > 1:
+            vals[1] = corners[torch.arange(n, device=dev) % 4]
+        roots = kzg.compute_roots_of_unity(n)
+        tw = fr_fft._device_twiddles(fr_fft.inverse_roots(roots) if inverse else roots, n, str(dev))
+        scale = fr_fft._device_scale(n, str(dev)) if inverse else None
+        got = fr_fft.fft_rows(vals, tw, scale, bitrev)
+        err = max_abs_err(got, fr_fft.fft_rows_ref(vals, tw, scale, bitrev))
+        for i in sorted({0, 1, b - 1} & set(range(b))):
+            row = lf.words_to_ints(vals[i])
+            if not bitrev:
+                row = kzg.bit_reversal_permutation(row)
+            if lf.words_to_ints(got[i]) != das.fft_field(row, roots, inv=inverse):
+                raise RuntimeError(f"fr_fft [{b}, {n}] row {i} differs from the host fft_field")
+        return vals, tw, scale, err
+
+    errs, shapes = [], {}
+    for n in (2, 4, 16):
+        for inverse in (False, True):
+            errs.append(fft_case(3, n, inverse, True)[3])
+    flush = fft_case(KZG_BLOBS, kzg.FIELD_ELEMENTS_PER_BLOB, True, False)
+    errs.append(flush[3])
+    for (b, n), inverse in ((DAS_FFT, False), (DAS_FFT, True)):
+        vals, tw, scale, err = fft_case(b, n, inverse, True)
+        errs.append(err)
+        shapes["inverse" if inverse else "forward"] = dict(
+            shape=[b, n], ms=cuda_ms(lambda: fr_fft.fft_rows(vals, tw, scale, True), repeats=10),
+            bound_ms=fr_fft_bound(b, n, inverse)[0], max_abs_err=err)
+    vals, tw, scale, _ = flush
+    b_ms, b_by = fr_fft_bound(KZG_BLOBS, kzg.FIELD_ELEMENTS_PER_BLOB, True)
+    rows.append(dict(
+        name="fr_fft", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/fr_fft.cu",
+        replaces="eth_consensus_specs_tpu/ops/fr_fft.py:61", shape=list(vals.shape[:2]),
+        max_abs_err=max(errs), ms=cuda_ms(lambda: fr_fft.fft_rows(vals, tw, scale, False),
+                                          repeats=10),
+        plain_ms=cuda_ms(lambda: fr_fft.fft_rows_ref(vals, tw, scale, False), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        fr_products=fr_fft_products(KZG_BLOBS, kzg.FIELD_ELEMENTS_PER_BLOB, True),
+        das=shapes, small_sizes_checked=[2, 4, 16],
+    ))
+
+    # K17: random 255-bit scalars on multiples of G, as an RLC fold's lanes
+    rnd = random.Random(17)
+    keys = g1_keys(700)
+    cases, errs = {}, []
+
+    def msm_case(point_lists, scalar_lists, label):
+        K, X, Y, Z = (torch.from_numpy(a).to(dev)
+                      for a in g1_msm.pack_msm(point_lists, scalar_lists))
+        out = g1_msm.msm_many(K, X, Y, Z)
+        errs.append(max_abs_err(out, g1_msm.msm_many_ref(K, X, Y, Z)))
+        want = [msm_g1(p, s) for p, s in zip(point_lists, scalar_lists)]
+        if g1_msm.sums_to_points(out) != want:
+            raise RuntimeError(f"g1_msm_many {label} differs from the host msm_g1")
+        cases[label] = (K, X, Y, Z, scalar_lists)
+
+    for items, lanes, label in ((2, 2 * KZG_BLOBS + 1, "flush"), (2, KZG_BLOBS + 1, "half"),
+                                (2, 7, "three"), (2, 3, "leaf"), (1, 300, "wide")):
+        point_lists = [keys[i * lanes:(i + 1) * lanes] for i in range(items)]
+        if items == 2:  # item A has n of item B's 2n + 1 lanes
+            point_lists[0] = point_lists[0][: lanes // 2]
+        msm_case(point_lists, [[rnd.randrange(R) for _ in p] for p in point_lists], label)
+    p, q, inf = keys[3], keys[4], g1_infinity()
+    msm_case([keys[10:16], [inf, keys[16]], [p, -p], [q, -q], [keys[17]], keys[18:22]],
+             [[0, 1, R - 1, (1 << 256) - 1, R, R + 2], [rnd.randrange(R), 5], [7, 7],
+              [rnd.randrange(R), 3], [rnd.randrange(R)], [0, 0, 0, 0]], "corners")
+    K, X, Y, Z, scalar_lists = cases["flush"]
+    products, serial = msm_needed_products(scalar_lists)
+    design, design_serial = msm_design_products(scalar_lists)
+    b_ms, b_by = fq_bound(products, serial)
+    rows.append(dict(
+        name="g1_msm_many", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/g1_msm.cu",
+        replaces="eth_consensus_specs_tpu/ops/g1_msm.py:183", shape=list(X.shape[:2]),
+        max_abs_err=max(errs), ms=cuda_ms(lambda: g1_msm.msm_many(K, X, Y, Z), repeats=5),
+        plain_ms=cuda_ms(lambda: g1_msm.msm_many_ref(K, X, Y, Z), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
+        serial_fq_products=serial, design_fq_products=design,
+        design_serial_fq_products=design_serial,
+        design_bound_ms=fq_bound(design, design_serial)[0],
+        ms_by_shape={k: cuda_ms(lambda c=c: g1_msm.msm_many(*c[:4]), repeats=3)
+                     for k, c in cases.items() if k != "flush"},
+        shapes_checked={k: list(c[1].shape[:2]) for k, c in cases.items()},
+    ))
+    return rows
+
+
+def run_kzg_flush(dev) -> tuple[dict, dict]:
+    """Phase 13: ``verify_many_blobs`` on a 64-blob serving flush
+    (``scripts/das_bench.py``'s defaults: full 4096-element blobs from
+    degree-8 polynomials), two of them dense ``sample_blob`` triples so that
+    the FFT sees full rows: a warm call, three timed clean flushes with
+    their stages (``parts_ms``), then three of the same flush with items 0
+    and 32 tampered (the bisection). Verdicts against the host oracle: the
+    batch ``verify_blob_kzg_proof_batch`` on the clean flush, the per-item
+    ``verify_blob_kzg_proof`` on the tampered items and two clean ones. The
+    card's busy time is K16, K17, K11 and K12 timed by CUDA events on one
+    flush's own inputs."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.crypto import kzg
+    from eth_consensus_specs_tpu_torch.crypto.curve import g2_generator
+    from eth_consensus_specs_tpu_torch.inputs import blob_flush, dense_blob_triple
+    from eth_consensus_specs_tpu_torch.inputs import sparse_blob_triple
+    from eth_consensus_specs_tpu_torch.ops import fr_fft, g1_msm, kzg_batch, pairing_device
+
+    t0 = time.perf_counter()
+    kzg.get_setup()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = {i: dense_blob_triple(b"smoke-dense-%d" % i) for i in KZG_DENSE}
+    dense_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tampered, bad = blob_flush(KZG_BLOBS, KZG_DEGREE, KZG_INVALID, dense)
+    clean = [sparse_blob_triple(i, KZG_DEGREE) if i in bad else it
+             for i, it in enumerate(tampered)]
+    sparse_s = time.perf_counter() - t0
+    want_bad = [i not in bad for i in range(KZG_BLOBS)]
+
+    t0 = time.perf_counter()
+    if kzg_batch.verify_many_blobs(clean, device=dev) != [True] * KZG_BLOBS:
+        raise RuntimeError("the warm flush was not accepted")
+    first_s = time.perf_counter() - t0
+
+    _ext.reset_launches()
+    runs, parts_runs = [], []
+    for _ in range(KZG_TIMED):
+        parts = {}
+        t0 = time.perf_counter()
+        verdicts = kzg_batch.verify_many_blobs(clean, device=dev, parts=parts)
+        runs.append((time.perf_counter() - t0) * 1e3)
+        parts_runs.append({k: v * 1e3 for k, v in parts.items()})
+        if verdicts != [True] * KZG_BLOBS:
+            raise RuntimeError("a timed clean flush was not accepted")
+    launches = dict(_ext.launches)
+    t_runs, t_parts, checks = [], [], 0
+    for _ in range(KZG_TIMED):
+        parts = {}
+        t0 = time.perf_counter()
+        got = kzg_batch.verify_many_blobs(tampered, device=dev, parts=parts)
+        t_runs.append((time.perf_counter() - t0) * 1e3)
+        t_parts.append({k: v * 1e3 for k, v in parts.items()})
+        if got != want_bad:
+            raise RuntimeError(f"the tampered flush's verdicts are not items {sorted(bad)} alone")
+    checks = _ext.launches["final_exp"] - launches.get("final_exp", 0)
+
+    # the host oracle: the clean flush as one batch, then item by item
+    t0 = time.perf_counter()
+    if not kzg.verify_blob_kzg_proof_batch(*map(list, zip(*clean))):
+        raise RuntimeError("the host batch oracle rejects the clean flush")
+    oracle_items = sorted(bad) + list(KZG_ORACLE_CLEAN)
+    for i in oracle_items:
+        if kzg_batch.verify_blob_host(*tampered[i]) != want_bad[i]:
+            raise RuntimeError(f"item {i}: the card's verdict differs from the host oracle's")
+    oracle_s = time.perf_counter() - t0
+
+    # the card's work of one clean flush, on its own inputs
+    parsed = [kzg_batch.parse_item(it) for it in clean]
+    roots = kzg.compute_roots_of_unity(kzg.FIELD_ELEMENTS_PER_BLOB)
+    vals = torch.from_numpy(kzg_batch.flush_words(parsed)).to(dev)
+    tw = fr_fft._device_twiddles(fr_fft.inverse_roots(roots), len(roots), str(dev))
+    scale = fr_fft._device_scale(len(roots), str(dev))
+    points, scalars = kzg_batch.rlc_lincombs(parsed, kzg_batch.challenge_evaluations(parsed, dev))
+    K, X, Y, Z = (torch.from_numpy(a).to(dev) for a in g1_msm.pack_msm(points, scalars))
+    a_pt, b_pt = g1_msm.sums_to_points(g1_msm.msm_many(K, X, Y, Z))
+    tau_g2 = kzg.get_setup().g2_monomial[1]
+    packed = [torch.from_numpy(a).to(dev)
+              for a in pairing_device.pack_pairs([(a_pt, -tau_g2), (b_pt, g2_generator())])]
+    f = pairing_device.miller_product(*packed)
+    kernel_ms = {
+        "fr_fft": cuda_ms(lambda: fr_fft.fft_rows(vals, tw, scale, False), repeats=5),
+        "g1_msm_many": cuda_ms(lambda: g1_msm.msm_many(K, X, Y, Z), repeats=5),
+        "miller_product": cuda_ms(lambda: pairing_device.miller_product(*packed), repeats=5),
+        "final_exp_is_one": cuda_ms(lambda: pairing_device.final_exp_is_one(f), repeats=5),
+    }
+    ms = statistics.median(runs)
+    busy = sum(kernel_ms.values())
+    med = {k: statistics.median(p.get(k, 0.0) for p in parts_runs) for k in parts_runs[0]}
+    summary = dict(
+        phase="kzg_flush", blobs=KZG_BLOBS, field_elements=kzg.FIELD_ELEMENTS_PER_BLOB,
+        degree=KZG_DEGREE, dense_items=list(KZG_DENSE), tampered=sorted(bad), ms=ms, ms_runs=runs,
+        blobs_per_s=KZG_BLOBS / (ms / 1e3), parts_ms=med, parts_ms_runs=parts_runs,
+        first_call_s=first_s, setup_load_s=setup_s, dense_build_s=dense_s,
+        sparse_build_s=sparse_s, launches=launches,
+        launches_per_flush={k: v / KZG_TIMED for k, v in launches.items()},
+        tampered_ms=statistics.median(t_runs), tampered_ms_runs=t_runs,
+        tampered_parts_ms={k: statistics.median(p.get(k, 0.0) for p in t_parts)
+                           for k in t_parts[0]},
+        rlc_checks_per_tampered_flush=checks / KZG_TIMED, tampered_verdicts_ok=True,
+        device_kernel_ms=kernel_ms, device_busy_ms=busy, device_idle_share=1 - busy / ms,
+        oracle_batch_items=KZG_BLOBS, oracle_items=oracle_items, oracle_s=oracle_s,
+        equal_host_oracle=True,
+    )
+    return summary, launches
+
+
+def run_das_fft(dev) -> tuple[dict, dict]:
+    """Phase 14: ``bench.py``'s das cell at its card size: 16 rows of 8192
+    points, 8 chained forward FFTs (each on natural-order rows: K16 gathers
+    by bit reversal), fresh full-range values each repeat; the last chain
+    held against the plain version on the card. As ``bench.py``'s
+    ``_das_setup`` does, the twiddle table is made once outside the timing
+    and each round is one ``fft_rows`` call."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.crypto import kzg
+    from eth_consensus_specs_tpu_torch.ops import fr_fft
+
+    b, n = DAS_FFT
+    roots = kzg.compute_roots_of_unity(n)
+    gen = torch.Generator(device=dev).manual_seed(8192)
+    tw = fr_fft._device_twiddles(roots, n, str(dev))
+
+    def chain(v, fn=fr_fft.fft_rows):
+        for _ in range(DAS_CHAIN):
+            v = fn(v, tw)
+        return v
+
+    chain(random_fr_words(gen, (b, n), dev))  # the twiddle upload and the first launch
+    torch.cuda.synchronize(dev)
+    _ext.reset_launches()
+    times = []
+    for _ in range(DAS_REPEATS):
+        v = random_fr_words(gen, (b, n), dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = chain(v)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = dict(_ext.launches)
+    err = max_abs_err(out, chain(v, fr_fft.fft_rows_ref))
+    round_ms = statistics.median(times) / DAS_CHAIN
+    summary = dict(
+        phase="das_fft", batch=b, n=n, chain=DAS_CHAIN, repeats=DAS_REPEATS,
+        ms_per_round=round_ms, ms_per_round_runs=[t / DAS_CHAIN for t in times],
+        ffts_per_s=b / (round_ms / 1e3), bound_ms_per_round=fr_fft_bound(b, n, False)[0],
+        launches=launches, max_abs_err=err, equal_plain=True,
+    )
+    return summary, launches
+
+
 def main() -> int:
     import torch
 
@@ -1916,7 +2299,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = (check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
-            + check_bls_kernels(dev) + check_g2_kernels(dev))
+            + check_bls_kernels(dev) + check_g2_kernels(dev) + check_kzg_kernels(dev))
     emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,
               phase_s=time.perf_counter() - t0))
 
@@ -1925,7 +2308,8 @@ def main() -> int:
                         ("dirty_registry", run_dirty_registry), ("durability", run_durability),
                         ("shuffle", run_shuffle), ("epoch_phase0", run_epoch_phase0),
                         ("merkle_many", run_merkle_many), ("bls_block", run_bls_block),
-                        ("agg_slot", run_agg_slot)):
+                        ("agg_slot", run_agg_slot), ("kzg_flush", run_kzg_flush),
+                        ("das_fft", run_das_fft)):
         t0 = time.perf_counter()
         summary, by_path[path] = phase(dev)
         summary["phase_s"] = time.perf_counter() - t0
@@ -1936,12 +2320,15 @@ def main() -> int:
     for r in rows:
         keys = _KERNEL_OF[r["name"]]
         keys = keys if isinstance(keys, tuple) else (keys,)
+        paths = _PATH_OF.get(r["name"], "state_inc")
+        paths = paths if isinstance(paths, tuple) else (paths,)
         r["launches_by_path"] = {path: sum(counts.get(k, 0) for k in keys)
                                  for path, counts in by_path.items()}
-        r["launches"] = r["launches_by_path"][_PATH_OF.get(r["name"], "state_inc")]
+        r["launches"] = sum(r["launches_by_path"][path] for path in paths)
+        # a kernel of a later path must launch on one of its own paths; K1-K6 on any
+        own = paths if r["name"] in _PATH_OF else tuple(by_path)
         missing += [f"{r['name']} ({k})" for k in keys
-                    if not any(counts.get(k, 0) for counts in by_path.values())
-                    or (r["name"] in _PATH_OF and not by_path[_PATH_OF[r["name"]]].get(k, 0))]
+                    if not any(by_path[path].get(k, 0) for path in own)]
     emit({"kernels": rows})
     if missing:
         raise RuntimeError(f"kernels never launched on their paths: {missing}")
@@ -1958,13 +2345,15 @@ _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
               "phase0_epoch": "state_columns", "merkle_many_tree_root": "merkle_many",
               "g1_sum_many": "g1_sum", "miller_product": ("miller", "miller_fold"),
               "final_exp_is_one": "final_exp", "h2c_map": "h2c_map",
-              "h2c_finish": "h2c_finish", "g2_sum_many": "g2_sum"}
-# the path whose counts a kernel's row reports, where it is not state_inc
+              "h2c_finish": "h2c_finish", "g2_sum_many": "g2_sum",
+              "fr_fft": ("fr_fft", "fr_fft_stage"), "g1_msm_many": "g1_msm"}
+# the paths whose counts a kernel's row reports, where it is not state_inc
 _PATH_OF = {"sha256_single_block": "shuffle", "shuffle_rounds": "shuffle",
             "phase0_epoch": "epoch_phase0", "merkle_many_tree_root": "merkle_many",
             "g1_sum_many": "bls_block", "miller_product": "bls_block",
             "final_exp_is_one": "bls_block", "h2c_map": "bls_block", "h2c_finish": "bls_block",
-            "g2_sum_many": "agg_slot"}
+            "g2_sum_many": "agg_slot", "fr_fft": ("kzg_flush", "das_fft"),
+            "g1_msm_many": "kzg_flush"}
 
 
 if __name__ == "__main__":

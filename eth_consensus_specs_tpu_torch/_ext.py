@@ -30,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
-           "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "h2c", "g2_sum")
+           "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "h2c", "g2_sum",
+           "fr_fft", "g1_msm")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -62,6 +63,9 @@ SIGNATURES = {
     "h2c": {"h2c_map_launch": [_P, _P, _I64], "h2c_finish_launch": [_P, _P, _P, _I64],
             "fq2_sqrt_launch": [_P, _P, _P, _I64]},
     "g2_sum": {"g2_sum_many_launch": [_P, _P, _P, _P, _I64, _I64]},
+    "fr_fft": {"fr_fft_chunk_launch": [_P, _P, _P, _P, _I64, _I32, _I32, _I32],
+               "fr_fft_stage_launch": [_P, _P, _P, _I64, _I32, _I32]},
+    "g1_msm": {"g1_msm_many_launch": [_P, _P, _P, _P, _P, _I64, _I64]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -190,3 +190,60 @@ def attestation_from_jax(att):
         pubkeys=tuple(point_from_jax(p) for p in att.pubkeys),
         sigs=tuple(point_from_jax(p) for p in att.sigs),
         bits=tuple(bool(b) for b in att.bits))
+
+
+# --- the scalar field Fr and the MSM lanes --------------------------------------
+
+# The JAX package's Fr (``ops/limb_field.LimbField`` at r): 9 x 30-bit limbs,
+# Montgomery with R = 2^270, values possibly in [0, 2r).
+_FR_LIMB_BITS = 30
+_R270 = 1 << 270
+
+
+def fr_ints_from_jax_limbs(arr) -> list:
+    """JAX Fr Montgomery limb rows ``[..., 9]`` (``FR.ints_to_mont_batch``,
+    ``fr_fft._stage_twiddles``) -> canonical ints, nested like the leading
+    dims."""
+    from .ops.limb_field import R_MOD
+
+    a = np.asarray(arr).astype(np.uint64)
+    rinv = pow(_R270, -1, R_MOD)
+    flat = [sum(int(v) << (_FR_LIMB_BITS * i) for i, v in enumerate(row)) * rinv % R_MOD
+            for row in a.reshape(-1, a.shape[-1])]
+    return np.array(flat, dtype=object).reshape(a.shape[:-1]).tolist()
+
+
+def fr_words_from_jax_limbs(arr) -> np.ndarray:
+    """JAX Fr Montgomery limb rows -> the port's canonical words
+    ``int32[..., 8]``, what K16 and its plain version take as values."""
+    from .ops.limb_field import ints_to_words
+
+    return ints_to_words(fr_ints_from_jax_limbs(arr))
+
+
+def twiddles_from_jax(tables) -> np.ndarray:
+    """JAX ``fr_fft._stage_twiddles`` tables (one ``[m, 9]`` array a stage)
+    -> the port's K16 twiddle table ``int32[n - 1, 8]`` (the card's
+    Montgomery form, stage m at rows m - 1 .. 2m - 2)."""
+    from .ops.limb_field import N_WORDS, ints_to_card_words
+
+    flat = [x for t in tables for x in fr_ints_from_jax_limbs(t)]
+    return ints_to_card_words(flat) if flat else np.zeros((0, N_WORDS), np.int32)
+
+
+def scalars_from_jax_bits(bits) -> np.ndarray:
+    """JAX ``g1_msm._scalars_to_bits`` rows ``[..., 256]`` (u64 bits, most
+    significant first) -> the port's K17 scalars ``int32[..., 8]``."""
+    from .ops.limb_field import ints_to_words
+
+    a = np.asarray(bits).astype(np.uint64)
+    flat = [int("".join("1" if v else "0" for v in row), 2) for row in a.reshape(-1, a.shape[-1])]
+    return ints_to_words(np.array(flat, dtype=object).reshape(a.shape[:-1]).tolist())
+
+
+def msm_lanes_from_jax(bits, X, Y, Z) -> tuple:
+    """JAX ``msm_many_kernel`` inputs (bits ``[I, L, 256]``, X/Y/Z ``[I, L,
+    13]`` 30-bit Montgomery limbs, R = 2^390) -> the port's K17 inputs
+    (K ``int32[I, L, 8]``, X/Y/Z ``int32[I, L, 12]`` card Montgomery words)."""
+    return (scalars_from_jax_bits(bits),
+            *(card_words_from_jax_limbs(a, "field_limbs") for a in (X, Y, Z)))

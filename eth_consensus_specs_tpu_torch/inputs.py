@@ -343,3 +343,101 @@ def slot_committees(n_validators: int, subnets: int, committee: int, n_roots: in
                                          pubkeys=tuple(pks[v] for v in members),
                                          sigs=tuple(csigs), bits=tuple(bits)))
     return atts, sorted(expected_bad)
+
+
+# --- KZG blobs ------------------------------------------------------------------
+# The port's copy of ``eth_consensus_specs_tpu/test_infra/blob.py``. A sparse
+# blob is a full 4096-element blob whose polynomial has only ``degree``
+# monomial coefficients: its commitment and proof are ``degree``-lane MSMs
+# over the monomial setup points, cheap to make, while a verifier still does
+# the full 4096-point work on it.
+
+
+def sample_blob(tag: bytes) -> bytes:
+    """Deterministic pseudo-random blob: one canonical field element per
+    position, seeded by ``tag``."""
+    from .crypto import kzg
+
+    out = []
+    for i in range(kzg.FIELD_ELEMENTS_PER_BLOB):
+        h = hashlib.sha256(tag + i.to_bytes(4, "big")).digest()
+        out.append((int.from_bytes(h, "big") % kzg.BLS_MODULUS).to_bytes(32, "big"))
+    return b"".join(out)
+
+
+def sparse_poly_blob(coeffs: list[int]) -> bytes:
+    """The blob (brp evaluation form) of a low-degree monomial polynomial:
+    its evaluations at the brp-ordered roots of unity, each a Horner walk."""
+    from .crypto import kzg
+
+    out = []
+    for w in kzg._roots_brp(kzg.FIELD_ELEMENTS_PER_BLOB):
+        acc = 0
+        for c in reversed(coeffs):
+            acc = (acc * w + c) % kzg.BLS_MODULUS
+        out.append(kzg.bls_field_to_bytes(acc))
+    return b"".join(out)
+
+
+def sparse_commit(coeffs: list[int]) -> bytes:
+    from .crypto import kzg
+
+    return kzg.g1_lincomb(kzg.get_setup().g1_monomial[: len(coeffs)], coeffs)
+
+
+def sparse_proof(coeffs: list[int], blob: bytes, commitment: bytes) -> bytes:
+    """The KZG proof at the Fiat-Shamir challenge by synthetic division of
+    the coefficients: q(X) = (f(X) - f(z)) / (X - z)."""
+    from .crypto import kzg
+
+    z = kzg.compute_challenge(blob, commitment)
+    q = [0] * (len(coeffs) - 1)
+    acc = 0
+    for j in range(len(coeffs) - 1, 0, -1):
+        acc = (coeffs[j] + acc * z) % kzg.BLS_MODULUS
+        q[j - 1] = acc
+    if not q:
+        return kzg.G1_POINT_AT_INFINITY
+    return kzg.g1_lincomb(kzg.get_setup().g1_monomial[: len(q)], q)
+
+
+def sparse_blob_triple(seed: int, degree: int = 6, tamper: bool = False) -> tuple:
+    """One (blob, commitment, proof) triple from a seeded sparse polynomial;
+    ``tamper`` shifts the proof by the generator (still on the curve and in
+    the subgroup: a False verdict, not a parse reject)."""
+    from .crypto import kzg
+    from .crypto.curve import g1_from_bytes, g1_generator, g1_to_bytes
+
+    coeffs = [(seed * 1009 + j * 31 + 1) % kzg.BLS_MODULUS for j in range(degree)]
+    blob = sparse_poly_blob(coeffs)
+    commitment = sparse_commit(coeffs)
+    proof = sparse_proof(coeffs, blob, commitment)
+    if tamper:
+        proof = g1_to_bytes(g1_from_bytes(proof) + g1_generator())
+    return blob, commitment, proof
+
+
+def dense_blob_triple(tag: bytes) -> tuple:
+    """A (blob, commitment, proof) triple of a ``sample_blob``: every
+    coefficient non-zero, commitment and proof by the host's 4096-lane
+    MSMs (a few seconds each in pure Python)."""
+    from .crypto import kzg
+
+    blob = sample_blob(tag)
+    commitment = kzg.blob_to_kzg_commitment(blob)
+    return blob, commitment, kzg.compute_blob_kzg_proof(blob, commitment)
+
+
+def blob_flush(n: int, degree: int = 8, invalid: int = 0, dense: dict | None = None) -> tuple:
+    """A flush of ``n`` sparse triples as ``scripts/das_bench.py``'s
+    ``build_blobs`` makes them (item i from seed i, ``invalid`` evenly spread
+    items tampered, at i * n / invalid), with the items named in ``dense``
+    (index -> triple) put in their place. Returns (items, the tampered
+    indices)."""
+    bad = {(i * n) // invalid for i in range(invalid)} if invalid else set()
+    dense = dense or {}
+    if bad & set(dense):
+        raise ValueError(f"dense items {sorted(dense)} overlap the tampered {sorted(bad)}")
+    items = [dense[i] if i in dense else sparse_blob_triple(i, degree=degree, tamper=i in bad)
+             for i in range(n)]
+    return items, bad

@@ -1,7 +1,7 @@
-"""Per-item G1 point sums: every committee's aggregate public key in one
-launch (kernel K10).
+"""G1 on the card: per-item point sums (kernel K10) and per-item
+full-scalar multi-scalar multiplications (kernel K17).
 
-Counterpart of ``eth_consensus_specs_tpu/ops/g1_msm.py``: ``sum_many``
+Counterpart of ``eth_consensus_specs_tpu/ops/g1_msm.py``. ``sum_many``
 replaces ``sum_many_kernel`` (:168), the vmapped pairwise ``_tree_sum``
 (:140) over the complete Jacobian ``_add`` (:80, add-2007-bl with every case
 selected by mask) and ``_dbl`` (:55, dbl-2009-l). The tree is the JAX one:
@@ -9,14 +9,28 @@ at each level lane j takes lane j + n/2 as its second operand, so the plain
 version, the kernel and the JAX program produce the same Jacobian
 coordinates, not only the same point.
 
+``msm_many`` replaces ``msm_many_kernel`` (:183): per lane the 256-step
+MSB-first double-and-add of ``_scalar_mul_lane`` (:119), then a sum over
+the item's lanes (``_msm_lanes`` :175; ``msm_kernel`` :153 is one item).
+K17 sums the lanes another way than JAX's tree (csrc/g1_msm.cu: a running
+sum a thread, then a tree over the threads) and launches at the exact lane
+count, so its Jacobian words differ from the JAX program's while the point
+is the same: parity with the JAX package holds on affine encodings, and the
+plain version ``msm_many_ref`` runs the kernel's own steps, word for word.
+Scalars cross as ``int32[..., 8]`` little-endian u32 words (32 bytes a
+lane, where JAX takes 256 u64 bits).
+
 Points cross to the card in the kernels' Montgomery form x * 2^384 mod p,
 as ``int32[..., 12]`` u32 words (``field_limbs.from_card_words``), as the
-JAX ``sum_many_kernel`` takes Montgomery rows: X, Y, Z of every lane, Z = 0
-for infinity and padding, Z = one (2^384 mod p) for an affine key. The sums
-come back in that form too. A cached key carries its 96-byte row in that
-form (``crypto.curve.Point.row``), so a batch packs with one
-``bytes.join`` and no Python ints. The one inversion per item that brings
-a sum back to affine stays on the host, as in the JAX package.
+JAX kernels take Montgomery rows: X, Y, Z of every lane, Z = 0 for
+infinity and padding, Z = one (2^384 mod p) for an affine point. The sums
+come back in that form too. A point carries its 96-byte row in that form
+(``crypto.curve.Point.row``), so a batch packs with one ``bytes.join``
+and no Python ints. The one inversion per item that brings a sum back to
+affine stays on the host, as in the JAX package.
+
+Not ported yet: the ``mesh=`` paths (``_sharded_fn`` :228) and
+``pad_shape`` (the serve layer's compile buckets).
 """
 
 from __future__ import annotations
@@ -32,6 +46,9 @@ from ..device import default_device
 from . import field_limbs as fl
 
 N_WORDS = fl.N_WORDS
+SCALAR_BITS = 256
+SCALAR_WORDS = 8
+MSM_THREADS = 256  # threads of a K17 block (csrc/g1_msm.cu kThreads)
 
 
 def _dbl(X, Y, Z):
@@ -124,6 +141,84 @@ def sum_many(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# --- K17: full-scalar MSMs ----------------------------------------------------
+
+
+def _scalar_bits(K: torch.Tensor) -> torch.Tensor:
+    """int32[..., 8] little-endian scalar words -> bool[..., 256], MSB first."""
+    u = K.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(31, -1, -1, device=K.device)
+    bits = (u.unsqueeze(-1) >> shifts) & 1  # [..., 8, 32], word 0 first
+    return bits.flip(-2).reshape(*K.shape[:-1], SCALAR_BITS).bool()
+
+
+def _scalar_mul_lanes(bits, X, Y, Z):
+    """Every lane's double-and-add (JAX ``_scalar_mul_lane``): from
+    all-zero words, per bit a doubling and, where the bit is set, an add of
+    the lane's point. Leading bit positions clear in every lane are skipped:
+    the doubling of all-zero words is all zeros."""
+    qX, qY, qZ = (torch.zeros_like(a) for a in (X, Y, Z))
+    live = bits.flatten(0, -2).any(dim=0).nonzero()
+    if live.numel() == 0:
+        return qX, qY, qZ
+    for i in range(int(live[0]), SCALAR_BITS):
+        qX, qY, qZ = _dbl(qX, qY, qZ)
+        sX, sY, sZ = _add(qX, qY, qZ, X, Y, Z)
+        take = bits[..., i]
+        qX, qY, qZ = fl.select(take, sX, qX), fl.select(take, sY, qY), fl.select(take, sZ, qZ)
+    return qX, qY, qZ
+
+
+def msm_many_ref(K: torch.Tensor, X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor,
+                 threads: int = MSM_THREADS) -> torch.Tensor:
+    """Plain torch version of K17, the kernel's steps with ``threads``
+    threads a block: int32[I, L, 8] scalars and int32[I, L, 12] X, Y, Z ->
+    int32[I, 3, 12] Jacobian sums, points in the card's Montgomery words."""
+    qX, qY, qZ = _scalar_mul_lanes(_scalar_bits(K), *(fl.from_card_words(a) for a in (X, Y, Z)))
+    lanes = X.shape[1]
+    t = min(lanes, threads)
+    aX, aY, aZ = qX[:, :t], qY[:, :t], qZ[:, :t]
+    for lo in range(t, lanes, t):  # thread j adds lanes j + t, j + 2t, ... in turn
+        w = min(t, lanes - lo)
+        sX, sY, sZ = _add(aX[:, :w], aY[:, :w], aZ[:, :w],
+                          qX[:, lo:lo + w], qY[:, lo:lo + w], qZ[:, lo:lo + w])
+        aX, aY, aZ = (torch.cat([s, a[:, w:]], dim=1) for s, a in ((sX, aX), (sY, aY), (sZ, aZ)))
+    pad = lane_pad(t) - t  # the tree's infinity pad: all-zero words
+    if pad:
+        aX, aY, aZ = (torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in (aX, aY, aZ))
+    rX, rY, rZ = _tree_sum(aX, aY, aZ)
+    return torch.stack([fl.to_card_words(a) for a in (rX, rY, rZ)], dim=-2)
+
+
+def _check_msm_args(K, X, Y, Z) -> None:
+    if X.dim() != 3 or X.shape[-1] != N_WORDS or X.shape[0] < 1 or X.shape[1] < 1:
+        raise ValueError(f"expected int32[I, L, {N_WORDS}] lanes, got {tuple(X.shape)}")
+    if Y.shape != X.shape or Z.shape != X.shape:
+        raise ValueError("X, Y and Z must have one shape")
+    if tuple(K.shape) != (*X.shape[:2], SCALAR_WORDS):
+        raise ValueError(f"expected int32[{X.shape[0]}, {X.shape[1]}, {SCALAR_WORDS}] scalars, "
+                         f"got {tuple(K.shape)}")
+
+
+def msm_many(K: torch.Tensor, X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """Per-item sum_j k_ij * P_ij of ``[I, L]`` lanes (any L) -> ``int32[I,
+    3, 12]`` Jacobian sums in the card's Montgomery words; scalars
+    ``int32[I, L, 8]``, any 256-bit values.
+
+    CUDA tensors go through kernel K17 (``csrc/g1_msm.cu``, one block per
+    item, one launch); CPU tensors through the plain version."""
+    _check_msm_args(K, X, Y, Z)
+    if X.device.type == "cpu":
+        return msm_many_ref(K, X, Y, Z)
+    for t in (K, X, Y, Z):
+        _ext.check_cuda(t, torch.int32)
+    items, lanes = X.shape[0], X.shape[1]
+    out = torch.empty((items, 3, N_WORDS), dtype=torch.int32, device=X.device)
+    _ext.launch("g1_msm", "g1_msm_many_launch", X.device, _ext.ptr(K), _ext.ptr(X),
+                _ext.ptr(Y), _ext.ptr(Z), _ext.ptr(out), items, lanes)
+    return out
+
+
 # --- host boundary ------------------------------------------------------------
 
 _ZERO_ROW = bytes(96)
@@ -189,3 +284,53 @@ def sum_g1_many_device(point_lists: list[list[Point]], device=None) -> list[Poin
 def sum_g1_device(points: list[Point], device=None) -> Point:
     """Device point sum of one list."""
     return sum_g1_many_device([points], device=device)[0] if points else g1_infinity()
+
+
+def scalars_to_words(scalar_lists: list[list[int]], lanes: int) -> np.ndarray:
+    """numpy int32[I, lanes, 8] little-endian words of each item's scalars
+    (0 <= k < 2^256), zero past an item's list."""
+    buf = bytearray(len(scalar_lists) * lanes * 32)
+    for i, scalars in enumerate(scalar_lists):
+        for j, k in enumerate(scalars):
+            k = int(k)
+            if not 0 <= k < 1 << SCALAR_BITS:
+                raise ValueError(f"scalar {k} is outside [0, 2^256)")
+            off = (i * lanes + j) * 32
+            buf[off:off + 32] = k.to_bytes(32, "little")
+    words = np.frombuffer(bytes(buf), dtype="<u4").astype(np.uint32).view(np.int32)
+    return words.reshape(len(scalar_lists), lanes, SCALAR_WORDS)
+
+
+def pack_msm(point_lists: list[list[Point]], scalar_lists: list[list[int]]) -> tuple:
+    """numpy (K, X, Y, Z) of per-item MSMs at exactly the widest item's
+    lane count; shorter items pad with infinity lanes and zero scalars."""
+    if len(point_lists) != len(scalar_lists) or any(
+            len(p) != len(s) for p, s in zip(point_lists, scalar_lists)):
+        raise ValueError("every item needs one scalar per point")
+    lanes = max(max(len(p) for p in point_lists), 1)
+    return (scalars_to_words(scalar_lists, lanes), *pack_lanes(point_lists, lanes))
+
+
+def msm_g1_many_device(point_lists: list[list[Point]], scalar_lists: list[list[int]],
+                       device=None) -> list[Point]:
+    """Independent full-scalar MSMs for many items in one launch on
+    ``device`` (the card by default): ``[msm_g1(points, scalars) for
+    ...]``, the KZG RLC fold's two lincombs."""
+    if not point_lists:
+        return []
+    dev = default_device(device)
+    K, X, Y, Z = (torch.from_numpy(a).to(dev) for a in pack_msm(point_lists, scalar_lists))
+    return sums_to_points(msm_many(K, X, Y, Z))
+
+
+def msm_g1_device(points: list[Point], scalars: list[int], device=None) -> Point:
+    """sum_i scalars[i] * points[i] on ``device``: unit scalars take the
+    point sum (K10), as JAX ``msm_g1_device`` routes them to ``sum_kernel``;
+    any other scalars one item of K17."""
+    if len(points) != len(scalars):
+        raise ValueError("one scalar per point")
+    if not points:
+        return g1_infinity()
+    if all(int(k) == 1 for k in scalars):
+        return sum_g1_device(points, device=device)
+    return msm_g1_many_device([points], [scalars], device=device)[0]

@@ -560,3 +560,90 @@ def test_verify_many_hashes_on_card(cuda):
     _ext.reset_launches()
     assert bls_batch.verify_many(items, device=cuda, rng=random.Random(3)) == want
     assert _ext.launches["h2c_map"] == 0
+
+
+def _fr_rows(b: int, n: int, seed: int) -> torch.Tensor:
+    """int32[b, n, 8] words of values below r (top word below r's), with
+    the corners 0, 1, r - 1 and 2^254 at the head of row 0."""
+    from eth_consensus_specs_tpu_torch.ops import limb_field as lf
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, size=(b, n, 8), dtype=np.uint64)
+    w[..., 7] %= lf.R_MOD >> 224
+    vals = w.astype(np.uint32).view(np.int32)
+    corners = lf.ints_to_words([0, 1, lf.R_MOD - 1, 1 << 254])
+    vals[0, : min(n, 4)] = corners[: min(n, 4)]
+    return torch.from_numpy(vals)
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (3, 2), (3, 16), (5, 1024), (4, 4096), (2, 8192)])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("bitrev", [True, False])
+def test_fr_fft_kernel(cuda, b, n, inverse, bitrev):
+    from eth_consensus_specs_tpu_torch.crypto import das, kzg
+    from eth_consensus_specs_tpu_torch.ops import fr_fft
+    from eth_consensus_specs_tpu_torch.ops import limb_field as lf
+
+    vals = _fr_rows(b, n, n + b).to(cuda)
+    roots = kzg.compute_roots_of_unity(n) if n > 1 else (1,)
+    tw = fr_fft._device_twiddles(fr_fft.inverse_roots(roots) if inverse else roots, n, "cuda")
+    scale = fr_fft._device_scale(n, "cuda") if inverse else None
+    _ext.reset_launches()
+    got = fr_fft.fft_rows(vals, tw, scale, bitrev)
+    assert _ext.launches["fr_fft"] == 1
+    assert _ext.launches["fr_fft_stage"] == max(0, n.bit_length() - 1 - fr_fft.CHUNK_LOG)
+    assert torch.equal(got, fr_fft.fft_rows_ref(vals, tw, scale, bitrev))
+    row = lf.words_to_ints(vals[0])
+    want = das.fft_field(row if bitrev else kzg.bit_reversal_permutation(row), roots, inv=inverse)
+    assert lf.words_to_ints(got[0]) == want
+
+
+@pytest.mark.parametrize("items,lanes", [(1, 1), (2, 7), (2, 129), (1, 300)])
+def test_g1_msm_kernel(cuda, items, lanes):
+    import random
+
+    from eth_consensus_specs_tpu_torch.crypto.fields import R
+    from eth_consensus_specs_tpu_torch.crypto.msm import msm_g1
+    from eth_consensus_specs_tpu_torch.inputs import g1_keys
+    from eth_consensus_specs_tpu_torch.ops import g1_msm
+
+    rnd = random.Random(lanes)
+    keys = g1_keys(items * lanes)
+    points = [keys[i * lanes:(i + 1) * lanes] for i in range(items)]
+    scalars = [[rnd.randrange(R) for _ in range(lanes)] for _ in range(items)]
+    K, X, Y, Z = (torch.from_numpy(a).to(cuda) for a in g1_msm.pack_msm(points, scalars))
+    _ext.reset_launches()
+    got = g1_msm.msm_many(K, X, Y, Z)
+    assert _ext.launches["g1_msm"] == 1
+    assert torch.equal(got, g1_msm.msm_many_ref(K, X, Y, Z))
+    assert g1_msm.sums_to_points(got) == [msm_g1(p, s) for p, s in zip(points, scalars)]
+
+
+def test_g1_msm_kernel_corners(cuda):
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_infinity
+    from eth_consensus_specs_tpu_torch.crypto.fields import R
+    from eth_consensus_specs_tpu_torch.crypto.msm import msm_g1
+    from eth_consensus_specs_tpu_torch.inputs import g1_keys
+    from eth_consensus_specs_tpu_torch.ops import g1_msm
+
+    keys = g1_keys(12)
+    p = keys[0]
+    points = [keys[1:7], [g1_infinity(), keys[7]], [p, -p], [keys[8]], keys[9:12]]
+    scalars = [[0, 1, R - 1, (1 << 256) - 1, R, R + 2], [11, 5], [7, 7], [R - 3], [0, 0, 0]]
+    K, X, Y, Z = (torch.from_numpy(a).to(cuda) for a in g1_msm.pack_msm(points, scalars))
+    got = g1_msm.msm_many(K, X, Y, Z)
+    assert torch.equal(got, g1_msm.msm_many_ref(K, X, Y, Z))
+    assert g1_msm.sums_to_points(got) == [msm_g1(p, s) for p, s in zip(points, scalars)]
+
+
+def test_verify_many_blobs_on_card(cuda):
+    from eth_consensus_specs_tpu_torch.inputs import blob_flush
+    from eth_consensus_specs_tpu_torch.ops import kzg_batch
+
+    items, bad = blob_flush(5, degree=8, invalid=1)
+    want = [i not in bad for i in range(5)]
+    _ext.reset_launches()
+    assert kzg_batch.verify_many_blobs(items, device=cuda) == want == [False] + [True] * 4
+    assert _ext.launches["fr_fft"] == 1 and _ext.launches["g1_msm"] >= 3
+    assert kzg_batch.verify_many_blobs(items, device="cpu") == want
+    assert kzg_batch.verify_blob_kzg_proof_batch_device(*map(list, zip(*items[1:])), device=cuda)
