@@ -89,7 +89,19 @@ Phases, each printing one JSON line:
    per-item oracle; K16, K17, K11 and K12 timed on one flush's inputs;
 14. das_fft: ``bench.py``'s das cell at its card size, 8 chained forward
    FFTs over 16 rows of 8192 points, fresh values each repeat, the last
-   chain held against the plain version on the card.
+   chain held against the plain version on the card;
+15. slot: the whole slot at 2^20 validators through ``serve/slot.SlotWorld``
+   (altair minimal, durable commits into a temporary directory): a warm slot
+   on a separate world, then one epoch of 8 mainnet-shaped slots (64
+   attestations of 512-member committees, a 512-index sync aggregate, 6
+   sparse blobs; one attestation of slot 2, the sync aggregate of slot 4 and
+   one blob of slot 5 spoiled; slot 7 closes the epoch): ms per slot and its
+   phases (verify, aggregate, re-root, commit), the card's busy time by CUDA
+   events around every launch, launches per slot. Verdicts against the
+   construction, aggregates against the host's, every root against the full
+   root of the plain scatter chain, slots 2 and 7 whole against
+   ``host_slot_fold``; a fresh world restores and replays slot 5 unchanged.
+   The distinct keys are cut to 16,384 (``reduced``), by bls_block's rule.
 
 Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
 (phase0_epoch, on the example columns and every phase0 corner) and K2's
@@ -110,13 +122,15 @@ K16 (fr_fft at the flush's [64, 4096] inverse, the das cell's [16, 8192]
 both ways and n = 2, 4, 16, on dense rows and corner rows, word for word
 and against the host ``fft_field``) and K17 (g1_msm_many at [2, 129],
 [2, 65], [2, 7], [2, 3], [1, 300] and on scalar and point corners, word for word
-and on affine points against the host ``msm_g1``).
+and on affine points against the host ``msm_g1``), and K18 (slot_apply and
+slot_apply_scatter at 2^20 validators, at the slot cell's lane counts and on
+duplicate, end, already-set, wrapping and empty plans).
 Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own paths, the state_inc main path
 for K1-K6, both kzg_flush and das_fft for K16, summed over its kernels where
-an entry launches two, as K11's loop and fold and K16's chunk and global
-stage; ``launches_by_path``: each path's; every kernel must have launched on
+an entry launches two, as K11's loop and fold, K16's chunk and global
+stage and K18's copy and scatter; ``launches_by_path``: each path's; every kernel must have launched on
 one of its own paths) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
 without the last line; so does a machine without CUDA, or a directory
@@ -2274,6 +2288,411 @@ def run_das_fft(dev) -> tuple[dict, dict]:
     return summary, launches
 
 
+# --- slice 7: the whole slot (K18 and ops/slot_pipeline, serve/slot) -------------
+
+SLOT_VALIDATORS = 1 << 20
+SLOT_SLOTS = 8  # one epoch of the world's preset: minimal's SLOTS_PER_EPOCH
+SLOT_COMMITTEES = 64  # mainnet's committees a slot at 2^20
+SLOT_COMMITTEE = 512  # 2^20 validators / (32 slots x 64 committees)
+SLOT_SYNC = 512  # mainnet's SYNC_COMMITTEE_SIZE, indices drawn with replacement
+SLOT_BLOBS = 6  # deneb's MAX_BLOBS_PER_BLOCK
+# K, the distinct keys: validator v signs with sk = 1 + (v mod K). bls_block's
+# rule sizes it (the one-time host validation of K keys, 16,384 at 2.4-3.6 ms
+# a key, fits KEY_BUDGET_S; the run fails if 2K would); a multiple of 512, so
+# no key repeats inside a committee, and the keys 1..K that bls_block validates
+SLOT_KEYS = BLS_ITEMS * BLS_BLOCK_COMMITTEE
+SLOT_SPOIL = (("att", 2, 37), ("sync", 4, 0), ("blob", 5, 3))
+SLOT_FOLDED = (2, 7)  # slots held whole against host_slot_fold
+SLOT_REPLAY = 5
+SLOT_SEED = 7
+SLOT_ORACLE_WORKERS = 7
+
+
+def slot_cell_plan(n: int, seed: int = 0):
+    """A plan at the slot cell's lane counts: 64 contiguous committees of
+    512 from a random base with 90% of their bits set (about 29,500 flag
+    lanes, no duplicates), and 512 reward lanes drawn with replacement."""
+    import numpy as np
+
+    from eth_consensus_specs_tpu_torch.inputs import SLOT_PARTICIPATION
+
+    rng = np.random.default_rng(seed)
+    base = int(rng.integers(0, n // SLOT_COMMITTEE)) * SLOT_COMMITTEE
+    members = (base + np.arange(SLOT_COMMITTEES * SLOT_COMMITTEE)) % n
+    flags = members[rng.random(members.shape[0]) < SLOT_PARTICIPATION].astype(np.int32)
+    rewards = rng.integers(0, n, SLOT_SYNC).astype(np.int32)
+    return flags, rewards, np.full(SLOT_SYNC, 1024, np.uint64)
+
+
+def slot_apply_bound(n: int, flag_lanes: int, reward_lanes: int) -> tuple[float, str]:
+    """K18's least time: the three columns read and written once (2 x (8 +
+    1 + 1) B a validator), 4 B a flag lane and 12 B a reward lane."""
+    return bound(20 * n + 4 * flag_lanes + 12 * reward_lanes)
+
+
+def event_ms(events, names=None) -> dict:
+    """Milliseconds by counter of ``_ext.timing``'s event pairs (after a
+    synchronize), only those named in ``names`` where given."""
+    out: dict = {}
+    for name, start, end in events:
+        if names is None or name in names:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+    return out
+
+
+def check_slot_kernels(dev):
+    """Phase 3, continued: K18 (``slot_apply`` and ``slot_apply_scatter``)
+    word for word against ``slot_apply_ref`` at 2^20 validators, at the slot
+    cell's lane counts and on its corners: duplicate flag and reward
+    indices, indices 0 and n - 1, flags already set, balances of 2^64 - 1
+    and 2^63 - 1 that a reward wraps or carries across the int64 sign bit,
+    and an empty plan (the outputs are copies). ``ms`` times the wrapper
+    (its host checks, the plan's copy in and both launches) by CUDA events
+    over INNER calls back to back, as the other rows do; ``device_ms`` is
+    the two kernels' time in the profiler's trace; the events around each
+    single launch (``_ext.timing``, as the slot's busy split takes them)
+    include the host's launch gap."""
+    import numpy as np
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.inputs import example_altair_inputs
+    from eth_consensus_specs_tpu_torch.ops import slot_pipeline as sp
+
+    n = SLOT_VALIDATORS
+    cols, _ = example_altair_inputs(n, device=dev)
+    cell = slot_cell_plan(n)
+    flags_set = cols.prev_flags.clone()
+    tgt_set = cols.cur_tgt_att.clone()
+    flags_set[torch.from_numpy(cell[0][:4096]).long().to(dev)] = 0b111
+    tgt_set[torch.from_numpy(cell[0][:4096]).long().to(dev)] = True
+    wrapped = cols.balance.clone()
+    wrapped[0], wrapped[n - 1], wrapped[17] = -1, -1, (1 << 63) - 1
+    rng = np.random.default_rng(18)
+
+    def plan(f, r, amt=1024):
+        return (np.asarray(f, np.int32), np.asarray(r, np.int32),
+                np.full(len(r), amt, np.uint64) if np.isscalar(amt) else np.asarray(amt, np.uint64))
+
+    cases = {
+        "cell": ((cols.balance, cols.prev_flags, cols.cur_tgt_att), cell),
+        "duplicates": ((cols.balance, cols.prev_flags, cols.cur_tgt_att),
+                       plan(rng.integers(0, 64, 4096), rng.integers(0, 16, 512))),
+        "ends": ((cols.balance, cols.prev_flags, cols.cur_tgt_att),
+                 plan([0, n - 1, 0], [n - 1, 0, n - 1])),
+        "already_set": ((cols.balance, flags_set, tgt_set), cell),
+        "wrap": ((wrapped, cols.prev_flags, cols.cur_tgt_att),
+                 plan([0, n - 1, 17], [0, n - 1, 17, 17], [1024, 1 << 40, 1, 1 << 62])),
+        "empty": ((cols.balance, cols.prev_flags, cols.cur_tgt_att), plan([], [])),
+    }
+    err = 0
+    for case, (columns, p) in cases.items():
+        before = [t.clone() for t in columns]
+        got = sp.slot_apply(*columns, *p)
+        want = sp.slot_apply_ref(*columns, *p)
+        err = max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        if not all(torch.equal(b, c) for b, c in zip(before, columns)):
+            raise RuntimeError(f"K18 changed a committed column ({case})")
+        if case == "empty" and not all(torch.equal(g, c) for g, c in zip(got, columns)):
+            raise RuntimeError("K18's outputs of an empty plan are not copies")
+
+    columns = cases["cell"][0]
+
+    def k18():
+        return sp.slot_apply(*columns, *cell)
+
+    k18()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(REPEATS):
+        _ext.timing = []
+        k18()
+        torch.cuda.synchronize()
+        samples.append(event_ms(_ext.timing))
+        _ext.timing = None
+    f_lanes, r_lanes = len(cell[0]), len(cell[1])
+    b_ms, b_by = slot_apply_bound(n, f_lanes, r_lanes)
+    return [dict(
+        name="slot_apply", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/slot_apply.cu",
+        replaces="eth_consensus_specs_tpu/ops/slot_pipeline.py:205", shape=[n, f_lanes, r_lanes],
+        max_abs_err=err, ms=cuda_ms(k18, inner=INNER),
+        device_ms=device_ms(k18, ("slot_apply",)),
+        launch_event_ms_by_kernel={k: statistics.median(s[k] for s in samples)
+                                   for k in samples[0]},
+        plain_ms=cuda_ms(lambda: sp.slot_apply_ref(*columns, *cell), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, corners_checked=list(cases),
+    )]
+
+
+def _seed_pk_cache(entries) -> None:
+    """Pool initializer of run_slot's host oracle: the K validated keys
+    (their encodings and the points k * G), so each worker skips the
+    one-time decompression the parent already paid; the pairing checks are
+    the worker's own."""
+    from eth_consensus_specs_tpu_torch.crypto import signature
+    from eth_consensus_specs_tpu_torch.crypto.curve import B1, Point
+    from eth_consensus_specs_tpu_torch.crypto.fields import Fq
+
+    for data, x, y in entries:
+        signature._PK_CACHE[data] = Point(Fq(x), Fq(y), B1)
+
+
+def _expected_verdicts(req):
+    att = [("att", req.slot, i) not in SLOT_SPOIL for i in range(len(req.attestations))]
+    blobs = [("blob", req.slot, i) not in SLOT_SPOIL for i in range(len(req.blobs))]
+    return att, ("sync", req.slot, 0) not in SLOT_SPOIL, blobs
+
+
+def run_slot(dev) -> tuple[dict, dict]:
+    """Phase 15: the whole slot at 2^20 validators through ``SlotWorld``
+    (altair minimal, the example columns, the synthetic static tree, a
+    checkpoint directory under a temporary directory, so every slot commits
+    durably). One warm slot on a separate world, then one epoch of 8 slots
+    (``inputs.slot_schedule``: 64 attestations of 512-member committees,
+    90% of bits set, a 512-index sync aggregate drawn with replacement, 6
+    degree-8 sparse blobs; attestation 37 of slot 2, the sync aggregate of
+    slot 4 and blob 3 of slot 5 spoiled; slot 7 closes the epoch), each
+    timed by host clock around ``prep_request`` + ``execute`` (what a caller
+    pays a slot) with its phases. The busy split comes from a second world
+    that runs the same slots with CUDA events around every launch, so the
+    events add nothing to the timed run; its results and launches must
+    equal the timed run's. Oracles: every slot's verdicts against the
+    construction, its aggregates against ``crypto.signature.aggregate``, its
+    root against the full root (K1-K3) of the same plain scatter chain;
+    slots 2 and 7 whole, with their post-slot columns, against
+    ``host_slot_fold`` (its per-item checks in a process pool). A fresh
+    world restores from the directory and replays slot 5 unchanged."""
+    import multiprocessing as mp
+    import os
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from dataclasses import replace
+
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.config import epoch_params
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_to_bytes
+    from eth_consensus_specs_tpu_torch.crypto.signature import _PK_CACHE, _load_pk
+    from eth_consensus_specs_tpu_torch.inputs import example_altair_inputs, g1_keys, slot_schedule
+    from eth_consensus_specs_tpu_torch.ops import slot_pipeline as sp
+    from eth_consensus_specs_tpu_torch.ops import state_root
+    from eth_consensus_specs_tpu_torch.ops.altair_epoch import altair_epoch_accounting_ref
+    from eth_consensus_specs_tpu_torch.parallel import resident
+    from eth_consensus_specs_tpu_torch.serve.slot import SlotWorld
+
+    n = SLOT_VALIDATORS
+    t_setup = time.perf_counter()
+    # the cut: validate a sample of fresh keys to size the one-time validation
+    sample = [g1_to_bytes(k) for k in g1_keys(64, first=(1 << 40) + (1 << 20))]
+    t0 = time.perf_counter()
+    if any(_load_pk(b) is None for b in sample):
+        raise RuntimeError("a valid key was rejected")
+    ms_per_key = (time.perf_counter() - t0) * 1e3 / len(sample)
+    if 2 * SLOT_KEYS * ms_per_key / 1e3 <= KEY_BUDGET_S:
+        raise RuntimeError(f"{ms_per_key:.3f} ms/key no longer justifies {SLOT_KEYS} keys: "
+                           f"twice as many would validate within {KEY_BUDGET_S:.0f} s")
+    reduced = {"distinct_keys": [n, SLOT_KEYS],
+               "why": f"one-time host key validation, {ms_per_key:.3f} ms/key: "
+                      f"{n * ms_per_key / 1e3:.1f} s for the registry, "
+                      f"{SLOT_KEYS * ms_per_key / 1e3:.1f} s for {SLOT_KEYS} keys, "
+                      f"against a {KEY_BUDGET_S:.0f} s budget; validator v signs with "
+                      f"sk = 1 + (v mod {SLOT_KEYS})",
+               "fits_budget": SLOT_KEYS * ms_per_key / 1e3 <= KEY_BUDGET_S}
+    points = g1_keys(SLOT_KEYS)
+    pubkeys = [g1_to_bytes(p) for p in points]
+    cached_before = sum(b in _PK_CACHE for b in pubkeys)
+    t0 = time.perf_counter()
+    if any(_load_pk(b) is None for b in pubkeys):
+        raise RuntimeError("a registry key was rejected")
+    keys_s = time.perf_counter() - t0
+
+    def schedule(slots, seed, spoil=()):
+        return slot_schedule(n, slots=slots, committees=SLOT_COMMITTEES, committee=SLOT_COMMITTEE,
+                             subnets=SLOT_COMMITTEES, keys=SLOT_KEYS, pubkeys=pubkeys,
+                             sync_size=SLOT_SYNC, blobs=SLOT_BLOBS, spoil=spoil, seed=seed)
+
+    t0 = time.perf_counter()
+    reqs = schedule(SLOT_SLOTS, SLOT_SEED, SLOT_SPOIL)
+    warm_req = schedule(1, SLOT_SEED + 1)[0]
+    schedule_s = time.perf_counter() - t0
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_slot_")
+    ckpt = os.path.join(tmp.name, "world")
+    warm = SlotWorld(n, ckpt_dir=os.path.join(tmp.name, "warm"), device=dev)
+    t0 = time.perf_counter()
+    warm_result, _ = warm.execute(warm_req, prep=sp.prep_request(warm_req))
+    warm_s = time.perf_counter() - t0
+    if not (all(warm_result.att_verdicts) and warm_result.sync_verdict
+            and all(warm_result.blob_verdicts)):
+        raise RuntimeError("the warm slot was not accepted whole")
+    del warm
+    world = SlotWorld(n, ckpt_dir=ckpt, device=dev)
+    t0 = time.perf_counter()
+    world.boot()
+    boot_s = time.perf_counter() - t0
+    setup_s = time.perf_counter() - t_setup
+
+    def serve(w, req):
+        """One served slot: the request's prep, then execute; the host
+        milliseconds of each and the launches it made."""
+        before = dict(_ext.launches)
+        t0 = time.perf_counter()
+        prep = sp.prep_request(req)
+        t1 = time.perf_counter()
+        result, phases = w.execute(req, prep=prep)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        made = {k: v - before.get(k, 0) for k, v in _ext.launches.items() if v - before.get(k, 0)}
+        return result, dict(slot=req.slot, boundary=req.epoch_boundary, ms=(t2 - t0) * 1e3,
+                            prep_ms=(t1 - t0) * 1e3, execute_ms=(t2 - t1) * 1e3,
+                            phases_ms=phases, launches=made)
+
+    # the timed run: host clock around prep + execute, no events recorded
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    slots, results = [], []
+    for req in reqs:
+        result, row = serve(world, req)
+        results.append(result)
+        slots.append(row)
+    launches = dict(_ext.launches)
+
+    # the busy split: the same slots on a second world booted alike, with
+    # CUDA events around every launch (they include each launch's host gap).
+    # The hash-to-G2 and prepared-G2 caches hold the timed run's messages:
+    # emptied, so this run does the timed run's device work.
+    from eth_consensus_specs_tpu_torch.ops import bls_batch, pairing_device
+
+    with bls_batch._H2G2_LOCK:
+        bls_batch._H2G2_CACHE.clear()
+    with pairing_device._PREP_LOCK:
+        pairing_device._PREP_CACHE.clear()
+    t0 = time.perf_counter()
+    twin = SlotWorld(n, ckpt_dir=os.path.join(tmp.name, "busy"), device=dev)
+    twin.boot()
+    torch.cuda.synchronize()
+    _ext.timing = []
+    for req, got, s in zip(reqs, results, slots):
+        mark = len(_ext.timing)
+        result, row = serve(twin, req)
+        if result != got or row["launches"] != s["launches"]:
+            raise RuntimeError(f"slot {req.slot}: the busy-split run differs from the timed run")
+        s["busy_ms_by_kernel"] = event_ms(_ext.timing[mark:])
+        s["busy_ms"] = sum(s["busy_ms_by_kernel"].values())
+        s["idle_share"] = 1 - s["busy_ms"] / s["ms"]
+        s["busy_run_ms"] = row["ms"]
+    events, _ext.timing = _ext.timing, None
+    del twin
+    busy_s = time.perf_counter() - t0
+
+    # the oracles
+    t0 = time.perf_counter()
+    params = epoch_params("altair", "minimal")
+    static = world._static
+    arrays, meta = static
+    cols, just = example_altair_inputs(n, device=dev)
+    epoch, folded, k18 = 0, [], []
+    entries = [(b, p.x.n, p.y.n) for b, p in zip(pubkeys, points)]
+    with ProcessPoolExecutor(max_workers=SLOT_ORACLE_WORKERS, mp_context=mp.get_context("spawn"),
+                             initializer=_seed_pk_cache, initargs=(entries,)) as pool:
+
+        def pool_map(fn, items):
+            return pool.map(fn, items, chunksize=2)
+
+        for req, got in zip(reqs, results):
+            att, sync, blobs = _expected_verdicts(req)
+            if (list(got.att_verdicts), got.sync_verdict, list(got.blob_verdicts)) != (
+                    att, sync, blobs):
+                raise RuntimeError(f"slot {req.slot}: the verdicts differ from the construction")
+            if got.subnet_aggregates != sp.host_aggregate(req, att):
+                raise RuntimeError(f"slot {req.slot}: the aggregates differ from the host's")
+            if req.slot in SLOT_FOLDED:
+                fold, fold_cols, _ = sp.host_slot_fold(params, static, cols, just, req, epoch,
+                                                       map_fn=pool_map, device=dev)
+                if fold != got:
+                    raise RuntimeError(f"slot {req.slot}: the result differs from host_slot_fold")
+            plan = sp.plan_updates(req, att, sync, n)
+            k18.append(slot_apply_bound(n, len(plan[0]), len(plan[1]))[0])
+            balance, flags, tgt = sp.slot_apply_ref(cols.balance, cols.prev_flags,
+                                                    cols.cur_tgt_att, *plan)
+            cols = cols._replace(balance=balance, prev_flags=flags, cur_tgt_att=tgt)
+            if req.epoch_boundary:
+                cols, just = resident.advance(altair_epoch_accounting_ref, params, cols, just)
+                epoch += 1
+            root = sp._root_bytes(state_root.post_epoch_state_root(
+                arrays, meta, cols.balance, cols.effective_balance, cols.inactivity_scores, just))
+            if root != got.state_root or epoch != got.epoch:
+                raise RuntimeError(f"slot {req.slot}: the root differs from the full root of "
+                                   "the plain scatter")
+            if req.slot in SLOT_FOLDED:
+                for name in ("balance", "effective_balance", "inactivity_scores", "prev_flags",
+                             "cur_tgt_att"):
+                    max_abs_err(getattr(fold_cols, name), getattr(cols, name))
+                folded.append(req.slot)
+    for name in ("balance", "effective_balance", "inactivity_scores", "prev_flags",
+                 "cur_tgt_att"):
+        max_abs_err(getattr(world._carry.cols, name), getattr(cols, name))
+    oracle_s = time.perf_counter() - t0
+
+    # restore into a fresh world and replay a committed slot
+    t0 = time.perf_counter()
+    again = SlotWorld(n, ckpt_dir=ckpt, device=dev)
+    again.boot()
+    restore_s = time.perf_counter() - t0
+    if (again.root, again.epoch) != (world.root, world.epoch):
+        raise RuntimeError("the restored world's root or epoch differs")
+    replayed, replay_phases = again.execute(reqs[SLOT_REPLAY])
+    if not replayed.replayed or replace(replayed, replayed=False) != results[SLOT_REPLAY]:
+        raise RuntimeError(f"slot {SLOT_REPLAY} did not replay unchanged after the restore")
+    if again.root != world.root:
+        raise RuntimeError("the replay moved the restored world")
+    tmp.cleanup()
+
+    plain = [s for s in slots if not s["boundary"]]
+    edge = [s for s in slots if s["boundary"]][0]
+    plain_ms = [s["ms"] for s in plain]
+    total_busy = {}
+    for s in slots:
+        for k, v in s["busy_ms_by_kernel"].items():
+            total_busy[k] = total_busy.get(k, 0.0) + v
+    busy_sum = sum(total_busy.values())
+    phase_names = sorted({k for s in slots for k in s["phases_ms"]})
+    k18_ms = [s["busy_ms_by_kernel"].get("slot_apply", 0.0)
+              + s["busy_ms_by_kernel"].get("slot_apply_scatter", 0.0) for s in slots]
+    summary = dict(
+        phase="slot", fork="altair", preset="minimal", validators=n, slots=SLOT_SLOTS,
+        committees=SLOT_COMMITTEES, committee=SLOT_COMMITTEE, sync=SLOT_SYNC, blobs=SLOT_BLOBS,
+        spoiled=[list(s) for s in SLOT_SPOIL], reduced=reduced,
+        ms_plain_median=statistics.median(plain_ms), ms_plain_range=[min(plain_ms), max(plain_ms)],
+        ms_boundary=edge["ms"], slots_per_s=len(slots) / (sum(s["ms"] for s in slots) / 1e3),
+        phases_ms_plain_median={k: statistics.median(s["phases_ms"].get(k, 0.0) for s in plain)
+                                for k in phase_names},
+        phases_ms_boundary=edge["phases_ms"],
+        prep_ms_median=statistics.median(s["prep_ms"] for s in slots),
+        execute_ms_plain_median=statistics.median(s["execute_ms"] for s in plain),
+        execute_ms_boundary=edge["execute_ms"],
+        busy_ms_plain_median=statistics.median(s["busy_ms"] for s in plain),
+        busy_ms_boundary=edge["busy_ms"],
+        idle_share_plain_median=statistics.median(s["idle_share"] for s in plain),
+        idle_share_boundary=edge["idle_share"],
+        busy_share_by_kernel={k: v / busy_sum for k, v in sorted(total_busy.items())},
+        busy_ms_per_slot_by_kernel={k: v / len(slots) for k, v in sorted(total_busy.items())},
+        launches=launches, launches_per_slot={k: v / len(slots) for k, v in launches.items()},
+        launches_boundary=edge["launches"],
+        k18_event_ms_median=statistics.median(k18_ms), k18_event_ms_runs=k18_ms,
+        k18_bound_ms_median=statistics.median(k18), k18_bound_by="bytes",
+        per_slot=slots, roots=[r.state_root.hex() for r in results],
+        held_whole_against_host_slot_fold=folded, equal_oracles=True,
+        restore_s=restore_s, replayed_slot=SLOT_REPLAY, replay_phases=replay_phases,
+        ms_per_key=ms_per_key, keys_cached_before=cached_before, keys_validate_s=keys_s,
+        schedule_s=schedule_s, warm_slot_s=warm_s, boot_s=boot_s, setup_s=setup_s,
+        busy_run_s=busy_s, oracle_s=oracle_s, timing_events=len(events),
+    )
+    return summary, launches
+
+
+
 def main() -> int:
     import torch
 
@@ -2299,7 +2718,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = (check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
-            + check_bls_kernels(dev) + check_g2_kernels(dev) + check_kzg_kernels(dev))
+            + check_bls_kernels(dev) + check_g2_kernels(dev) + check_kzg_kernels(dev)
+            + check_slot_kernels(dev))
     emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,
               phase_s=time.perf_counter() - t0))
 
@@ -2309,7 +2729,7 @@ def main() -> int:
                         ("shuffle", run_shuffle), ("epoch_phase0", run_epoch_phase0),
                         ("merkle_many", run_merkle_many), ("bls_block", run_bls_block),
                         ("agg_slot", run_agg_slot), ("kzg_flush", run_kzg_flush),
-                        ("das_fft", run_das_fft)):
+                        ("das_fft", run_das_fft), ("slot", run_slot)):
         t0 = time.perf_counter()
         summary, by_path[path] = phase(dev)
         summary["phase_s"] = time.perf_counter() - t0
@@ -2346,14 +2766,15 @@ _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
               "g1_sum_many": "g1_sum", "miller_product": ("miller", "miller_fold"),
               "final_exp_is_one": "final_exp", "h2c_map": "h2c_map",
               "h2c_finish": "h2c_finish", "g2_sum_many": "g2_sum",
-              "fr_fft": ("fr_fft", "fr_fft_stage"), "g1_msm_many": "g1_msm"}
+              "fr_fft": ("fr_fft", "fr_fft_stage"), "g1_msm_many": "g1_msm",
+              "slot_apply": ("slot_apply", "slot_apply_scatter")}
 # the paths whose counts a kernel's row reports, where it is not state_inc
 _PATH_OF = {"sha256_single_block": "shuffle", "shuffle_rounds": "shuffle",
             "phase0_epoch": "epoch_phase0", "merkle_many_tree_root": "merkle_many",
             "g1_sum_many": "bls_block", "miller_product": "bls_block",
             "final_exp_is_one": "bls_block", "h2c_map": "bls_block", "h2c_finish": "bls_block",
             "g2_sum_many": "agg_slot", "fr_fft": ("kzg_flush", "das_fft"),
-            "g1_msm_many": "kzg_flush"}
+            "g1_msm_many": "kzg_flush", "slot_apply": "slot"}
 
 
 if __name__ == "__main__":

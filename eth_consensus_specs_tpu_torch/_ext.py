@@ -12,7 +12,10 @@ Every C entry point takes its device pointers, sizes and the CUDA stream,
 launches on that stream without synchronising, and returns
 ``cudaGetLastError()``; ``launch`` raises on a non-zero code. ``launch``
 also counts launches per kernel, so a run can show which kernels it went
-through.
+through, and, while ``timing`` is a list, appends to it a pair of CUDA
+events recorded on the stream around each launch, so a run can sum each
+kernel's time on the card (the events add a few microseconds of host time
+a launch).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
            "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "h2c", "g2_sum",
-           "fr_fft", "g1_msm")
+           "fr_fft", "g1_msm", "slot_apply")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -66,11 +69,15 @@ SIGNATURES = {
     "fr_fft": {"fr_fft_chunk_launch": [_P, _P, _P, _P, _I64, _I32, _I32, _I32],
                "fr_fft_stage_launch": [_P, _P, _P, _I64, _I32, _I32]},
     "g1_msm": {"g1_msm_many_launch": [_P, _P, _P, _P, _P, _I64, _I64]},
+    "slot_apply": {"slot_apply_launch": [_P, _P, _P, _P, _P, _P, _I64],
+                   "slot_apply_scatter_launch": [_P, _P, _P, _P, _P, _I64, _P, _P, _I64]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_report: dict[str, dict] = {}
 launches: Counter = Counter()
+# (counter, start event, end event) of each launch while set to a list
+timing: list | None = None
 
 
 def reset_launches() -> None:
@@ -160,8 +167,15 @@ def launch(kernel: str, fn: str, device: torch.device, *args, counter: str | Non
     launch of ``kernel`` (or of ``counter``, for a second kernel that shares
     a library). Raises ``RuntimeError`` if the launch failed."""
     so = lib(kernel)
+    events = timing
     with torch.cuda.device(device):
+        if events is not None:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
         code = getattr(so, fn)(*args, stream(device))
+        if events is not None:
+            end.record()
+            events.append((counter or kernel, start, end))
     if code != 0:
         raise RuntimeError(
             f"{kernel}.{fn} launch failed: {so.kernel_error_string(code).decode()}"

@@ -48,8 +48,9 @@ class AltairEpochParams:
     electra_slashing: bool = False
 
 
-# Shared by every (fork, preset) of the slice; the forks differ only in the
-# slashing rounding, the presets only in the slashings-vector length.
+# Shared by every (fork, preset) of the slice; the forks differ in the slashing
+# rounding and, for altair, in two quotients (``_FORK``), the presets only in
+# the slashings-vector length.
 _COMMON = dict(
     effective_balance_increment=1_000_000_000,
     base_reward_factor=64,
@@ -67,7 +68,15 @@ _COMMON = dict(
     max_effective_balance=32_000_000_000,
 )
 _SLASHINGS_VECTOR = {"mainnet": 8192, "minimal": 64}
-_ELECTRA = {"deneb": False, "electra": True}
+_FORK = {
+    "altair": dict(
+        inactivity_penalty_quotient=3 * (1 << 24),  # INACTIVITY_PENALTY_QUOTIENT_ALTAIR
+        proportional_slashing_multiplier=2,  # PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR
+        electra_slashing=False,
+    ),
+    "deneb": dict(electra_slashing=False),
+    "electra": dict(electra_slashing=True),
+}
 
 
 @dataclass(frozen=True)
@@ -110,7 +119,7 @@ _PHASE0_PRESET = {
 # SHUFFLE_ROUND_COUNT of each preset
 SHUFFLE_ROUND_COUNT = {"mainnet": 90, "minimal": 10}
 
-_DENEB_FIELDS = (
+_ALTAIR_FIELDS = (
     "genesis_time", "genesis_validators_root", "slot", "fork",
     "latest_block_header", "block_roots", "state_roots", "historical_roots",
     "eth1_data", "eth1_data_votes", "eth1_deposit_index", "validators",
@@ -118,9 +127,11 @@ _DENEB_FIELDS = (
     "current_epoch_participation", "justification_bits",
     "previous_justified_checkpoint", "current_justified_checkpoint",
     "finalized_checkpoint", "inactivity_scores", "current_sync_committee",
-    "next_sync_committee", "latest_execution_payload_header",
-    "next_withdrawal_index", "next_withdrawal_validator_index",
-    "historical_summaries",
+    "next_sync_committee",
+)
+_DENEB_FIELDS = _ALTAIR_FIELDS + (
+    "latest_execution_payload_header", "next_withdrawal_index",
+    "next_withdrawal_validator_index", "historical_summaries",
 )
 _ELECTRA_FIELDS = _DENEB_FIELDS + (
     "deposit_requests_start_index", "deposit_balance_to_consume",
@@ -128,7 +139,7 @@ _ELECTRA_FIELDS = _DENEB_FIELDS + (
     "consolidation_balance_to_consume", "earliest_consolidation_epoch",
     "pending_deposits", "pending_partial_withdrawals", "pending_consolidations",
 )
-_FIELDS = {"deneb": _DENEB_FIELDS, "electra": _ELECTRA_FIELDS}
+_FIELDS = {"altair": _ALTAIR_FIELDS, "deneb": _DENEB_FIELDS, "electra": _ELECTRA_FIELDS}
 
 FORKS = tuple(_FIELDS)
 PRESETS = tuple(_SLASHINGS_VECTOR)
@@ -136,12 +147,11 @@ PRESETS = tuple(_SLASHINGS_VECTOR)
 
 def epoch_params(fork: str, preset: str) -> AltairEpochParams:
     """The accounting-epoch constants of ``fork`` under ``preset``."""
-    if fork not in _ELECTRA or preset not in _SLASHINGS_VECTOR:
+    if fork not in _FORK or preset not in _SLASHINGS_VECTOR:
         raise ValueError(f"unsupported fork/preset {fork!r}/{preset!r}")
     return AltairEpochParams(
-        **_COMMON,
+        **{**_COMMON, **_FORK[fork]},
         epochs_per_slashings_vector=_SLASHINGS_VECTOR[preset],
-        electra_slashing=_ELECTRA[fork],
     )
 
 
@@ -167,7 +177,7 @@ def state_fields(fork: str) -> tuple:
 
 
 def top_depth(fork: str) -> int:
-    """Depth of the ``BeaconState`` container tree (28 fields -> 5, 37 -> 6)."""
+    """Depth of the ``BeaconState`` container tree (24 or 28 fields -> 5, 37 -> 6)."""
     return max(len(state_fields(fork)) - 1, 0).bit_length()
 
 

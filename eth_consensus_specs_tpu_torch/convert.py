@@ -3,8 +3,9 @@
 The JAX package's columns, justification state, static state-root
 content and incremental forest are NamedTuples of arrays; these functions
 read them by attribute name as numpy arrays (no JAX import) and make the
-port's tensors on an explicit device. Curve points, G2 lane arrays and
-committee attestations come across the same way, read by attribute. ``to_numpy`` turns the port's results
+port's tensors on an explicit device. Curve points, G2 lane arrays,
+committee attestations and the slot pipeline's requests and results come
+across the same way, read by attribute. ``to_numpy`` turns the port's results
 back into numpy with the unsigned dtypes the JAX package uses, for
 comparing the two and for writing checkpoints in the JAX package's format.
 """
@@ -247,3 +248,39 @@ def msm_lanes_from_jax(bits, X, Y, Z) -> tuple:
     (K ``int32[I, L, 8]``, X/Y/Z ``int32[I, L, 12]`` card Montgomery words)."""
     return (scalars_from_jax_bits(bits),
             *(card_words_from_jax_limbs(a, "field_limbs") for a in (X, Y, Z)))
+
+
+# --- the whole slot -------------------------------------------------------------
+
+
+def slot_request_from_jax(req):
+    """The port's ``ops.slot_pipeline.SlotRequest`` from the JAX package's,
+    field by field (its attestations as the port's ``SlotAttestation``)."""
+    from .ops.slot_pipeline import SlotAttestation, SlotRequest
+
+    atts = tuple(
+        SlotAttestation(subnet=int(a.subnet), root=bytes(a.root),
+                        committee=tuple(int(v) for v in a.committee),
+                        bits=tuple(bool(b) for b in a.bits),
+                        pubkeys=tuple(bytes(pk) for pk in a.pubkeys), sig=bytes(a.sig))
+        for a in req.attestations)
+    return SlotRequest(
+        slot=int(req.slot), attestations=atts,
+        sync_pubkeys=tuple(bytes(pk) for pk in req.sync_pubkeys),
+        sync_message=bytes(req.sync_message), sync_sig=bytes(req.sync_sig),
+        sync_indices=tuple(int(v) for v in req.sync_indices),
+        blobs=tuple(tuple(bytes(x) for x in b) for b in req.blobs),
+        epoch_boundary=bool(req.epoch_boundary))
+
+
+def slot_result_from_jax(res):
+    """The port's ``ops.slot_pipeline.SlotResult`` from the JAX package's,
+    field by field."""
+    from .ops.slot_pipeline import SlotResult
+
+    return SlotResult(
+        slot=int(res.slot), att_verdicts=tuple(bool(v) for v in res.att_verdicts),
+        sync_verdict=bool(res.sync_verdict),
+        blob_verdicts=tuple(bool(v) for v in res.blob_verdicts),
+        subnet_aggregates=tuple((int(s), bytes(sig)) for s, sig in res.subnet_aggregates),
+        state_root=bytes(res.state_root), epoch=int(res.epoch), replayed=bool(res.replayed))

@@ -441,3 +441,87 @@ def blob_flush(n: int, degree: int = 8, invalid: int = 0, dense: dict | None = N
     items = [dense[i] if i in dense else sparse_blob_triple(i, degree=degree, tamper=i in bad)
              for i in range(n)]
     return items, bad
+
+
+# --- a schedule of whole slots --------------------------------------------------
+
+
+SLOT_PARTICIPATION = 0.9  # scripts/slot_bench.py's share of set committee bits
+SLOT_BLOB_DEGREE = 8  # scripts/das_bench.py's sparse blobs
+
+
+def slot_schedule(n_validators: int, slots: int = 8, committees: int = 64, committee=512,
+                  subnets: int = 64, keys: int | None = None, pubkeys: list | None = None,
+                  sync_size: int = 512, blobs: int = 6, slots_per_epoch: int = 8, spoil=(),
+                  seed: int = 0) -> list:
+    """Slot requests (``ops.slot_pipeline.SlotRequest``) in the request shape
+    of ``scripts/slot_bench.py`` ``build_schedule``, from ``seed``:
+
+    - ``committees`` attestations a slot, committee c on subnet c % subnets,
+      its own random data root; members are contiguous registry ranges (the
+      next committee starts where the last ended, wrapping at the registry's
+      end) of ``committee`` validators, or of a size drawn from [lo, hi] for a
+      pair; each member's bit is set with probability ``SLOT_PARTICIPATION``;
+    - a sync aggregate of ``sync_size`` registry indices drawn with
+      replacement, so that duplicates occur, over one random message;
+    - ``blobs`` sparse triples (``sparse_blob_triple``, degree
+      ``SLOT_BLOB_DEGREE``);
+    - ``epoch_boundary`` on every ``slots_per_epoch``-th slot.
+
+    Validator v signs with sk = 1 + (v mod ``keys``) (the request carries
+    its own pubkeys, so any fixed mapping works; ``keys`` defaults to the
+    registry size): an aggregate signature is (sum of sk) * H(root), one G2
+    multiplication. ``pubkeys`` (the compressed keys of sk = 1 .. keys)
+    skips making them again. ``spoil`` holds (kind, slot, index) triples:
+    ``("att", s, i)`` signs attestation i of slot s with the wrong key,
+    ``("sync", s, 0)`` the sync aggregate of slot s, ``("blob", s, i)``
+    shifts blob i's proof by the generator. A committee whose members would
+    share a key raises ``ValueError``."""
+    from .crypto.curve import g1_to_bytes, g2_to_bytes
+    from .crypto.hash_to_curve import hash_to_g2
+    from .ops.slot_pipeline import SlotAttestation, SlotRequest
+
+    n = n_validators
+    k = int(keys or n)
+    if pubkeys is None:
+        pubkeys = [g1_to_bytes(p) for p in g1_keys(k)]
+    if len(pubkeys) < k:
+        raise ValueError(f"need {k} pubkeys, got {len(pubkeys)}")
+    spoil = {tuple(s) for s in spoil}
+    rng = np.random.default_rng(seed)
+    lo, hi = (committee, committee) if isinstance(committee, int) else committee
+
+    def sign(message: bytes, secrets: list, bad: bool) -> bytes:
+        return g2_to_bytes(hash_to_g2(message).mul(sum(secrets) + int(bad)))
+
+    reqs, start = [], 0
+    for s in range(slots):
+        atts = []
+        for c in range(committees):
+            size = int(rng.integers(lo, hi + 1))
+            members = [(start + j) % n for j in range(size)]
+            start = (start + size) % n
+            if len({v % k for v in members}) != size:
+                raise ValueError(f"committee {c} of slot {s} repeats a key (keys={k})")
+            bits = rng.random(size) < SLOT_PARTICIPATION
+            if not bits.any():
+                bits[0] = True
+            root = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+            signers = [v for v, b in zip(members, bits) if b]
+            atts.append(SlotAttestation(
+                subnet=c % subnets, root=root, committee=tuple(members),
+                bits=tuple(bool(b) for b in bits),
+                pubkeys=tuple(pubkeys[v % k] for v in signers),
+                sig=sign(root, [1 + v % k for v in signers], ("att", s, c) in spoil)))
+        sync_idx = [int(v) for v in rng.integers(0, n, sync_size)]
+        sync_msg = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+        reqs.append(SlotRequest(
+            slot=s, attestations=tuple(atts),
+            sync_pubkeys=tuple(pubkeys[v % k] for v in sync_idx), sync_message=sync_msg,
+            sync_sig=sign(sync_msg, [1 + v % k for v in sync_idx], ("sync", s, 0) in spoil),
+            sync_indices=tuple(sync_idx),
+            blobs=tuple(sparse_blob_triple((seed << 20) + s * blobs + b + 1,
+                                           degree=SLOT_BLOB_DEGREE, tamper=("blob", s, b) in spoil)
+                        for b in range(blobs)),
+            epoch_boundary=(s + 1) % slots_per_epoch == 0))
+    return reqs

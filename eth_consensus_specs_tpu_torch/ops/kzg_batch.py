@@ -43,9 +43,7 @@ routes the device path through the host barycentric evaluation; here the
 barycentric evaluation is the oracle only (``crypto.kzg``). Not ported
 yet: the ``obs`` spans and counters and the watchdog's sampled host
 re-check (:268-280), ``buckets.first_dispatch`` and the ``fr_fft`` and
-``kzg_msm`` bucket keys, the ``mesh`` arguments, and ``verify_many_blobs``'s
-``parsed`` argument (parsing already done by ``slot_pipeline.device_verify``,
-which is not ported yet).
+``kzg_msm`` bucket keys and the ``mesh`` arguments.
 """
 
 from __future__ import annotations
@@ -207,16 +205,23 @@ def _bisect(parsed: list, ys: list[int], device, parts: dict | None = None) -> l
             + _bisect(parsed[mid:], ys[mid:], device, parts))
 
 
-def verify_many_blobs(items: list, device=None, parts: dict | None = None) -> list[bool]:
+def verify_many_blobs(items: list, device=None, parts: dict | None = None,
+                      parsed: list | None = None) -> list[bool]:
     """Per-item verdicts for many (blob, commitment, proof) triples, the
     serving layer's batch entry: parsing and the challenge evaluations run
     once, one RLC check settles an all-valid flush, and a reject bisects.
-    Malformed items are False without poisoning the rest."""
+    Malformed items are False without poisoning the rest. ``parsed`` hands
+    over parsing already done (``parse_item``'s output, one entry an item,
+    None for a malformed one), as ``slot_pipeline.device_verify`` does with
+    its request's prep."""
     if not items:
         return []
     dev = default_device(device)
-    with _stage(parts, "parse"):
-        parsed = [parse_item(it) for it in items]
+    if parsed is None:
+        with _stage(parts, "parse"):
+            parsed = [parse_item(it) for it in items]
+    if len(parsed) != len(items):
+        raise ValueError(f"{len(parsed)} parsed entries for {len(items)} items")
     out = [False] * len(items)
     live = [i for i, p in enumerate(parsed) if p is not None]
     if not live:

@@ -454,23 +454,24 @@ def arrays_from_host(val_node_a, val_node_f, slashed_chunk, prev_part_flags, top
 
 def synthetic_static(n: int, seed: int = 0, device=None, fork: str = "deneb"):
     """Static content of an n-validator ``fork`` state without building one:
-    random static nodes and field roots from a seeded ``torch.Generator``,
-    unslashed validators. The same hash count and tree shape as a real
-    state's; the roots mean nothing, the work is real."""
+    random static nodes and field roots, unslashed validators. The same
+    hash count and tree shape as a real state's; the roots mean nothing, the
+    work is real. The arrays are the JAX package's ``synthetic_static(spec,
+    n, seed)`` word for word: the same numpy generator, drawn in its order."""
     from ..device import default_device
 
     dev = default_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
     depth = fork_top_depth(fork)
 
     def rnd(shape):
-        return to_i32(torch.randint(0, 1 << 32, shape, generator=gen, dtype=torch.int64))
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
 
-    arrays = arrays_from_host(
-        rnd((n, 8)), rnd((n, 8)), torch.zeros((n, 8), dtype=torch.int32),
-        torch.randint(0, 8, (n,), generator=gen, dtype=torch.int64).to(torch.uint8),
-        rnd((1 << depth, 8)), n, dev,
-    )
+    node_a = rnd((n, 8))
+    node_f = rnd((n, 8))
+    flags = rng.integers(0, 8, size=n, dtype=np.int64).astype(np.uint8)
+    arrays = arrays_from_host(node_a, node_f, np.zeros((n, 8), np.int32), flags,
+                              rnd((1 << depth, 8)), n, dev)
     meta = StateRootMeta(dynamic_slots(state_fields(fork)), n, depth)
     return arrays, meta
 

@@ -69,6 +69,30 @@ def _mode(with_root) -> str:
         f"with_root must be bool, 'balance', 'state' or 'state_inc', got {with_root!r}")
 
 
+def advance(accounting, params, cols: AltairEpochColumns, just: JustificationState):
+    """One accounting epoch through ``accounting`` (K4's wrapper or its plain
+    version): balances, effective balances, scores and the justification
+    state advance, the epoch counter increments. The loop body of
+    ``run_epochs`` and the slot's boundary epoch (``ops/slot_pipeline``)."""
+    res = accounting(params, cols, just)
+    cols = cols._replace(
+        balance=res.balance,
+        effective_balance=res.effective_balance,
+        inactivity_scores=res.inactivity_scores,
+    )
+    just = just._replace(
+        current_epoch=just.current_epoch + 1,
+        justification_bits=res.justification_bits,
+        prev_justified_epoch=res.prev_justified_epoch,
+        prev_justified_root=res.prev_justified_root,
+        cur_justified_epoch=res.cur_justified_epoch,
+        cur_justified_root=res.cur_justified_root,
+        finalized_epoch=res.finalized_epoch,
+        finalized_root=res.finalized_root,
+    )
+    return cols, just
+
+
 def forest_plan_for(static):
     """The incremental plan ``run_epochs`` and ``build_state_forest_device``
     share for one registry shape."""
@@ -111,22 +135,7 @@ def _run(accounting, h: Hashers, params, cols, just, n_epochs, with_root, static
     acc = torch.zeros(8, dtype=torch.int32, device=dev)
     for _ in range(int(n_epochs)):
         old = (cols.balance, cols.effective_balance, cols.inactivity_scores)
-        res = accounting(params, cols, just)
-        cols = cols._replace(
-            balance=res.balance,
-            effective_balance=res.effective_balance,
-            inactivity_scores=res.inactivity_scores,
-        )
-        just = just._replace(
-            current_epoch=just.current_epoch + 1,
-            justification_bits=res.justification_bits,
-            prev_justified_epoch=res.prev_justified_epoch,
-            prev_justified_root=res.prev_justified_root,
-            cur_justified_epoch=res.cur_justified_epoch,
-            cur_justified_root=res.cur_justified_root,
-            finalized_epoch=res.finalized_epoch,
-            finalized_root=res.finalized_root,
-        )
+        cols, just = advance(accounting, params, cols, just)
         if mode == "balance":
             acc = acc ^ h.tree_root(packed_u64_leaves(cols.balance, n), depth)
         elif mode == "state":

@@ -12,7 +12,7 @@ from eth_consensus_specs_tpu_torch import config
 
 
 @pytest.mark.parametrize("preset", ["mainnet", "minimal"])
-@pytest.mark.parametrize("fork", ["deneb", "electra"])
+@pytest.mark.parametrize("fork", ["altair", "deneb", "electra"])
 def test_epoch_params_match_spec(fork, preset):
     want = dataclasses.asdict(AltairEpochParams.from_spec(get_spec(fork, preset)))
     assert dataclasses.asdict(config.epoch_params(fork, preset)) == want
@@ -26,7 +26,7 @@ def test_phase0_params_and_round_count_match_spec(preset):
     assert config.shuffle_round_count(preset) == spec.SHUFFLE_ROUND_COUNT
 
 
-@pytest.mark.parametrize("fork", ["deneb", "electra"])
+@pytest.mark.parametrize("fork", ["altair", "deneb", "electra"])
 def test_state_fields_match_spec(fork):
     fields = list(get_spec(fork, "mainnet").BeaconState.fields())
     assert list(config.state_fields(fork)) == fields
@@ -34,6 +34,7 @@ def test_state_fields_match_spec(fork):
 
 
 def test_field_counts():
+    assert len(config.state_fields("altair")) == 24 and config.top_depth("altair") == 5
     assert len(config.state_fields("deneb")) == 28 and config.top_depth("deneb") == 5
     assert len(config.state_fields("electra")) == 37 and config.top_depth("electra") == 6
 

@@ -647,3 +647,66 @@ def test_verify_many_blobs_on_card(cuda):
     assert _ext.launches["fr_fft"] == 1 and _ext.launches["g1_msm"] >= 3
     assert kzg_batch.verify_many_blobs(items, device="cpu") == want
     assert kzg_batch.verify_blob_kzg_proof_batch_device(*map(list, zip(*items[1:])), device=cuda)
+
+
+# --- K18: the slot-apply scatter -------------------------------------------------
+
+SLOT_PLANS = {
+    "plain": ([1, 2, 3, 5, 8], [5, 9], [1024, 1024]),
+    "duplicates": ([3, 3, 7, 7, 7, 3], [4, 4, 4, 10], [1024, 1024, 7, 1]),
+    "ends": ([0, 999], [0, 999, 0], [1024, 1 << 40, 3]),
+    "wrap": ([5], [5, 6, 6], [1024, 1, 1 << 62]),
+    "flags_only": ([10, 11, 11], [], []),
+    "empty": ([], [], []),
+}
+
+
+@pytest.mark.parametrize("case", list(SLOT_PLANS))
+def test_slot_apply_kernel(cuda, case):
+    from eth_consensus_specs_tpu_torch.ops import slot_pipeline as sp
+
+    n = 1000
+    cols, _ = example_altair_inputs(n, device=cuda)
+    balance = cols.balance.clone()
+    balance[5], balance[6] = -1, (1 << 63) - 1  # 2^64 - 1 wraps, 2^63 - 1 carries
+    flags = cols.prev_flags.clone()
+    flags[7] = 0b111  # already set
+    plan = tuple(np.asarray(a, dt) for a, dt in zip(SLOT_PLANS[case], (np.int32, np.int32,
+                                                                      np.uint64)))
+    args = (balance, flags, cols.cur_tgt_att, *plan)
+    _ext.reset_launches()
+    got = sp.slot_apply(*args)
+    assert _ext.launches["slot_apply"] == 1
+    assert _ext.launches["slot_apply_scatter"] == int(len(plan[0]) + len(plan[1]) > 0)
+    for g, w in zip(got, sp.slot_apply_ref(*args)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(balance, args[0])  # the committed column is not touched
+
+
+def test_slot_apply_rejects_a_bad_plan(cuda):
+    from eth_consensus_specs_tpu_torch.ops import slot_pipeline as sp
+
+    cols, _ = example_altair_inputs(64, device=cuda)
+    base = (cols.balance, cols.prev_flags, cols.cur_tgt_att)
+    none = np.zeros(0, np.int32)
+    with pytest.raises(ValueError):
+        sp.slot_apply(*base, np.asarray([64]), none, np.zeros(0, np.uint64))
+    with pytest.raises(ValueError):
+        sp.slot_apply(*base, none, np.asarray([-1]), np.ones(1, np.uint64))
+    with pytest.raises(ValueError):
+        sp.slot_apply(cols.balance.cpu().to(cuda).to(torch.int32), *base[1:], none, none,
+                      np.zeros(0, np.uint64))
+
+
+def test_slot_world_on_card_equals_the_cpu_world(cuda):
+    from eth_consensus_specs_tpu_torch.inputs import slot_schedule
+    from eth_consensus_specs_tpu_torch.serve.slot import SlotWorld
+
+    reqs = slot_schedule(64, slots=2, committees=3, committee=(4, 8), subnets=2, sync_size=4,
+                         blobs=1, slots_per_epoch=2, spoil=(("att", 0, 1),), seed=5)
+    card, host = SlotWorld(64, device=cuda), SlotWorld(64, device="cpu")
+    _ext.reset_launches()
+    for req in reqs:
+        assert card.execute(req)[0] == host.execute(req)[0]
+    assert _ext.launches["slot_apply"] == 2 and _ext.launches["slot_apply_scatter"] == 2
+    assert _ext.launches["altair_epoch"] >= 1 and _ext.launches["g2_sum"] == 2

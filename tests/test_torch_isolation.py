@@ -20,6 +20,7 @@ import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "eth_consensus_specs_tpu" or m.startswith("eth_consensus_specs_tpu."))
+print(",".join(names))
 print(len(names))
 print(",".join(bad))
 """
@@ -39,8 +40,10 @@ def _run(args, cwd=REPO, **kw):
 def test_port_imports_neither_jax_nor_the_jax_package():
     out = _run([sys.executable, "-c", _IMPORT_ALL])
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.splitlines()[-2:]
+    names, count, bad = out.stdout.splitlines()[-3:]
     assert int(count) >= 16  # incl. ops.merkle_inc and ops.snapshot
+    assert {"eth_consensus_specs_tpu_torch.ops.slot_pipeline",
+            "eth_consensus_specs_tpu_torch.serve.slot"} <= set(names.split(","))
     assert bad == "", f"port pulled in: {bad}"
 
 
@@ -52,6 +55,19 @@ def test_run_epochs_without_device_raises_when_cuda_is_absent():
         "cols, just = example_altair_inputs(64, device='cpu')\n"
         "try:\n"
         "    run_epochs(epoch_params('deneb', 'mainnet'), cols, just, 1, with_root=False)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+    )
+    out = _run([sys.executable, "-c", code])
+    assert out.returncode == 0, out.stderr
+    assert "raised: CUDA is not available" in out.stdout
+
+
+def test_slot_world_without_device_raises_when_cuda_is_absent():
+    code = (
+        "from eth_consensus_specs_tpu_torch.serve.slot import SlotWorld\n"
+        "try:\n"
+        "    SlotWorld(64)\n"
         "except RuntimeError as e:\n"
         "    print('raised:', e)\n"
     )
