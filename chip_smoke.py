@@ -101,7 +101,22 @@ Phases, each printing one JSON line:
    construction, aggregates against the host's, every root against the full
    root of the plain scatter chain, slots 2 and 7 whole against
    ``host_slot_fold``; a fresh world restores and replays slot 5 unchanged.
-   The distinct keys are cut to 16,384 (``reduced``), by bls_block's rule.
+   The distinct keys are cut to 16,384 (``reduced``), by bls_block's rule;
+16. block_epoch: ``bench.py``'s block_epoch cell at its card size (BASELINE
+   config #4): an epoch of blocks over the dense plane through
+   ``ops.block_epoch.block_epoch_chain``, deneb mainnet, 2^20 validators, 32
+   slots of 128 attestation rows x 512 lanes, a 512-index sync aggregate, 16
+   deposits a slot, the withdrawal sweep and a state root every slot (one K19
+   launch a slot, the root over K1 and K2). The first 4 slots against the
+   plain chain on the card; a warm chain, then 5 timed chains from fresh
+   balance columns: ms an epoch against the 1 s limit, ms a slot, host
+   enqueue, K19's and the root's event ms a slot, the card's busy time,
+   launches an epoch; the last chain's digest sha256(acc || balance) against
+   the port's numpy replay with hashlib roots (``ops/block_epoch_host.py``,
+   the 32 roots in a process pool);
+17. gt_export: ``pairing_device`` (K11, then K20) of 4 pairs (a G1, b G2)
+   and one at infinity, against the host ``pairing`` and bilinearity; ms a
+   pairing and the kernels' event ms.
 
 Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
 (phase0_epoch, on the example columns and every phase0 corner) and K2's
@@ -124,7 +139,13 @@ and against the host ``fft_field``) and K17 (g1_msm_many at [2, 129],
 [2, 65], [2, 7], [2, 3], [1, 300] and on scalar and point corners, word for word
 and on affine points against the host ``msm_g1``), and K18 (slot_apply and
 slot_apply_scatter at 2^20 validators, at the slot cell's lane counts and on
-duplicate, end, already-set, wrapping and empty plans).
+duplicate, end, already-set, wrapping and empty plans), K19 (block_slot at
+2^20 validators x 128 rows x 512 lanes on the cell's first slot and every
+corner of ``inputs.block_slot_corners``: a window that wraps, full and partial
+payloads, repeated rows, unpaid runs, the proposer in the sync committee,
+repeated sync indices, duplicate deposits, values at and above 2^63, an
+all-pad slot) and K20 (final_exp_gt on 4 Miller values, against its plain
+version and the host ``final_exponentiation``; K12's verdict against K20 == 1).
 Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own paths, the state_inc main path
@@ -1272,7 +1293,16 @@ FQ_PER_FQ6_MUL = 18  # 6 Karatsuba Fq2 products of 3
 FQ_PER_FQ12_MUL = 54  # Karatsuba over Fq6 (3 Fq6 products)
 FQ_PER_FQ12_SQR = 36  # complex squaring: 2 Fq6 products
 FQ_PER_LINE = 50  # 12 sparse Fq2 products (36), 12 py scalings, a5 (2)
-FQ_PER_POWX = 63 * FQ_PER_FQ12_SQR + 5 * FQ_PER_FQ12_MUL
+# After the easy part of a final exponentiation every value lies in the
+# cyclotomic subgroup, where a Granger-Scott squaring needs 9 Fq2 squarings
+# of 2 products: what the chain needs, against the kernels' complex
+# squaring (FQ_PER_FQ12_SQR), the design's count.
+FQ_PER_CYC_SQR = 9 * 2
+
+
+def powx_products(sqr: int) -> int:
+    """The Fq products of a power by |x| (63 squarings, 5 products)."""
+    return 63 * sqr + 5 * FQ_PER_FQ12_MUL
 
 
 def committee_indices(items: int, lanes: int, keys_count: int, stride: int):
@@ -1287,16 +1317,21 @@ def miller_fq_products(pairs: int, steps: int, squarings: int) -> int:
     return pairs * (squarings * FQ_PER_FQ12_SQR + steps * FQ_PER_LINE)
 
 
-def final_exp_fq_products() -> int:
-    """The Fq products of K12's chain, without its input conversion."""
+def _fq12_inv_products() -> int:
     from eth_consensus_specs_tpu_torch.crypto.fields import P
 
     p2 = P - 2
     fq_inv = p2.bit_length() + bin(p2).count("1")
     fq2_inv = 2 + fq_inv + 2
     fq6_inv = 3 * 2 + 9 * 3 + fq2_inv  # 3 Fq2 squarings, 9 Fq2 products
-    fq12_inv = 4 * FQ_PER_FQ6_MUL + fq6_inv
-    return (fq12_inv + 5 * FQ_PER_POWX + 9 * FQ_PER_FQ12_MUL + FQ_PER_FQ12_SQR
+    return 4 * FQ_PER_FQ6_MUL + fq6_inv
+
+
+def final_exp_fq_products(sqr: int = FQ_PER_CYC_SQR) -> int:
+    """The Fq products of K12's chain, without its input conversion, with
+    ``sqr`` products a squaring after the easy part (the default: what
+    the chain needs; FQ_PER_FQ12_SQR: the design's count)."""
+    return (_fq12_inv_products() + 5 * powx_products(sqr) + 9 * FQ_PER_FQ12_MUL + sqr
             + 18 + 2 * 12)  # one Frobenius (6 Fq2 products), two p^2-Frobenius
 
 
@@ -1429,7 +1464,7 @@ def check_bls_kernels(dev):
         verdicts[c] = bool(got)
     f = pd.miller_product(*a)  # the 129-pair product: not 1
     err = max(err, max_abs_err(pd.final_exp_is_one(f), pd.final_exp_is_one_ref(f)))
-    products = final_exp_fq_products()
+    products, design = final_exp_fq_products(), final_exp_fq_products(FQ_PER_FQ12_SQR)
     b_ms, b_by = fq_bound(products, products)
     rows.append(dict(
         name="final_exp_is_one", route="cuda",
@@ -1439,7 +1474,8 @@ def check_bls_kernels(dev):
         device_ms=device_ms(lambda: pd.final_exp_is_one(f), ("final_exp_is_one_kernel",)),
         plain_ms=cuda_ms(lambda: pd.final_exp_is_one_ref(f), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
-        serial_fq_products=products,
+        serial_fq_products=products, design_fq_products=design,
+        design_bound_ms=fq_bound(design, design)[0],
         verdicts_checked={"one": verdicts[30], "not_one": verdicts[31]},
     ))
     return rows
@@ -2692,6 +2728,358 @@ def run_slot(dev) -> tuple[dict, dict]:
     return summary, launches
 
 
+# --- slice 8: the block-epoch plane (K19) and the GT export (K20) ----------------
+
+BLOCK_VALIDATORS = 1 << 20
+BLOCK_ATTS = 128  # bench.py's block_epoch cell on an accelerator: 128 attestations a slot
+BLOCK_SEED = 11  # bench.py's _block_epoch_setup
+BLOCK_TIMED = 5
+BLOCK_PLAIN_SLOTS = 4  # slots held against the plain chain on the card
+BLOCK_ORACLE_WORKERS = 7
+BLOCK_LIMIT_MS = 1000.0  # BASELINE config #4: an epoch of blocks under 1 s
+GT_PAIRS = ((3, 5), (7, 2), (11, 13), (1, 17))  # the pairs (a G1, b G2)
+
+
+def block_slot_bytes(params, n: int, slot, before, after) -> int:
+    """Bytes one K19 launch must move on this slot's data, each input read
+    once and each output written once. Reads: the withdrawal window's
+    balance, effective balance, withdrawable epoch and credential (25 B a
+    position); the rows' indices and bits (5 B a lane) and their flag,
+    current and pay bytes; each live lane's participation byte and base
+    reward (9 B); the deposit lanes (12 B); the sync positions (5 B), the
+    balance of each distinct validator they name and the proposer's (8 B);
+    the six scalars. Writes: every balance (8 B) and participation byte
+    (1 B) that changed, the three scalars."""
+    import numpy as np
+
+    from eth_consensus_specs_tpu_torch.convert import to_numpy
+
+    idx, bits, flags = (to_numpy(t) for t in (slot.att_idx, slot.att_bits, slot.att_flags))
+    live = int(((idx < n) & bits & (flags[:, None] != 0)).sum())
+    a, c = idx.shape
+    sync = to_numpy(slot.sync_idx)
+    window = min(n, params.max_validators_per_withdrawals_sweep)
+    reads = (25 * window + 5 * a * c + 3 * a + 9 * live + 12 * to_numpy(slot.dep_idx).size
+             + 5 * sync.size + 8 * (np.unique(sync).size + 1) + 8 * 6)
+    writes = sum(int((x != y).sum()) * w for x, y, w in zip(before, after, (8, 1, 1)))
+    return reads + writes + 8 * 3
+
+
+def final_exp_gt_fq_products(sqr: int = FQ_PER_CYC_SQR) -> int:
+    """The Fq products of K20's chain, without its input conversion: K12's
+    easy part (an inverse, two products, a p^2-Frobenius), the power by
+    (x-1)^2/3 (125 squarings, 47 products), three powers by x, a Frobenius
+    and a p^2-Frobenius, three products, and the last product by m; with
+    ``sqr`` products a squaring, as ``final_exp_fq_products`` counts."""
+    from eth_consensus_specs_tpu_torch.ops.pairing_device import _HARD_E
+
+    squarings, products = _HARD_E.bit_length() - 1, bin(_HARD_E).count("1") - 1
+    return (_fq12_inv_products() + (2 + products + 3 + 1) * FQ_PER_FQ12_MUL
+            + squarings * sqr + 3 * powx_products(sqr) + 18 + 2 * 12)
+
+
+def check_block_epoch_kernels(dev):
+    """Phase 3, continued: K19 (``block_slot``) word for word against
+    ``block_slot_ref`` (balance, both participation columns, the withdrawal
+    pointers and the numerator) at 2^20 validators x 128 rows x 512 lanes,
+    on every corner of ``inputs.block_slot_corners``: the block_epoch cell's
+    first slot, a window that wraps past n, a full and a partial payload,
+    rows that repeat validators, unpaid runs, the proposer in the sync
+    committee on a balance of 1, repeated sync indices, duplicate deposits,
+    balances and a numerator at and above 2^63, an all-pad slot. ``ms``,
+    ``device_ms`` (traced) and ``plain_ms`` are a slot's mean over the
+    cell's 32 slots applied in order from its first state, which is
+    restored outside each timed epoch; the bound counts the bytes of each
+    of those slots, averaged.
+
+    K20 (``final_exp_gt``) word for word against
+    ``final_exponentiation_ref`` and against the host
+    ``crypto.pairing.final_exponentiation`` on the Miller values of 4 pairs
+    (a G1, b G2); K12 says true exactly when K20 gives one, on
+    e(6P, 5Q) e(-cP, Q) for c = 30 (one) and 31 (not)."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch.config import block_epoch_params
+    from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g2_generator
+    from eth_consensus_specs_tpu_torch.inputs import block_slot_corners
+    from eth_consensus_specs_tpu_torch.ops import block_epoch as be
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    params, n = block_epoch_params("deneb", "mainnet"), BLOCK_VALIDATORS
+    corners = block_slot_corners(params, n, BLOCK_ATTS, BLOCK_SEED, device=dev)
+    checked, err = list(corners), 0
+    for st, slot, static in corners.values():
+        outs = [fn(params, n, *(t.clone() for t in (st.balance, st.cur_part, st.prev_part)),
+                   be._scalars(st), slot, static) for fn in (be.block_slot, be.block_slot_ref)]
+        err = max([err] + [max_abs_err(g, w) for g, w in zip(*outs)])
+    del corners, outs
+    cols, st0, static = be.synthetic_block_columns(params, n, BLOCK_SEED, BLOCK_ATTS, device=dev)
+    slots = [be.slot_columns(cols, s) for s in range(params.slots_per_epoch)]
+    fresh = [st0.balance, st0.cur_part, st0.prev_part, be._scalars(st0)]
+    work = [t.clone() for t in fresh]
+
+    def epoch(fn):
+        for slot in slots:
+            fn(params, n, *work, slot, static)
+
+    def restore():
+        for w, f in zip(work, fresh):
+            w.copy_(f)
+        torch.cuda.synchronize(dev)
+
+    def slot_ms(fn, repeats):
+        samples = []
+        for _ in range(repeats):
+            restore()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            epoch(fn)
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end) / len(slots))
+        return statistics.median(samples)
+
+    restore()
+    nbytes = []  # the warm-up epoch counts each slot's bytes
+    for slot in slots:
+        before = [t.clone() for t in work[:3]]
+        be.block_slot(params, n, *work, slot, static)
+        nbytes.append(block_slot_bytes(params, n, slot, before, work[:3]))
+    ms = slot_ms(be.block_slot, REPEATS)
+    restore()
+    per = per_call_ms(device_profile(lambda: epoch(be.block_slot)), len(slots))
+    traced = [t for name, t in per.items() if name.startswith("block_slot")]
+    if not traced:
+        raise RuntimeError("the trace holds no block_slot kernel")
+    b_ms, b_by = bound(statistics.mean(nbytes))
+    a, c = slot.att_idx.shape
+    sy, d = slot.sync_idx.shape[0], slot.dep_idx.shape[0]
+    rows = [dict(
+        name="block_slot", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/block_epoch.cu",
+        replaces="eth_consensus_specs_tpu/ops/block_epoch.py:265", shape=[n, a, c, sy, d],
+        max_abs_err=err, ms=ms, device_ms=sum(traced), plain_ms=slot_ms(be.block_slot_ref, 1),
+        bound_ms=b_ms, bound_by=b_by, bytes=statistics.mean(nbytes),
+        serial_chain_steps=a + sy, library_ms=None, corners_checked=checked,
+    )]
+    del work, fresh, cols
+
+    g, q = g1_generator(), g2_generator()
+
+    def miller(pairs):
+        return pd.miller_product(*[torch.from_numpy(x).to(dev) for x in pd.pack_pairs(pairs)])
+
+    err, fs = 0, []
+    for a_, b_ in GT_PAIRS:
+        f = miller([(g.mul(a_), q.mul(b_))])
+        got = pd.final_exponentiation(f)
+        err = max(err, max_abs_err(got, pd.final_exponentiation_ref(f)))
+        if pd.fq12_from_words(got) != oracle.final_exponentiation(pd.fq12_from_words(f)):
+            raise RuntimeError(f"final_exponentiation of e({a_}P, {b_}Q)'s Miller value differs "
+                               "from the host oracle")
+        fs.append(f)
+    verdicts = {}
+    for c_ in (30, 31):
+        f = miller([(g.mul(6), q.mul(5)), (-g.mul(c_), q)])
+        one = pd.fq12_from_words(pd.final_exponentiation(f)).is_one()
+        if bool(pd.final_exp_is_one(f)) != one or one != (c_ == 30):
+            raise RuntimeError(f"K12's verdict and K20's value disagree on e(6P, 5Q) e(-{c_}P, Q)")
+        verdicts["one" if c_ == 30 else "not_one"] = one
+    f = fs[0]
+    products, design = final_exp_gt_fq_products(), final_exp_gt_fq_products(FQ_PER_FQ12_SQR)
+    b_ms, b_by = fq_bound(products, products)
+    rows.append(dict(
+        name="final_exp_gt", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/final_exp.cu",
+        replaces="eth_consensus_specs_tpu/ops/pairing_device.py:281", shape=[2, 3, 2, 12],
+        max_abs_err=err, ms=cuda_ms(lambda: pd.final_exponentiation(f), repeats=3, inner=INNER),
+        plain_ms=cuda_ms(lambda: pd.final_exponentiation_ref(f), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
+        serial_fq_products=products, design_fq_products=design,
+        design_bound_ms=fq_bound(design, design)[0], k12_fq_products=final_exp_fq_products(),
+        oracle_checked=len(GT_PAIRS), verdicts_checked=verdicts,
+    ))
+    return rows
+
+
+def _equal_block_state(what: str, got, want) -> None:
+    import torch
+
+    for name, g, w in zip(got._fields, got, want):
+        if not torch.equal(g.cpu(), torch.as_tensor(w).cpu()):
+            raise RuntimeError(f"{what}: {name} differs")
+
+
+def run_block_epoch(dev) -> tuple[dict, dict]:
+    """Phase 16: ``bench.py``'s block_epoch cell at its card size (BASELINE
+    config #4): deneb mainnet, 2^20 validators, 32 slots of 128 attestation
+    rows x 512 lanes (the committee cap ``synthetic_block_columns`` picks),
+    a 512-index sync aggregate, 16 deposits a slot, the withdrawal sweep,
+    seed 11, the scores and justification of ``example_altair_inputs(n)``,
+    ``synthetic_static(n)``, a state root every slot. The first 4 slots
+    against the plain chain on the card (``block_slot_ref`` and
+    ``state_root.PLAIN``), word for word; a warm chain, then 5 timed chains,
+    each from a fresh column ``balance + salt`` and ending in a sync, by
+    host clock; one more chain with CUDA events around every launch (K19's
+    ms a slot against the root's) and one under the profiler (the card's
+    busy time). The last timed chain's digest sha256(acc || balance) against
+    the port's numpy replay with hashlib roots over the whole epoch (the 32
+    roots in a process pool). Not cut."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.config import block_epoch_params
+    from eth_consensus_specs_tpu_torch.convert import to_numpy
+    from eth_consensus_specs_tpu_torch.inputs import example_altair_inputs
+    from eth_consensus_specs_tpu_torch.ops import block_epoch as be
+    from eth_consensus_specs_tpu_torch.ops import block_epoch_host as beh
+    from eth_consensus_specs_tpu_torch.ops.state_root import (PLAIN, slot_root_real_hashes,
+                                                              synthetic_static)
+
+    n, params = BLOCK_VALIDATORS, block_epoch_params("deneb", "mainnet")
+    t0 = time.perf_counter()
+    cols, st0, static = be.synthetic_block_columns(params, n, seed=BLOCK_SEED,
+                                                   atts_per_slot=BLOCK_ATTS, device=dev)
+    ecols, just = example_altair_inputs(n, device=dev)
+    scores = ecols.inactivity_scores
+    arrays, meta = synthetic_static(n, device=dev)
+    ctx = be.make_root_ctx("deneb", arrays, meta, static, scores, just)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+
+    def chain(st, blocks=cols):
+        return be.block_epoch_chain(params, n, st, blocks, static, root_ctx=ctx, device=dev)
+
+    t0 = time.perf_counter()
+    head = be.BlockColumns(*(t[:BLOCK_PLAIN_SLOTS] for t in cols))
+    plain_ctx = be.make_root_ctx("deneb", arrays, meta, static, scores, just, PLAIN)
+    got, want = chain(st0, head), be.block_epoch_chain_ref(params, n, st0, head, static,
+                                                           root_ctx=plain_ctx, device=dev)
+    _equal_block_state(f"the first {BLOCK_PLAIN_SLOTS} slots against the plain chain", got[0],
+                       want[0])
+    if not torch.equal(got[1], want[1]):
+        raise RuntimeError("the per-slot roots differ from the plain chain's")
+    plain_s = time.perf_counter() - t0
+
+    chain(st0)
+    torch.cuda.synchronize(dev)
+    _ext.reset_launches()
+    times, enqueue = [], []
+    for i in range(BLOCK_TIMED):
+        fresh = st0._replace(balance=st0.balance + (i + 1))
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = chain(fresh)
+        enqueue.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = dict(_ext.launches)
+    st, acc = out
+    digest = hashlib.sha256(to_numpy(acc).tobytes() + to_numpy(st.balance).tobytes()).hexdigest()
+
+    _ext.timing = []
+    again = chain(fresh)
+    torch.cuda.synchronize(dev)
+    events = event_ms(_ext.timing)
+    _ext.timing = None
+    _equal_block_state("the events run against the timed run", again[0], st)
+    prof = device_profile(lambda: chain(fresh))
+
+    t0 = time.perf_counter()
+    snaps = []
+
+    def record(bal, cur, prev, slot_no):
+        snaps.append((bal.copy(), cur.copy(), prev.copy(), slot_no))
+        return np.zeros(8, np.uint32)
+
+    bal, cur, prev, wdi, wdv, _ = beh.replay_block_epoch_np(
+        params, n, fresh, cols, static.eff_balance, static.withdrawable_epoch,
+        static.has_eth1_cred, int(static.epoch), root_fn=record)
+    with ProcessPoolExecutor(max_workers=BLOCK_ORACLE_WORKERS,
+                             mp_context=mp.get_context("spawn")) as pool:
+        root_fn = beh.slot_root_fn_np("deneb", arrays, meta, static, scores, just)
+        roots = list(pool.map(root_fn, *zip(*snaps)))
+    acc_h = np.bitwise_xor.reduce(np.stack(roots), axis=0)
+    digest_h = hashlib.sha256(acc_h.tobytes() + bal.tobytes()).hexdigest()
+    oracle_s = time.perf_counter() - t0
+    if digest != digest_h:
+        raise RuntimeError(f"block_epoch digest {digest} differs from the numpy replay's {digest_h}")
+    _equal_block_state("the chain against the numpy replay", st,
+                       (bal.view(np.int64), cur, prev, wdi, wdv))
+
+    epoch_ms = statistics.median(times)
+    slots = int(cols.proposer.shape[0])
+    k19_ms = events.get("block_slot", 0.0)
+    summary = dict(
+        phase="block_epoch", fork="deneb", preset="mainnet", n=n, slots=slots,
+        atts=int(cols.att_idx.shape[1]), committee=int(cols.att_idx.shape[2]),
+        sync=int(cols.sync_idx.shape[1]), deposits=int(cols.dep_idx.shape[1]), seed=BLOCK_SEED,
+        timed=BLOCK_TIMED, epoch_ms_median=epoch_ms, epoch_ms_range=[min(times), max(times)],
+        epoch_ms_runs=times,
+        slot_ms=epoch_ms / slots, host_enqueue_ms_median=statistics.median(enqueue),
+        k19_event_ms_per_slot=k19_ms / slots,
+        root_event_ms_per_slot=(sum(events.values()) - k19_ms) / slots,
+        event_ms_by_kernel=events, device_busy_ms=prof["device_busy_ms"],
+        idle_share=1 - prof["device_busy_ms"] / epoch_ms, device_top=prof["top"][:6],
+        launches_per_epoch={k: v / BLOCK_TIMED for k, v in launches.items()},
+        root_hashes_per_slot=slot_root_real_hashes(n, meta.top_depth),
+        limit_ms=BLOCK_LIMIT_MS, under_limit=epoch_ms < BLOCK_LIMIT_MS,
+        next_wd_index=int(st.next_wd_index), next_wd_validator=int(st.next_wd_validator),
+        digest=digest[:32], digest_oracle=digest_h[:32], plain_slots_checked=BLOCK_PLAIN_SLOTS,
+        setup_s=setup_s, plain_s=plain_s, oracle_s=oracle_s, reduced=[],
+    )
+    return summary, launches
+
+
+def run_gt_export(dev) -> tuple[dict, dict]:
+    """Phase 17: the GT export: ``pairing_device`` of the 4 pairs
+    (a G1, b G2) of ``GT_PAIRS`` and one pair at infinity, each held against
+    the host ``pairing``, and bilinearity on the host: e(aP, bQ) =
+    e(P, Q)^(ab). ``ms`` by host clock around each call, its G2 preparation
+    (``prepare_g2``, pure Python, its cache cleared first) included; the
+    kernels' time (K11's two launches and K20) by CUDA events."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g1_infinity, g2_generator
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    g, q = g1_generator(), g2_generator()
+    pairs = [(g.mul(a), q.mul(b)) for a, b in GT_PAIRS] + [(g1_infinity(), q.mul(3))]
+    pd.pairing_device(*pairs[0], device=dev)
+    torch.cuda.synchronize(dev)
+    _ext.reset_launches()
+    times, values = [], []
+    for p, qq in pairs:
+        pd._PREP_CACHE.clear()
+        t = time.perf_counter()
+        values.append(pd.pairing_device(p, qq, device=dev))
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = dict(_ext.launches)
+    base = oracle.pairing(g, q)
+    for (a, b), (p, qq), v in zip(GT_PAIRS, pairs, values):
+        if v != oracle.pairing(p, qq) or v != base.pow(a * b):
+            raise RuntimeError(f"pairing_device(e({a}P, {b}Q)) differs from the host oracle")
+    if not values[-1].is_one():
+        raise RuntimeError("pairing_device of a pair at infinity is not one")
+    _ext.timing = []
+    pd.pairing_device(*pairs[0], device=dev)
+    torch.cuda.synchronize(dev)
+    events = event_ms(_ext.timing)
+    _ext.timing = None
+    summary = dict(
+        phase="gt_export", pairs=[list(ab) for ab in GT_PAIRS] + ["infinity"],
+        ms_per_pairing_median=statistics.median(times[:len(GT_PAIRS)]), ms_runs=times,
+        kernel_event_ms=events, kernel_event_ms_total=sum(events.values()), launches=launches,
+        oracle_checked=len(pairs), bilinear_checked=len(GT_PAIRS),
+    )
+    return summary, launches
+
+
 
 def main() -> int:
     import torch
@@ -2719,7 +3107,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = (check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
             + check_bls_kernels(dev) + check_g2_kernels(dev) + check_kzg_kernels(dev)
-            + check_slot_kernels(dev))
+            + check_slot_kernels(dev) + check_block_epoch_kernels(dev))
     emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,
               phase_s=time.perf_counter() - t0))
 
@@ -2729,7 +3117,8 @@ def main() -> int:
                         ("shuffle", run_shuffle), ("epoch_phase0", run_epoch_phase0),
                         ("merkle_many", run_merkle_many), ("bls_block", run_bls_block),
                         ("agg_slot", run_agg_slot), ("kzg_flush", run_kzg_flush),
-                        ("das_fft", run_das_fft), ("slot", run_slot)):
+                        ("das_fft", run_das_fft), ("slot", run_slot),
+                        ("block_epoch", run_block_epoch), ("gt_export", run_gt_export)):
         t0 = time.perf_counter()
         summary, by_path[path] = phase(dev)
         summary["phase_s"] = time.perf_counter() - t0
@@ -2767,14 +3156,16 @@ _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
               "final_exp_is_one": "final_exp", "h2c_map": "h2c_map",
               "h2c_finish": "h2c_finish", "g2_sum_many": "g2_sum",
               "fr_fft": ("fr_fft", "fr_fft_stage"), "g1_msm_many": "g1_msm",
-              "slot_apply": ("slot_apply", "slot_apply_scatter")}
+              "slot_apply": ("slot_apply", "slot_apply_scatter"), "block_slot": "block_slot",
+              "final_exp_gt": "final_exp_gt"}
 # the paths whose counts a kernel's row reports, where it is not state_inc
 _PATH_OF = {"sha256_single_block": "shuffle", "shuffle_rounds": "shuffle",
             "phase0_epoch": "epoch_phase0", "merkle_many_tree_root": "merkle_many",
             "g1_sum_many": "bls_block", "miller_product": "bls_block",
             "final_exp_is_one": "bls_block", "h2c_map": "bls_block", "h2c_finish": "bls_block",
             "g2_sum_many": "agg_slot", "fr_fft": ("kzg_flush", "das_fft"),
-            "g1_msm_many": "kzg_flush", "slot_apply": "slot"}
+            "g1_msm_many": "kzg_flush", "slot_apply": "slot", "block_slot": "block_epoch",
+            "final_exp_gt": "gt_export"}
 
 
 if __name__ == "__main__":

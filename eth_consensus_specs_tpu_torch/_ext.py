@@ -34,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
            "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "h2c", "g2_sum",
-           "fr_fft", "g1_msm", "slot_apply")
+           "fr_fft", "g1_msm", "slot_apply", "block_epoch")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -62,7 +62,7 @@ SIGNATURES = {
     "g1_sum": {"g1_sum_many_launch": [_P, _P, _P, _P, _I64, _I64]},
     "miller": {"miller_loop_launch": [_P, _P, _P, _P, _P, _I64],
                "miller_fold_launch": [_P, _P, _I64]},
-    "final_exp": {"final_exp_is_one_launch": [_P, _P]},
+    "final_exp": {"final_exp_is_one_launch": [_P, _P], "final_exp_launch": [_P, _P]},
     "h2c": {"h2c_map_launch": [_P, _P, _I64], "h2c_finish_launch": [_P, _P, _P, _I64],
             "fq2_sqrt_launch": [_P, _P, _P, _I64]},
     "g2_sum": {"g2_sum_many_launch": [_P, _P, _P, _P, _I64, _I64]},
@@ -71,6 +71,7 @@ SIGNATURES = {
     "g1_msm": {"g1_msm_many_launch": [_P, _P, _P, _P, _P, _I64, _I64]},
     "slot_apply": {"slot_apply_launch": [_P, _P, _P, _P, _P, _P, _I64],
                    "slot_apply_scatter_launch": [_P, _P, _P, _P, _P, _I64, _P, _P, _I64]},
+    "block_epoch": {"block_slot_launch": [_P] * 21 + [_I64] * 5 + [_P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -11,9 +11,11 @@ It also keeps the phase0 accounting-epoch constants
 round count, the incremental forest's dirty-capacity buckets and the
 sparse/dense crossover model of ``serve/buckets.py`` (:118-169), with the
 same environment reads, so the port plans the same forest as the JAX
-package, and the serving layer's flush buckets that the batched subtree
+package, the serving layer's flush buckets that the batched subtree
 roots are padded to (``serve/config.py`` :149, :154; ``serve/buckets.py``
-:47).
+:47), and the block-epoch plane's constants
+(``BlockEpochParams.from_spec(get_spec(fork, preset))`` of
+``ops/block_epoch.py`` :59).
 """
 
 from __future__ import annotations
@@ -116,6 +118,35 @@ _PHASE0_PRESET = {
     "minimal": dict(inactivity_penalty_quotient=1 << 25, proportional_slashing_multiplier=2,
                     epochs_per_slashings_vector=64),
 }
+@dataclass(frozen=True)
+class BlockEpochParams:
+    """Constants of the columnar block plane, under the JAX package's field
+    names (``ops/block_epoch.py`` ``BlockEpochParams``). Weights in flag
+    order (source, target, head)."""
+
+    slots_per_epoch: int
+    effective_balance_increment: int
+    base_reward_factor: int
+    weights: tuple
+    weight_denominator: int
+    proposer_weight: int
+    sync_reward_weight: int
+    sync_committee_size: int
+    max_effective_balance: int
+    max_withdrawals_per_payload: int
+    max_validators_per_withdrawals_sweep: int
+
+
+# the presets differ in the epoch's length, the sync committee and the sweep;
+# pre-capella forks have no withdrawal sweep
+_BLOCK_PRESET = {
+    "mainnet": dict(slots_per_epoch=32, sync_committee_size=512, max_withdrawals_per_payload=16,
+                    max_validators_per_withdrawals_sweep=16384),
+    "minimal": dict(slots_per_epoch=8, sync_committee_size=32, max_withdrawals_per_payload=4,
+                    max_validators_per_withdrawals_sweep=16),
+}
+_BLOCK_PRE_CAPELLA = ("altair",)
+
 # SHUFFLE_ROUND_COUNT of each preset
 SHUFFLE_ROUND_COUNT = {"mainnet": 90, "minimal": 10}
 
@@ -160,6 +191,19 @@ def phase0_epoch_params(preset: str) -> EpochParams:
     if preset not in _PHASE0_PRESET:
         raise ValueError(f"unsupported preset {preset!r}")
     return EpochParams(**_PHASE0_COMMON, **_PHASE0_PRESET[preset])
+
+
+def block_epoch_params(fork: str, preset: str) -> BlockEpochParams:
+    """The block-plane constants of ``fork`` under ``preset``."""
+    if fork not in _FORK or preset not in _BLOCK_PRESET:
+        raise ValueError(f"unsupported fork/preset {fork!r}/{preset!r}")
+    by_preset = dict(_BLOCK_PRESET[preset])
+    if fork in _BLOCK_PRE_CAPELLA:
+        by_preset.update(max_withdrawals_per_payload=0, max_validators_per_withdrawals_sweep=0)
+    return BlockEpochParams(
+        effective_balance_increment=1_000_000_000, base_reward_factor=64, weights=(14, 26, 14),
+        weight_denominator=64, proposer_weight=8, sync_reward_weight=2,
+        max_effective_balance=32_000_000_000, **by_preset)
 
 
 def shuffle_round_count(preset: str) -> int:

@@ -4,8 +4,9 @@ The JAX package's columns, justification state, static state-root
 content and incremental forest are NamedTuples of arrays; these functions
 read them by attribute name as numpy arrays (no JAX import) and make the
 port's tensors on an explicit device. Curve points, G2 lane arrays,
-committee attestations and the slot pipeline's requests and results come
-across the same way, read by attribute. ``to_numpy`` turns the port's results
+committee attestations, the slot pipeline's requests and results and the
+block plane's columns, state and epoch constants come across the same way,
+read by attribute. ``to_numpy`` turns the port's results
 back into numpy with the unsigned dtypes the JAX package uses, for
 comparing the two and for writing checkpoints in the JAX package's format.
 """
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .ops.altair_epoch import AltairEpochColumns
+from .ops.block_epoch import BlockColumns, BlockEpochStatic, BlockState
 from .ops.state_columns import EpochColumns, JustificationState
 from .ops.state_root import ForestPlan, StateForest, StateRootMeta, arrays_from_host
 
@@ -95,6 +97,24 @@ def to_numpy(x):
         return x
     items = (to_numpy(t) for t in x)
     return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+def block_columns_from_jax(cols, device):
+    """The port's ``ops.block_epoch.BlockColumns`` from the JAX package's
+    (u32 indices become int32 lanes, u64 amounts int64)."""
+    return _convert(BlockColumns, cols, device)
+
+
+def block_state_from_jax(st, device):
+    """The port's ``ops.block_epoch.BlockState`` from the JAX package's (the
+    withdrawal pointers as 0-dim int64 tensors)."""
+    return _convert(BlockState, st, device)
+
+
+def block_static_from_jax(static, device):
+    """The port's ``ops.block_epoch.BlockEpochStatic`` from the JAX
+    package's (FAR_FUTURE_EPOCH = 2^64 - 1 becomes -1 in the int64 lane)."""
+    return _convert(BlockEpochStatic, static, device)
 
 
 # --- BLS12-381: limb rows, prepared coefficients and points ---------------------

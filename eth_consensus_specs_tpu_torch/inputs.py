@@ -525,3 +525,141 @@ def slot_schedule(n_validators: int, slots: int = 8, committees: int = 64, commi
                         for b in range(blobs)),
             epoch_boundary=(s + 1) % slots_per_epoch == 0))
     return reqs
+
+
+# --- the block-epoch plane: K19's corners ------------------------------------------
+
+BLOCK_SLOT_CORNERS = ("cell", "wrap", "full_payload", "partial_payload", "repeat_rows",
+                      "pay_runs", "sync_proposer", "sync_repeats", "dup_deposits",
+                      "high_balances", "all_pad")
+
+
+def block_slot_corners(params, n_validators: int, atts_per_slot: int = 128, seed: int = 11,
+                       device=None) -> dict:
+    """K19's corners on ``device``, each (BlockState, one slot's
+    BlockColumns, BlockEpochStatic), all of one shape: the first slot of
+    ``ops.block_epoch.synthetic_block_columns(params, n, seed,
+    atts_per_slot)`` (``"cell"``), bent to
+
+    - ``wrap``: the withdrawal window starts 8 validators before the end of
+      the registry, the last 8 not eligible but one fully withdrawable, so
+      the payload straddles the wrap;
+    - ``full_payload``: withdrawable epochs at the epoch (paid) and one past
+      it (not) among the partial withdrawals of a full payload;
+    - ``partial_payload``: no balance above the maximum but at five
+      validators (three partial, two full withdrawals), so the pointer skips
+      the whole sweep;
+    - ``repeat_rows``: rows 1, 2 and the last repeat row 0's committee, with
+      other flags and the other participation column;
+    - ``pay_runs``: one pay row in the middle, the rest unpaid, so the
+      numerator carries across runs and is left over after the last row;
+    - ``sync_proposer``: the proposer sits in the sync committee (four
+      positions, set and unset bits) on a balance of 1;
+    - ``sync_repeats``: the sync committee drawn from 4 validators on
+      balances near the participant reward, half the bits unset;
+    - ``dup_deposits``: deposits onto 3 validators, repeated, and pad lanes;
+    - ``high_balances``: a numerator at and above 2^63 (one live lane with a
+      base reward of 2^63 / 54 + 1000, then a pay row), balances at and
+      above 2^63 in the withdrawal window, under a sync decrease and a
+      deposit of 2^64 - 1 that wraps, and a proposer at 2^64 - 2;
+    - ``all_pad``: every row and deposit lane the pad index n, no flags, no
+      sync bit set."""
+    from .convert import to_numpy
+    from .ops.block_epoch import slot_columns, synthetic_block_columns
+
+    cols, st0, static = synthetic_block_columns(params, n_validators, seed, atts_per_slot,
+                                                device="cpu")
+    base = (to_numpy(st0)._asdict(), to_numpy(slot_columns(cols, 0))._asdict(),
+            to_numpy(static)._asdict())
+    dev = default_device(device)
+    return {case: _block_slot_corner(case, params, n_validators, base, seed, dev)
+            for case in BLOCK_SLOT_CORNERS}
+
+
+def _block_slot_corner(case: str, params, n: int, base, seed: int, dev) -> tuple:
+    from .convert import tensor_from_numpy
+    from .ops.block_epoch import BlockColumns, BlockEpochStatic, BlockState
+
+    st, s, sc = ({k: np.array(v) for k, v in d.items()} for d in base)
+    rng = np.random.default_rng(seed + 1)
+    max_eb = np.uint64(params.max_effective_balance)
+    a_rows, sync = s["att_idx"].shape[0], s["sync_idx"].shape[0]
+    part_r = int(sc["part_reward"])
+
+    def window(start: int, k: int) -> np.ndarray:
+        st["next_wd_validator"] = np.uint64(start)
+        return (start + np.arange(k)) % n
+
+    if case == "wrap":
+        tail = window(n - 8, 8)
+        st["balance"][tail] = np.minimum(st["balance"][tail], max_eb)
+        sc["withdrawable_epoch"][tail[5]] = 5
+        st["balance"][tail[5]] |= np.uint64(1)
+    elif case == "full_payload":
+        w = window(n // 3, 8)
+        sc["withdrawable_epoch"][w[[1, 4]]] = sc["epoch"]
+        sc["withdrawable_epoch"][w[6]] = sc["epoch"] + np.uint64(1)
+        st["balance"][w[1]] = 5
+    elif case == "partial_payload":
+        st["balance"] = np.minimum(st["balance"], max_eb)
+        sc["withdrawable_epoch"][:] = U64_MAX
+        w = window(n - 3, min(n, params.max_validators_per_withdrawals_sweep))
+        pick = w[np.linspace(0, w.shape[0] - 1, 5).astype(np.int64)]
+        sc["eff_balance"][pick[:3]] = max_eb
+        st["balance"][pick[:3]] = max_eb + np.uint64(1000)
+        sc["withdrawable_epoch"][pick[3:]] = 1
+        st["balance"][pick[3:]] |= np.uint64(1)
+        st["next_wd_index"] = np.uint64(1000)
+    elif case == "repeat_rows":
+        for r, flags, other in ((1, 0b111, False), (2, 0b110, True), (a_rows - 1, 0b011, False)):
+            s["att_idx"][r] = s["att_idx"][0]
+            s["att_flags"][r] = flags
+            s["att_is_current"][r] = s["att_is_current"][0] ^ other
+        s["att_flags"][0] = 0b001
+    elif case == "pay_runs":
+        s["att_pay"][:] = False
+        s["att_pay"][a_rows // 2] = True
+    elif case == "sync_proposer":
+        prop = s["sync_idx"][5]
+        s["proposer"] = np.uint32(prop)
+        s["sync_idx"][[9, 20, sync - 1]] = prop
+        s["sync_bits"][[5, 9]] = False
+        s["sync_bits"][[20, sync - 1]] = True
+        st["balance"][prop] = 1
+    elif case == "sync_repeats":
+        few = s["sync_idx"][:4].copy()
+        s["sync_idx"] = few[rng.integers(0, 4, sync)]
+        s["sync_bits"] = rng.random(sync) < 0.5
+        st["balance"][few] = np.array([0, 1, max(part_r - 1, 0), 3 * part_r + 7], np.uint64)
+    elif case == "dup_deposits":
+        d = s["dep_idx"].shape[0]
+        s["dep_idx"] = s["dep_idx"][:3][np.arange(d) % 3]
+        s["dep_idx"][-2:] = n
+    elif case == "high_balances":
+        lane = int(np.flatnonzero(s["att_idx"][0] < n)[0])
+        m = s["att_idx"][0, lane]
+        s["att_bits"][0] = False
+        s["att_bits"][0, lane] = True
+        s["att_flags"][0], s["att_pay"][0] = 0b111, True
+        st["cur_part"][m] = st["prev_part"][m] = 0
+        sc["base_reward"][m] = np.uint64((1 << 63) // 54 + 1000)
+        st["balance"][s["proposer"]] = np.uint64(U64_MAX - 1)
+        st["balance"][s["dep_idx"][0]] = U64_MAX
+        w = window(7, 4)
+        sc["eff_balance"][w] = max_eb
+        sc["withdrawable_epoch"][w] = U64_MAX
+        st["balance"][w] = np.uint64(1 << 63) + np.arange(4, dtype=np.uint64)
+        s["sync_bits"][0] = False
+        st["balance"][s["sync_idx"][0]] = np.uint64((1 << 63) + 5)
+    elif case == "all_pad":
+        s["att_idx"][:] = n
+        s["att_bits"][:] = False
+        s["att_flags"][:] = 0
+        s["att_pay"][:] = True
+        s["dep_idx"][:] = n
+        s["sync_bits"][:] = False
+
+    def put(cls, fields):
+        return cls(**{k: tensor_from_numpy(v, dev) for k, v in fields.items()})
+
+    return put(BlockState, st), put(BlockColumns, s), put(BlockEpochStatic, sc)

@@ -15,6 +15,11 @@ split of the pairing:
 * **K12** ``final_exp_is_one`` (JAX :259): the membership check
   m^(3 * hard) = 1 with 3H = (x-1)^2 (x+p)(x^2+p^2-1) + 3, after the easy
   part; the verdict of the whole pairing check.
+* **K20** ``final_exponentiation`` (JAX :281): the GT value itself,
+  m^H with H = (p^4 - p^2 + 1)/r = ((x-1)^2/3)(x+p)(x^2+p^2-1) + 1, one
+  power by the 126-bit (x-1)^2/3, then K12's tail; JAX's naive power by
+  the 1,268-bit H gives the same element. ``pairing_device`` (JAX :500)
+  is K11 on one pair, then K20.
 
 Line model (the host oracle's, so Miller values equal
 ``crypto.pairing.miller_loop`` bit for bit): the untwisted line through T
@@ -28,8 +33,7 @@ Infinity on either side is handled by the active mask.
 
 Values cross to the card canonical, as ``int32[..., 12]`` u32 words:
 coefficients ``[B, 68, 2, 2, 12]``, px and py ``[B, 12]``, an Fq12 as
-``[2, 3, 2, 12]``. The exact ``final_exponentiation`` and ``pairing_device``
-of the JAX package (GT export) are not ported yet.
+``[2, 3, 2, 12]``.
 """
 
 from __future__ import annotations
@@ -187,21 +191,28 @@ def miller_product(coeffs: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 # ----------------------------------------------------- K12: final-exp check --
 
 
+def _easy_part(f):
+    t = tw.fq12_mul(tw.fq12_conj(f), tw.fq12_inv(f))
+    return tw.fq12_mul(tw.fq12_frobenius2(t), t)  # f^((p^6-1)(p^2+1))
+
+
+def _hard_tail(b):
+    """b^((x+p)(x^2+p^2-1)) for a cyclotomic b."""
+    c = tw.fq12_mul(tw.fq12_powx(b), tw.fq12_frobenius(b))  # b^(x+p)
+    d = tw.fq12_powx(tw.fq12_powx(c))  # c^(x^2)
+    return tw.fq12_mul(tw.fq12_mul(d, tw.fq12_frobenius2(c)), tw.fq12_conj(c))
+
+
 def final_exp_is_one_ref(f: torch.Tensor) -> torch.Tensor:
     """Plain torch version of K12: int32[2, 3, 2, 12] -> bool tensor."""
-    m_in = fl.from_words(f)
-    t = tw.fq12_mul(tw.fq12_conj(m_in), tw.fq12_inv(m_in))
-    m = tw.fq12_mul(tw.fq12_frobenius2(t), t)  # f^((p^6-1)(p^2+1))
+    m = _easy_part(fl.from_words(f))
 
     def mul_conj(a, b):
         return tw.fq12_mul(a, tw.fq12_conj(b))
 
     a = mul_conj(tw.fq12_powx(m), m)  # m^(x-1)
     b = mul_conj(tw.fq12_powx(a), a)  # m^((x-1)^2)
-    c = tw.fq12_mul(tw.fq12_powx(b), tw.fq12_frobenius(b))  # b^(x+p)
-    d = tw.fq12_powx(tw.fq12_powx(c))  # c^(x^2)
-    g = mul_conj(tw.fq12_mul(d, tw.fq12_frobenius2(c)), c)
-    return tw.fq12_is_one(tw.fq12_mul(g, tw.fq12_mul(tw.fq12_sqr(m), m)))
+    return tw.fq12_is_one(tw.fq12_mul(_hard_tail(b), tw.fq12_mul(tw.fq12_sqr(m), m)))
 
 
 def final_exp_is_one(f: torch.Tensor) -> torch.Tensor:
@@ -218,6 +229,42 @@ def final_exp_is_one(f: torch.Tensor) -> torch.Tensor:
     out = torch.empty((), dtype=torch.int32, device=f.device)
     _ext.launch("final_exp", "final_exp_is_one_launch", f.device, _ext.ptr(f), _ext.ptr(out))
     return out != 0
+
+
+# ------------------------------------------------ K20: the exact GT value --
+
+# (x - 1)^2 / 3, the 126-bit factor of the hard exponent
+_HARD_E = (BLS_X - 1) ** 2 // 3
+_HARD_E_BITS = bin(_HARD_E)[3:]  # after the leading 1
+
+
+def final_exponentiation_ref(f: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K20: int32[2, 3, 2, 12] canonical Fq12 ->
+    f^((p^12 - 1)/r), the same words."""
+    m = _easy_part(fl.from_words(f))
+    b = m
+    for bit in _HARD_E_BITS:
+        b = tw.fq12_sqr(b)
+        if bit == "1":
+            b = tw.fq12_mul(b, m)
+    return fl.to_words(tw.fq12_mul(_hard_tail(b), m))
+
+
+def final_exponentiation(f: torch.Tensor) -> torch.Tensor:
+    """The exact final exponentiation f^((p^12 - 1)/r) of a canonical
+    int32[2, 3, 2, 12] Fq12, the same words out: the GT value of a pairing.
+
+    CUDA tensors go through kernel K20 (``csrc/final_exp.cu``, one thread
+    runs the whole chain); CPU tensors through the plain version."""
+    if tuple(f.shape) != (2, 3, 2, N_WORDS):
+        raise ValueError(f"expected an int32[2, 3, 2, {N_WORDS}] Fq12, got {tuple(f.shape)}")
+    if f.device.type == "cpu":
+        return final_exponentiation_ref(f)
+    _ext.check_cuda(f, torch.int32)
+    out = torch.empty_like(f)
+    _ext.launch("final_exp", "final_exp_launch", f.device, _ext.ptr(f), _ext.ptr(out),
+                counter="final_exp_gt")
+    return out
 
 
 # ------------------------------------------------------------- public API --
@@ -248,6 +295,17 @@ def pairing_check_device(pairs: list, device=None) -> bool:
     dev = default_device(device)
     args = [torch.from_numpy(a).to(dev) for a in pack_pairs(pairs)]
     return bool(final_exp_is_one(miller_product(*args)))
+
+
+def pairing_device(p: Point, q: Point, device=None) -> Fq12:
+    """e(P, Q) on ``device`` (the card by default): the Miller value of the
+    one pair (K11), then the exact final exponentiation (K20). Equal to
+    ``crypto.pairing.pairing``; an infinity side gives one."""
+    if p.is_infinity() or q.is_infinity():
+        return Fq12.one()
+    dev = default_device(device)
+    args = [torch.from_numpy(a).to(dev) for a in pack_pairs([(p, q)])]
+    return fq12_from_words(final_exponentiation(miller_product(*args)))
 
 
 def miller_loop_device(p: Point, q: Point, device=None) -> Fq12:

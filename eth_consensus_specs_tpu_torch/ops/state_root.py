@@ -413,18 +413,31 @@ def state_root_real_hashes(meta: StateRootMeta) -> int:
     checkpoint and the top container, exactly as this module runs them."""
     n = meta.n_validators
     names = {name for _, name in meta.dynamic_slots}
-
-    def list_hashes(chunks: int, limit_log2: int) -> int:
-        d = max(chunks - 1, 0).bit_length()
-        return tree_real_hashes(d) + (limit_log2 - d) + 1
-
-    hashes = 3 * n + list_hashes(n, VALIDATOR_REGISTRY_LIMIT_LOG2)
-    hashes += list_hashes((n + 3) // 4, BALANCE_LIMIT_CHUNKS_LOG2)
+    hashes = 3 * n + _list_hashes(n, VALIDATOR_REGISTRY_LIMIT_LOG2)
+    hashes += _list_hashes((n + 3) // 4, BALANCE_LIMIT_CHUNKS_LOG2)
     if "inactivity_scores" in names:
-        hashes += list_hashes((n + 3) // 4, BALANCE_LIMIT_CHUNKS_LOG2)
+        hashes += _list_hashes((n + 3) // 4, BALANCE_LIMIT_CHUNKS_LOG2)
     if "previous_epoch_participation" in names:
-        hashes += list_hashes((n + 31) // 32, PARTICIPATION_LIMIT_CHUNKS_LOG2)
+        hashes += _list_hashes((n + 31) // 32, PARTICIPATION_LIMIT_CHUNKS_LOG2)
     return hashes + 3 + tree_real_hashes(meta.top_depth)
+
+
+def _list_hashes(chunks: int, limit_log2: int) -> int:
+    """Messages of one list root: its chunk tree, the fold to the limit and
+    the length mix-in."""
+    d = max(chunks - 1, 0).bit_length()
+    return tree_real_hashes(d) + (limit_log2 - d) + 1
+
+
+def slot_root_real_hashes(n: int, top_depth: int) -> int:
+    """64-byte messages hashed by one per-slot root of the block plane
+    (``ops/block_epoch.slot_root``): the balance and both participation
+    list roots and the top container, exactly as the port runs them. The
+    JAX package's count (``ops/state_root.py`` :447) is of its full-width
+    trees and leaves out the folds and mix-ins."""
+    return (_list_hashes((n + 3) // 4, BALANCE_LIMIT_CHUNKS_LOG2)
+            + 2 * _list_hashes((n + 31) // 32, PARTICIPATION_LIMIT_CHUNKS_LOG2)
+            + tree_real_hashes(top_depth))
 
 
 def dynamic_slots(fields) -> tuple:

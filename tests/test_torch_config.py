@@ -7,6 +7,7 @@ import pytest
 
 from eth_consensus_specs_tpu.forks import get_spec
 from eth_consensus_specs_tpu.ops.altair_epoch import AltairEpochParams
+from eth_consensus_specs_tpu.ops.block_epoch import BlockEpochParams
 from eth_consensus_specs_tpu.ops.state_columns import EpochParams
 from eth_consensus_specs_tpu_torch import config
 
@@ -16,6 +17,13 @@ from eth_consensus_specs_tpu_torch import config
 def test_epoch_params_match_spec(fork, preset):
     want = dataclasses.asdict(AltairEpochParams.from_spec(get_spec(fork, preset)))
     assert dataclasses.asdict(config.epoch_params(fork, preset)) == want
+
+
+@pytest.mark.parametrize("preset", ["mainnet", "minimal"])
+@pytest.mark.parametrize("fork", ["altair", "deneb", "electra"])
+def test_block_epoch_params_match_spec(fork, preset):
+    want = dataclasses.asdict(BlockEpochParams.from_spec(get_spec(fork, preset)))
+    assert dataclasses.asdict(config.block_epoch_params(fork, preset)) == want
 
 
 @pytest.mark.parametrize("preset", ["mainnet", "minimal"])
@@ -50,6 +58,8 @@ def test_unknown_fork_or_preset_raises():
         config.phase0_epoch_params("gnosis")
     with pytest.raises(ValueError):
         config.shuffle_round_count("gnosis")
+    with pytest.raises(ValueError):
+        config.block_epoch_params("phase0", "mainnet")
 
 
 @pytest.mark.parametrize("env", [

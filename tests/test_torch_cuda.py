@@ -710,3 +710,77 @@ def test_slot_world_on_card_equals_the_cpu_world(cuda):
         assert card.execute(req)[0] == host.execute(req)[0]
     assert _ext.launches["slot_apply"] == 2 and _ext.launches["slot_apply_scatter"] == 2
     assert _ext.launches["altair_epoch"] >= 1 and _ext.launches["g2_sum"] == 2
+
+
+# --- K19: the block slot; K20: the exact final exponentiation ----------------------
+
+
+@pytest.mark.parametrize("case", ["cell", "wrap", "full_payload", "partial_payload", "repeat_rows",
+                                  "pay_runs", "sync_proposer", "sync_repeats", "dup_deposits",
+                                  "high_balances", "all_pad"])
+def test_block_slot_kernel(cuda, case):
+    from eth_consensus_specs_tpu_torch.config import block_epoch_params
+    from eth_consensus_specs_tpu_torch.inputs import block_slot_corners
+    from eth_consensus_specs_tpu_torch.ops import block_epoch as be
+
+    params = block_epoch_params("deneb", "mainnet")
+    st, slot, static = block_slot_corners(params, 4096, atts_per_slot=16, device=cuda)[case]
+    outs = []
+    for fn in (be.block_slot, be.block_slot_ref):
+        state = [t.clone() for t in (st.balance, st.cur_part, st.prev_part)] + [be._scalars(st)]
+        _ext.reset_launches()
+        outs.append(fn(params, 4096, *state, slot, static))
+        assert _ext.launches["block_slot"] == (fn is be.block_slot)
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+def test_block_epoch_chain_on_card_equals_the_cpu_chain_and_the_oracle(cuda):
+    from eth_consensus_specs_tpu_torch import convert
+    from eth_consensus_specs_tpu_torch.config import block_epoch_params
+    from eth_consensus_specs_tpu_torch.ops import block_epoch as be
+    from eth_consensus_specs_tpu_torch.ops import block_epoch_host as beh
+    from eth_consensus_specs_tpu_torch.ops.state_root import synthetic_static
+
+    params, n = block_epoch_params("deneb", "mainnet"), 1 << 12
+    cols, st0, static = be.synthetic_block_columns(params, n, seed=5, atts_per_slot=16, device=cuda)
+    arrays, meta = synthetic_static(n, device=cuda)
+    ecols, just = example_altair_inputs(n, device=cuda)
+    ctx = be.make_root_ctx("deneb", arrays, meta, static, ecols.inactivity_scores, just)
+    _ext.reset_launches()
+    st, acc = be.block_epoch_chain(params, n, st0, cols, static, root_ctx=ctx)
+    assert _ext.launches["block_slot"] == 32
+    root_fn = beh.slot_root_fn_np("deneb", arrays, meta, static, ecols.inactivity_scores, just)
+    bal, cur, prev, wdi, wdv, want_acc = beh.replay_block_epoch_np(
+        params, n, st0, cols, static.eff_balance, static.withdrawable_epoch,
+        static.has_eth1_cred, 10, root_fn=root_fn)
+    assert np.array_equal(convert.to_numpy(st.balance), bal)
+    assert np.array_equal(convert.to_numpy(st.cur_part), cur)
+    assert np.array_equal(convert.to_numpy(st.prev_part), prev)
+    assert (int(st.next_wd_index), int(st.next_wd_validator)) == (wdi, wdv)
+    assert np.array_equal(convert.to_numpy(acc), want_acc)
+    # the first two slots against the CPU path, root for root
+    two = be.BlockColumns(*(t[:2] for t in cols))
+    got = be.block_epoch_chain(params, n, st0, two, static, root_ctx=ctx)
+    cpu_ctx = be.SlotRootCtx(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in ctx))
+    want = be.block_epoch_chain(params, n, st0, two, static, root_ctx=cpu_ctx, device="cpu")
+    assert torch.equal(got[1].cpu(), want[1])
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_final_exp_gt_kernel(cuda):
+    from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g2_generator
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    g, q = g1_generator(), g2_generator()
+    for pairs in ([(g.mul(6), q.mul(5)), (-g.mul(30), q)], [(g.mul(6), q.mul(5))]):
+        f = pd.miller_product(*[torch.from_numpy(a).to(cuda) for a in pd.pack_pairs(pairs)])
+        _ext.reset_launches()
+        got = pd.final_exponentiation(f)
+        assert _ext.launches["final_exp_gt"] == 1
+        assert torch.equal(got, pd.final_exponentiation_ref(f))
+        assert pd.fq12_from_words(got) == oracle.final_exponentiation(pd.fq12_from_words(f))
+        assert bool(pd.final_exp_is_one(f)) == pd.fq12_from_words(got).is_one()
+    assert pd.pairing_device(g.mul(5), q.mul(9), device=cuda) == oracle.pairing(g.mul(5), q.mul(9))

@@ -43,7 +43,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names, count, bad = out.stdout.splitlines()[-3:]
     assert int(count) >= 16  # incl. ops.merkle_inc and ops.snapshot
     assert {"eth_consensus_specs_tpu_torch.ops.slot_pipeline",
-            "eth_consensus_specs_tpu_torch.serve.slot"} <= set(names.split(","))
+            "eth_consensus_specs_tpu_torch.serve.slot",
+            "eth_consensus_specs_tpu_torch.ops.block_epoch",
+            "eth_consensus_specs_tpu_torch.ops.block_epoch_host"} <= set(names.split(","))
     assert bad == "", f"port pulled in: {bad}"
 
 
@@ -68,6 +70,22 @@ def test_slot_world_without_device_raises_when_cuda_is_absent():
         "from eth_consensus_specs_tpu_torch.serve.slot import SlotWorld\n"
         "try:\n"
         "    SlotWorld(64)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+    )
+    out = _run([sys.executable, "-c", code])
+    assert out.returncode == 0, out.stderr
+    assert "raised: CUDA is not available" in out.stdout
+
+
+def test_block_epoch_chain_without_device_raises_when_cuda_is_absent():
+    code = (
+        "from eth_consensus_specs_tpu_torch.config import block_epoch_params\n"
+        "from eth_consensus_specs_tpu_torch.ops import block_epoch as be\n"
+        "params = block_epoch_params('deneb', 'mainnet')\n"
+        "cols, st, static = be.synthetic_block_columns(params, 64, atts_per_slot=2, device='cpu')\n"
+        "try:\n"
+        "    be.block_epoch_chain(params, 64, st, cols, static)\n"
         "except RuntimeError as e:\n"
         "    print('raised:', e)\n"
     )

@@ -93,3 +93,51 @@ def test_final_exp_check_matches_the_jax_pairing_check(a, b, c, valid):
               for x, y in pairs]
     f = pd.miller_product(*_tensors(pairs))
     assert bool(pd.final_exp_is_one(f)) is jp.pairing_check(jpairs) is valid
+
+
+# --- K20's plain version and the GT export ---------------------------------------
+
+
+def _jax_fq12(f):
+    """The JAX host Fq12 of the port's Fq12, by canonical ints."""
+    from eth_consensus_specs_tpu.crypto.fields import Fq2, Fq6, Fq12
+
+    c = f.ints()
+    fq2 = [Fq2.from_ints(c[2 * i], c[2 * i + 1]) for i in range(6)]
+    return Fq12(Fq6(*fq2[:3]), Fq6(*fq2[3:]))
+
+
+@pytest.mark.parametrize("seed", [b"gt-0", b"gt-1", b"gt-2"])
+def test_final_exponentiation_ref_equals_the_jax_host_final_exponentiation(seed):
+    p = pc.g1_generator().mul(int.from_bytes(seed, "big") % 1000 + 2)
+    q = ph.hash_to_g2(seed)
+    f = pd.miller_product(*_tensors([(p, q)]))
+    got = pd.fq12_from_words(pd.final_exponentiation(f))
+    want = jp.final_exponentiation(_jax_fq12(pd.fq12_from_words(f)))
+    assert got.ints() == _jax12_ints(want)
+    assert torch.equal(pd.final_exponentiation_ref(f), pd.final_exponentiation(f))
+
+
+@pytest.mark.parametrize("a,b", [(5, 9), (1, 1)])
+def test_pairing_device_equals_the_jax_pairing(a, b):
+    p, q = pc.g1_generator().mul(a), pc.g2_generator().mul(b)
+    got = pd.pairing_device(p, q, device="cpu")
+    jpt, jq = jc.g1_from_bytes(pc.g1_to_bytes(p)), jc.g2_from_bytes(pc.g2_to_bytes(q))
+    assert got.ints() == _jax12_ints(jp.pairing(jpt, jq))
+    assert not got.is_one()
+
+
+def test_pairing_device_of_infinity_is_one():
+    assert pd.pairing_device(pc.g1_infinity(), pc.g2_generator(), device="cpu").is_one()
+    assert pd.pairing_device(pc.g1_generator(), pc.g2_infinity(), device="cpu").is_one()
+
+
+@pytest.mark.slow
+def test_final_exponentiation_ref_equals_the_jax_device_final_exponentiation():
+    """The JAX device program itself (its naive power compiles for minutes)."""
+    from eth_consensus_specs_tpu.ops import fq12_tower as jtw
+
+    f = pd.miller_product(*_tensors([(pc.g1_generator().mul(7), pc.g2_generator().mul(11))]))
+    want = jtw.limbs_to_fq12(np.asarray(jpd.final_exponentiation(
+        jtw.fq12_to_limbs(_jax_fq12(pd.fq12_from_words(f))))))
+    assert pd.fq12_from_words(pd.final_exponentiation_ref(f)).ints() == _jax12_ints(want)
