@@ -123,9 +123,13 @@ Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
 batched entry (merkle_many_tree_root) against their plain versions at the
 shapes of phases 8-10, and K10 (g1_sum_many at [128, 512], [8, 32768] and
 corner items, against (sum of k) * G on the host), K11 (miller_product at
-129, 9 and 1 pairs, the last two against the host Miller loop) and K12
-(final_exp_is_one on a product that is 1 and one that is not, against the
-host pairing check), K13 (h2c_map) and K14 (h2c_finish) at a block's 128
+1, 2, 31, 32, 33 and 129 pairs, some inactive, against the host Miller
+loops; 20 launches each giving the same words), K12 (final_exp_is_one on 1,
+on 0, on a product that is 1, one that is not and the 129-pair product,
+against the host; 20 launches each) and the cooperative tower's check entry
+(fq12_coop_check: an Fq12 product, both squarings and a line product on a
+batch, one lane and four lanes an Fq product, word for word against the plain
+tower, and each split's time a round), K13 (h2c_map) and K14 (h2c_finish) at a block's 128
 messages plus rows holding u = 0 and u with c1 = 0 (against the host
 ``hash_to_g2`` and ``map_to_curve_g2``; K13's square root alone also on
 values in Fq, the branch no message is known to reach), and K15
@@ -155,7 +159,9 @@ stage and K18's copy and scatter; ``launches_by_path``: each path's; every kerne
 one of its own paths) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
 without the last line; so does a machine without CUDA, or a directory
-without the package.
+without the package. On every exit the script stops what it started and
+what is left of it: the process pools' workers, multiprocessing's resource
+tracker and, the script being their subreaper, their orphans.
 """
 
 from __future__ import annotations
@@ -1283,11 +1289,26 @@ BLS_BLOCK_COMMITTEE = 128
 ELECTRA_SHAPE = (8, 32768)  # 8 aggregates over 64 committees each
 BLS_TIMED_CALLS = 3
 BLS_TAMPERED = 17
+# K11's pair counts against the group (a pair) and block (2 pairs) sizes, and
+# the inactive pairs among them
+K11_CASES = ((1, ()), (2, (1,)), (31, (3,)), (32, ()), (33, (0, 32)), (129, (5, 64)))
+COOP_BATCH = 8  # elements of the cooperative tower's check
+COOP_WIDE = 129  # elements of its throughput timing: K11's pairs
+COOP_REPS = (32, 64)  # chained rounds of its two timed runs
+COOP_SEED = 9
 KEY_BUDGET_S = 60.0  # the one-time host validation of the block's keys
 # 32-bit instructions of one Fq product (12 x 32-bit CIOS Montgomery): 2 x 144
 # multiply-adds for a * b and m * p, each an IMAD.WIDE, and about 160 carry
 # additions. Fq additions are not counted, so the bounds below are low.
 FQ_MUL_INSTR = 450
+# One lane's chain for one Fq product split over L lanes of the cooperative
+# tower (csrc/fp12_coop.cuh coop_mul<L>), counted as FQ_MUL_INSTR is: the
+# lane's share of the multiply-adds and carry additions, FQ_MUL_INSTR / L,
+# and the shuffles the split adds (a row's quotient and shifted low word, 24;
+# the final gather of three 12-word vectors, 36). The tower allows 1, 2 and 4
+# lanes; a product round's shortest chain is the 4-lane split's 172.5. The
+# compiled code issues more (tools/fq_mul_sass.py counts its SASS).
+FQ_ROUND_INSTR = FQ_MUL_INSTR / 4 + 2 * 12 + 3 * 12
 FQ_PER_G1_ADD = 16  # add-2007-bl: 11 products and 5 squarings
 FQ_PER_FQ6_MUL = 18  # 6 Karatsuba Fq2 products of 3
 FQ_PER_FQ12_MUL = 54  # Karatsuba over Fq6 (3 Fq6 products)
@@ -1335,6 +1356,44 @@ def final_exp_fq_products(sqr: int = FQ_PER_CYC_SQR) -> int:
             + 18 + 2 * 12)  # one Frobenius (6 Fq2 products), two p^2-Frobenius
 
 
+def fq_window_inverse_products() -> int:
+    """The Fq inverse as a Fermat chain in 4-bit windows over p - 2: the
+    table x^2..x^15 in 4 rounds of independent products, then 4 squarings a
+    window below the top bit and a product a nonzero window."""
+    from eth_consensus_specs_tpu_torch.crypto.fields import P
+
+    e = P - 2
+    windows = (e.bit_length() - 1) // 4
+    nonzero = sum(1 for i in range(windows) if (e >> (4 * i)) & 15)
+    return 4 + 4 * windows + nonzero
+
+
+def miller_rounds(pairs: int, steps: int, squarings: int) -> int:
+    """K11's chain at full tower parallelism: a pair's squarings and lines,
+    one product round each, then the product tree over the pairs."""
+    return squarings + steps + (pairs - 1).bit_length()
+
+
+def final_exp_rounds() -> int:
+    """K12's chain at full tower parallelism: an Fq12 product, squaring,
+    Frobenius map or line counts one product round. The Fq12 inverse is 7
+    rounds and the Fq inverse's window chain; then the easy part's conj
+    product, p^2-Frobenius and product; five powers by x (63 squarings and
+    5 products each); the hard part's 10 other operations."""
+    return 7 + fq_window_inverse_products() + 3 + 5 * (63 + 5) + 10
+
+
+def round_bound(rounds: int, products: float,
+                round_instr: float = FQ_ROUND_INSTR) -> tuple[float, str]:
+    """Least milliseconds for a chain of ``rounds`` dependent product rounds
+    (each one Fq product, ``round_instr`` instructions a lane at one a clock:
+    by default the 4-lane split's) and for ``products`` Fq products of
+    FQ_MUL_INSTR instructions spread over the card: the larger."""
+    t_chain = rounds * round_instr / CLOCK_HZ * 1e3
+    t_thru = products * FQ_MUL_INSTR / INT_OPS_PER_S * 1e3
+    return max(t_chain, t_thru), "operations"
+
+
 def fq_bound(products: float, serial_products: float) -> tuple[float, str]:
     """Least milliseconds for ``products`` Fq products spread over the card,
     or ``serial_products`` that depend one on the next (one warp, one
@@ -1346,9 +1405,15 @@ def fq_bound(products: float, serial_products: float) -> tuple[float, str]:
 
 def check_bls_kernels(dev):
     """Phase 3, continued: K10 at a deneb block's [128, 512] and an electra
-    block's [8, 32768], and on corner items; K11 at 129, 9 and 1 pairs; K12
-    on a product that is 1 and one that is not. Each against its plain
-    version on the card and against the host oracle in canonical ints."""
+    block's [8, 32768], and on corner items; K11 at the pair counts of
+    K11_CASES, some pairs inactive; K12 on 1, 0, a product that is 1, one
+    that is not and the 129-pair product; the cooperative tower's check
+    entry. Each against its plain version on the card and against the host
+    oracle in canonical ints, K11 and K12 also over REPEATS launches. K11's
+    and K12's bounds are their chains of product rounds at full tower
+    parallelism, a product on the 4-lane split (``round_bound``); beside
+    them the same chains at a one-lane product as ``one_lane_bound_ms`` and
+    the one-thread chains as ``serial_bound_ms``."""
     import torch
 
     from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
@@ -1415,70 +1480,156 @@ def check_bls_kernels(dev):
         fq_products=deneb["fq_products"], serial_fq_products=deneb["serial_fq_products"],
     ))
 
-    # K11 at a block's 129 pairs (128 messages and the signature pair), 9 and 1
+    # K11 at a block's 129 pairs (128 messages and the signature pair) and at
+    # ragged counts against the group and block size, some pairs inactive
     qs = [hash_to_g2(b"smoke-pair-%d" % i) for i in range(BLS_ITEMS)]
     pairs = [(keys[i], qs[i]) for i in range(BLS_ITEMS)] + [(-g, qs[0])]
-    err = 0
-    args = {}
-    for n in (1, 9, len(pairs)):
-        a = [torch.from_numpy(x).to(dev) for x in pd.pack_pairs(pairs[:n])]
+    host = {}  # host Miller values by pair index
+
+    def host_product(idx):
+        want = oracle.Fq12.one()
+        for j in idx:
+            if j not in host:
+                pt, q = pairs[j]
+                host[j] = oracle.miller_loop(pt, oracle.untwist(q))
+            want = want * host[j]
+        return want
+
+    err, args, counts = 0, {}, {}
+    for n, inactive in K11_CASES:
+        chosen = [(g1_infinity(), q) if j in inactive else (pt, q)
+                  for j, (pt, q) in enumerate(pairs[:n])]
+        a = [torch.from_numpy(x).to(dev) for x in pd.pack_pairs(chosen)]
         got = pd.miller_product(*a)
         err = max(err, max_abs_err(got, pd.miller_product_ref(*a)))
-        if n < len(pairs):
-            want = oracle.Fq12.one()
-            for pt, q in pairs[:n]:
-                want = want * oracle.miller_loop(pt, oracle.untwist(q))
-            if pd.fq12_from_words(got) != want:
-                raise RuntimeError(f"miller_product of {n} pairs differs from the host oracle")
-        args[n] = a
+        if pd.fq12_from_words(got) != host_product([j for j in range(n) if j not in inactive]):
+            raise RuntimeError(f"miller_product of {n} pairs differs from the host oracle")
+        repeats_equal(f"miller_product of {n} pairs", lambda: pd.miller_product(*a), got)
+        args[n], counts[n] = a, n - len(inactive)
     a = args[len(pairs)]
     squarings = sum(pd._SQR_FLAGS.tolist())
     products = (miller_fq_products(len(pairs), pd.N_STEPS, squarings)
                 + (len(pairs) - 1) * FQ_PER_FQ12_MUL)
     serial = (miller_fq_products(1, pd.N_STEPS, squarings)
               + (len(pairs) - 1).bit_length() * FQ_PER_FQ12_MUL)
-    b_ms, b_by = fq_bound(products, serial)
+    rounds = miller_rounds(len(pairs), pd.N_STEPS, squarings)
+    b_ms, b_by = round_bound(rounds, products)
     rows.append(dict(
         name="miller_product", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/miller.cu",
         replaces="eth_consensus_specs_tpu/ops/pairing_device.py:170",
         shape=[len(pairs), pd.N_STEPS],
-        max_abs_err=err, ms=cuda_ms(lambda: pd.miller_product(*a), repeats=10),
+        max_abs_err=err, ms=cuda_ms(lambda: pd.miller_product(*a), repeats=10, inner=INNER),
         device_ms=device_ms(lambda: pd.miller_product(*a), ("miller_",)),
         plain_ms=cuda_ms(lambda: pd.miller_product_ref(*a), 2),
-        ms_9_pairs=cuda_ms(lambda: pd.miller_product(*args[9]), repeats=10),
-        ms_1_pair=cuda_ms(lambda: pd.miller_product(*args[1]), repeats=10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
-        serial_fq_products=serial, oracle_checked=[1, 9],
+        ms_by_pairs={n: cuda_ms(lambda: pd.miller_product(*args[n]), repeats=10, inner=INNER)
+                     for n, _ in K11_CASES},
+        active_by_pairs=counts, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        product_rounds=rounds, round_instr=FQ_ROUND_INSTR,
+        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_INSTR)[0],
+        fq_products=products, serial_fq_products=serial,
+        serial_bound_ms=fq_bound(products, serial)[0], oracle_checked=[n for n, _ in K11_CASES],
+        repeats_equal=REPEATS,
     ))
 
-    # K12 on a product that is 1 and one that is not: e(6P, 5Q) e(-cP, Q)
+    # K12 on 1, on 0, on e(6P, 5Q) e(-cP, Q) for c = 30 (one) and 31 (not),
+    # and on the 129-pair product (not one)
     q = qs[1]
-    verdicts, err = {}, 0
+    cases = {"one": torch.from_numpy(pd.fq12_to_words(oracle.Fq12.one())).to(dev),
+             "zero": torch.zeros((2, 3, 2, 12), dtype=torch.int32, device=dev)}
+    inactive_129 = dict(K11_CASES)[len(pairs)]
+    want = {"one": True, "zero": False, "pairs_129": oracle.final_exponentiation(
+        host_product([j for j in range(len(pairs)) if j not in inactive_129])).is_one()}
     for c in (30, 31):
         pr = [(g.mul(6), q.mul(5)), (-g.mul(c), q)]
-        f = pd.miller_product(*[torch.from_numpy(x).to(dev) for x in pd.pack_pairs(pr)])
-        got = pd.final_exp_is_one(f)
-        err = max(err, max_abs_err(got, pd.final_exp_is_one_ref(f)))
-        if bool(got) != oracle.pairing_check(pr) or bool(got) != (c == 30):
-            raise RuntimeError(f"final_exp_is_one differs from the oracle on e(6P, 5Q) e(-{c}P, Q)")
-        verdicts[c] = bool(got)
-    f = pd.miller_product(*a)  # the 129-pair product: not 1
-    err = max(err, max_abs_err(pd.final_exp_is_one(f), pd.final_exp_is_one_ref(f)))
+        cases[f"c{c}"] = pd.miller_product(*[torch.from_numpy(x).to(dev) for x in pd.pack_pairs(pr)])
+        want[f"c{c}"] = oracle.pairing_check(pr)
+        if want[f"c{c}"] != (c == 30):
+            raise RuntimeError("the host pairing check is wrong on e(6P, 5Q) e(-cP, Q)")
+    cases["pairs_129"] = f = pd.miller_product(*a)
+    verdicts, err = {}, 0
+    for name, fw in cases.items():
+        got = pd.final_exp_is_one(fw)
+        err = max(err, max_abs_err(got, pd.final_exp_is_one_ref(fw)))
+        if bool(got) != want[name]:
+            raise RuntimeError(f"final_exp_is_one differs from the host on {name}")
+        repeats_equal(f"final_exp_is_one on {name}", lambda: pd.final_exp_is_one(fw), got)
+        verdicts[name] = bool(got)
     products, design = final_exp_fq_products(), final_exp_fq_products(FQ_PER_FQ12_SQR)
-    b_ms, b_by = fq_bound(products, products)
+    rounds = final_exp_rounds()
+    b_ms, b_by = round_bound(rounds, products)
     rows.append(dict(
         name="final_exp_is_one", route="cuda",
         source="eth_consensus_specs_tpu_torch/csrc/final_exp.cu",
         replaces="eth_consensus_specs_tpu/ops/pairing_device.py:259", shape=[2, 3, 2, 12],
-        max_abs_err=err, ms=cuda_ms(lambda: pd.final_exp_is_one(f), repeats=5),
+        max_abs_err=err, ms=cuda_ms(lambda: pd.final_exp_is_one(f), repeats=5, inner=INNER),
         device_ms=device_ms(lambda: pd.final_exp_is_one(f), ("final_exp_is_one_kernel",)),
         plain_ms=cuda_ms(lambda: pd.final_exp_is_one_ref(f), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
-        serial_fq_products=products, design_fq_products=design,
-        design_bound_ms=fq_bound(design, design)[0],
-        verdicts_checked={"one": verdicts[30], "not_one": verdicts[31]},
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, product_rounds=rounds,
+        round_instr=FQ_ROUND_INSTR,
+        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_INSTR)[0],
+        fq_products=products, serial_fq_products=products,
+        serial_bound_ms=fq_bound(products, products)[0], design_fq_products=design,
+        verdicts_checked=verdicts, repeats_equal=REPEATS,
+        coop_tower=check_coop_tower(dev),
     ))
     return rows
+
+
+def repeats_equal(what: str, fn, first) -> None:
+    """``fn()`` gives ``first``'s words on every one of REPEATS launches."""
+    import torch
+
+    for _ in range(REPEATS):
+        if not torch.equal(fn(), first):
+            raise RuntimeError(f"{what}: a repeated launch gave other words")
+
+
+def check_coop_tower(dev) -> dict:
+    """The cooperative tower's check entry (``fq12_coop_check``): an Fq12
+    product, a complex squaring, a Granger-Scott squaring and a line product
+    on a batch, chained 1 and 3 times, with one lane and with four lanes an
+    Fq product, word for word against the plain tower; the Granger-Scott
+    squares of elements in the cyclotomic subgroup also equal the complex
+    squares. Then each split's time per round of the four operations (ten
+    rounds: 4 product, 6 add) for one element and for COOP_WIDE, from the
+    difference of COOP_REPS chained rounds."""
+    import numpy as np
+    import torch
+
+    from eth_consensus_specs_tpu_torch import _ext
+    from eth_consensus_specs_tpu_torch.crypto.fields import P
+    from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    rng = np.random.default_rng(COOP_SEED)
+
+    def words(*shape):
+        vals = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(int(np.prod(shape)))]
+        return torch.from_numpy(fl.ints_to_words(vals).reshape(*shape, 12)).to(dev)
+
+    n = COOP_BATCH
+    a, b, line = words(n, 2, 3, 2), words(n, 2, 3, 2), words(n, 5)
+    a = fl.to_words(pd._easy_part(fl.from_words(a)))  # cyclotomic
+    _ext.reset_launches()
+    for reps in (1, 3):
+        want = pd.fq12_coop_check_ref(a, b, line, reps)
+        if not torch.equal(want[:, 1], want[:, 2]):
+            raise RuntimeError("the plain Granger-Scott squares differ from the complex squares")
+        for lanes in (1, 4):
+            got = pd.fq12_coop_check(a, b, line, reps, lanes)
+            max_abs_err(got, want)
+            repeats_equal(f"fq12_coop_check ({lanes} lanes)",
+                          lambda: pd.fq12_coop_check(a, b, line, reps, lanes), got)
+    launches = _ext.launches["fq12_coop"]
+    us = {}
+    r0, r1 = COOP_REPS
+    for lanes in (1, 4):
+        for m in (1, COOP_WIDE):
+            aa, bb, ll = (x[:1].expand(m, *x.shape[1:]).contiguous() for x in (a, b, line))
+            t = [cuda_ms(lambda: pd.fq12_coop_check(aa, bb, ll, r, lanes), repeats=5)
+                 for r in (r0, r1)]
+            us[f"lanes_{lanes}_elements_{m}"] = (t[1] - t[0]) / (r1 - r0) / 10 * 1e3
+    return dict(batch=n, launches=launches, equal_plain=True, us_per_round=us)
 
 
 def _oracle_verdict(item) -> bool:
@@ -3081,7 +3232,87 @@ def run_gt_export(dev) -> tuple[dict, dict]:
 
 
 
+def _become_subreaper() -> None:
+    """Make this process the reaper of its orphaned descendants (Linux
+    ``PR_SET_CHILD_SUBREAPER``), so that ``_stop_children`` finds them too."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _child_pids() -> list[int]:
+    """The pids whose parent is this process, zombies included, from /proc."""
+    import os
+    from pathlib import Path
+
+    me, pids = os.getpid(), []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if int(fields[1]) == me:
+            pids.append(int(stat.parent.name))
+    return pids
+
+
+def _stop_children(grace_s: float = 10.0) -> None:
+    """Stop every process the run started that is still there: the process
+    pools' workers, multiprocessing's resource tracker (it would otherwise
+    outlive the script while it drains) and any orphan of theirs; a process
+    that has not ended after ``grace_s`` of SIGTERM is killed. Each is named
+    on stderr."""
+    import os
+    import signal
+
+    if "multiprocessing" in sys.modules:
+        import multiprocessing as mp
+
+        for proc in mp.active_children():
+            print(f"chip_smoke: stopping leftover worker {proc.pid}", file=sys.stderr, flush=True)
+            proc.terminate()
+            proc.join(grace_s)
+        if "multiprocessing.resource_tracker" in sys.modules:
+            from multiprocessing import resource_tracker
+
+            tracker = resource_tracker._resource_tracker
+            if getattr(tracker, "_pid", None) is not None and hasattr(tracker, "_stop"):
+                print(f"chip_smoke: stopping multiprocessing's resource tracker {tracker._pid}",
+                      file=sys.stderr, flush=True)
+                tracker._stop()
+    deadline = time.monotonic() + grace_s
+    sent: set[int] = set()
+    while (pids := _child_pids()) and time.monotonic() < deadline + grace_s:
+        for pid in pids:
+            try:
+                if os.waitpid(pid, os.WNOHANG)[0]:
+                    continue
+                if pid not in sent:
+                    cmd = open(f"/proc/{pid}/cmdline", "rb").read().replace(b"\0", b" ")
+                    print(f"chip_smoke: stopping leftover process {pid}: "
+                          f"{cmd.decode(errors='replace')[:200]}", file=sys.stderr, flush=True)
+                    os.kill(pid, signal.SIGTERM)
+                    sent.add(pid)
+                elif time.monotonic() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+            except (ChildProcessError, ProcessLookupError, FileNotFoundError):
+                continue
+        time.sleep(0.05)
+
+
 def main() -> int:
+    _become_subreaper()
+    try:
+        return _run()
+    finally:
+        _stop_children()
+
+
+def _run() -> int:
     import torch
 
     if not torch.cuda.is_available():

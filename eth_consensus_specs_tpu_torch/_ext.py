@@ -5,8 +5,10 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 libraries are built on first use on a CUDA tensor, all sources at once in
 parallel, into ``_build/`` beside this file (git-ignored), under a name
 that carries a digest of the sources, so an edited kernel is never served
-by a stale library. A failed build or launch raises; nothing falls back to
-the plain torch versions.
+by a stale library. Headers generated from Python (``GENERATED``: the
+cooperative Fq12 tower's programs) are written into ``_build/include``
+before ``nvcc`` runs and count in the digest. A failed build or launch
+raises; nothing falls back to the plain torch versions.
 
 Every C entry point takes its device pointers, sizes and the CUDA stream,
 launches on that stream without synchronising, and returns
@@ -21,6 +23,7 @@ a launch).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -32,9 +35,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# headers generated at build time: file name -> "module:function" returning its text
+GENERATED = {"fp12_coop_ops.cuh": "eth_consensus_specs_tpu_torch.ops.fq12_coop:header_text"}
 KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
            "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "h2c", "g2_sum",
-           "fr_fft", "g1_msm", "slot_apply", "block_epoch")
+           "fr_fft", "g1_msm", "slot_apply", "block_epoch", "fq12_coop")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -72,6 +77,7 @@ SIGNATURES = {
     "slot_apply": {"slot_apply_launch": [_P, _P, _P, _P, _P, _P, _I64],
                    "slot_apply_scatter_launch": [_P, _P, _P, _P, _P, _I64, _P, _P, _I64]},
     "block_epoch": {"block_slot_launch": [_P] * 21 + [_I64] * 5 + [_P]},
+    "fq12_coop": {"fq12_coop_check_launch": [_P, _P, _P, _P, _I64, _I32, _I32]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -90,11 +96,40 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
+@functools.cache
+def generated() -> dict[str, str]:
+    """The text of each ``GENERATED`` header."""
+    import importlib
+
+    out = {}
+    for fname, target in GENERATED.items():
+        module, fn = target.split(":")
+        out[fname] = getattr(importlib.import_module(module), fn)()
+    return out
+
+
+def write_generated() -> Path:
+    """Write the ``GENERATED`` headers into ``_build/include`` (a file is
+    rewritten only when its text changed); returns that directory."""
+    inc = BUILD_DIR / "include"
+    inc.mkdir(parents=True, exist_ok=True)
+    for fname, text in generated().items():
+        path = inc / fname
+        if not path.exists() or path.read_text() != text:
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, path)
+    return inc
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256()
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for fname, text in sorted(generated().items()):
+        h.update(fname.encode())
+        h.update(text.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -106,9 +141,9 @@ def _lib_path(name: str) -> Path:
 def build() -> dict:
     """Compile every kernel source not yet built, one ``nvcc`` each, all
     started together. Returns ``build_report``: per kernel the seconds its
-    compile took and ``nvcc``'s register/shared-memory report. Raises
+    compile took and ``nvcc``'s register, shared-memory and spill report. Raises
     ``RuntimeError`` with the compiler's output if any compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    inc = write_generated()
     procs = {}
     t0 = time.perf_counter()
     for name in KERNELS:
@@ -117,7 +152,7 @@ def build() -> dict:
             build_report.setdefault(name, {"seconds": 0.0, "cached": True, "ptxas": ""})
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(inc), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     failed = []
@@ -129,7 +164,7 @@ def build() -> dict:
         os.replace(tmp, out)
         build_report[name] = {
             "seconds": time.perf_counter() - t0, "cached": False,
-            "ptxas": "\n".join(l for l in log.splitlines() if "ptxas" in l),
+            "ptxas": "\n".join(l for l in log.splitlines() if "ptxas" in l or "spill" in l),
         }
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -1,5 +1,7 @@
-// BLS12-381 base field and its tower on the card, shared by K10 (g1_sum.cu),
-// K11 (miller.cu) and K12 (final_exp.cu).
+// BLS12-381 base field and its tower on the card, shared by the BLS kernels:
+// the one-thread tower below serves K10, K13-K15, K17 and K20; K11 and K12
+// run on the cooperative tower (fp12_coop.cuh) over this header's Fq
+// product and constants.
 //
 // Fq: 12 x 32-bit limbs, little-endian, in Montgomery form with R = 2^384,
 // every value kept canonical in [0, p). Multiplication is CIOS Montgomery:
@@ -12,8 +14,9 @@
 // Boundary: values cross as little-endian u32 words, 12 per Fq element, in
 // one of two forms, which each kernel names in its header. K10 (g1_sum.cu)
 // reads and writes this header's Montgomery form (x * 2^384 mod p) as it is.
-// K11 and K12 read and write canonical values: fp_load enters Montgomery form
-// (a product by R^2), fp_store leaves it (a product by 1). The torch side
+// K11, K12 and K20 read and write canonical values: fp_load enters Montgomery
+// form (a product by R^2), fp_store leaves it (a product by 1); the
+// cooperative tower's load and store programs take the same products. The torch side
 // uses another layout (15 x 26-bit limbs, R = 2^390); the two meet only in
 // these words (ops/field_limbs.py: from_words / from_card_words).
 //
@@ -282,11 +285,6 @@ __device__ __noinline__ void fp2_sqr(fp2& r, const fp2& a) {
   fp_add(r.c1, b, b);
 }
 
-__device__ __forceinline__ void fp2_mul_fp(fp2& r, const fp2& a, const fp& s) {
-  fp_mul(r.c0, a.c0, s);
-  fp_mul(r.c1, a.c1, s);
-}
-
 // times xi = 1 + u: (c0 - c1, c0 + c1)
 __device__ __forceinline__ void fp2_mul_xi(fp2& r, const fp2& a) {
   fp t0, t1;
@@ -404,19 +402,6 @@ __device__ __forceinline__ const fp& fp12_at(const fp12& a, int k) {
   return reinterpret_cast<const fp*>(&a)[k];
 }
 
-__device__ __forceinline__ void fp12_set_one(fp12& r) {
-  for (int k = 1; k < 12; ++k) fp_zero(fp12_at(r, k));
-  fp_set(fp12_at(r, 0), FP_ONE);
-}
-
-__device__ __forceinline__ bool fp12_is_one(const fp12& a) {
-  fp one;
-  fp_set(one, FP_ONE);
-  bool ok = fp_eq(fp12_at(a, 0), one);
-  for (int k = 1; k < 12; ++k) ok = ok && fp_is_zero(fp12_at(a, k));
-  return ok;
-}
-
 __device__ __forceinline__ void fp12_conj(fp12& r, const fp12& a) {
   r.c0 = a.c0;
   fp6_neg(r.c1, a.c1);
@@ -508,40 +493,6 @@ __device__ __noinline__ void fp12_powx(fp12& r, const fp12& a) {
     if ((kX >> bit) & 1ull) fp12_mul(acc, acc, a);
   }
   fp12_conj(r, acc);
-}
-
-// s * (0, a3, a5) for an Fq6 s = (s0, s1, s2):
-// (xi (s1 a5 + s2 a3), s0 a3 + xi s2 a5, s0 a5 + s1 a3)
-__device__ __forceinline__ void fp6_mul_sparse(fp6& r, const fp6& s, const fp2& a3, const fp2& a5) {
-  fp2 x, y, c0, c1, c2;
-  fp2_mul(x, s.c1, a5);
-  fp2_mul(y, s.c2, a3);
-  fp2_add(x, x, y);
-  fp2_mul_xi(c0, x);
-  fp2_mul(x, s.c0, a3);
-  fp2_mul(y, s.c2, a5);
-  fp2_mul_xi(y, y);
-  fp2_add(c1, x, y);
-  fp2_mul(x, s.c0, a5);
-  fp2_mul(y, s.c1, a3);
-  fp2_add(c2, x, y);
-  r.c0 = c0;
-  r.c1 = c1;
-  r.c2 = c2;
-}
-
-// f * (py + a3 w^3 + a5 w^5): l = (py, 0, 0) + (0, a3, a5) w, so
-// f l = (py f0 + v (f1 L1)) + (f0 L1 + py f1) w
-__device__ __noinline__ void fp12_mul_line(fp12& r, const fp12& f, const fp& py, const fp2& a3,
-                                           const fp2& a5) {
-  fp6 s0, s1, v;
-  fp6_mul_sparse(s0, f.c0, a3, a5);
-  fp6_mul_sparse(s1, f.c1, a3, a5);
-  fp12 scaled;
-  for (int k = 0; k < 12; ++k) fp_mul(fp12_at(scaled, k), fp12_at(f, k), py);
-  fp6_mul_v(v, s1);
-  fp6_add(r.c0, scaled.c0, v);
-  fp6_add(r.c1, scaled.c1, s0);
 }
 
 __device__ __forceinline__ void fp12_load(fp12& r, const uint32_t* w) {

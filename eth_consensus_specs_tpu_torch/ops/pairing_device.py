@@ -14,12 +14,19 @@ split of the pairing:
   negative x, inactive pairs set to 1, and the product of all pairs.
 * **K12** ``final_exp_is_one`` (JAX :259): the membership check
   m^(3 * hard) = 1 with 3H = (x-1)^2 (x+p)(x^2+p^2-1) + 3, after the easy
-  part; the verdict of the whole pairing check.
+  part; the verdict of the whole pairing check. Every squaring after the
+  easy part is a Granger-Scott squaring (``fq12_tower.fq12_cyclotomic_sqr``).
 * **K20** ``final_exponentiation`` (JAX :281): the GT value itself,
   m^H with H = (p^4 - p^2 + 1)/r = ((x-1)^2/3)(x+p)(x^2+p^2-1) + 1, one
   power by the 126-bit (x-1)^2/3, then K12's tail; JAX's naive power by
   the 1,268-bit H gives the same element. ``pairing_device`` (JAX :500)
   is K11 on one pair, then K20.
+
+K11 and K12 run on the cooperative Fq12 tower (``csrc/fp12_coop.cuh``, its
+programs from ``ops/fq12_coop.py``): a group of threads keeps its Fq12
+values in shared memory and runs each tower operation as rounds of
+independent Fq products and sums. ``fq12_coop_check`` is that tower's check
+entry.
 
 Line model (the host oracle's, so Miller values equal
 ``crypto.pairing.miller_loop`` bit for bit): the untwisted line through T
@@ -170,9 +177,10 @@ def miller_product(coeffs: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     """Product over pairs of the conjugated Miller values (inactive pairs
     count as 1) -> int32[2, 3, 2, 12] canonical Fq12.
 
-    CUDA tensors go through kernel K11 (``csrc/miller.cu``: one thread a
-    pair runs all 68 steps, then one block folds the values; two launches);
-    CPU tensors through the plain version."""
+    CUDA tensors go through kernel K11 (``csrc/miller.cu``: a group of
+    threads a pair runs the 68 steps on the cooperative tower, a block's
+    pairs are multiplied in shared memory, then one block folds the blocks'
+    products; two launches); CPU tensors through the plain version."""
     b = _check_miller_args(coeffs, px, py, active)
     if coeffs.device.type == "cpu":
         return miller_product_ref(coeffs, px, py, active)
@@ -219,8 +227,9 @@ def final_exp_is_one(f: torch.Tensor) -> torch.Tensor:
     """True iff final_exponentiation(f) == 1, for a canonical
     int32[2, 3, 2, 12] Fq12; a 0-dim bool tensor on f's device.
 
-    CUDA tensors go through kernel K12 (``csrc/final_exp.cu``, one thread
-    runs the whole chain); CPU tensors through the plain version."""
+    CUDA tensors go through kernel K12 (``csrc/final_exp.cu``: one block
+    runs the chain on the cooperative tower, Granger-Scott squarings after
+    the easy part); CPU tensors through the plain version."""
     if tuple(f.shape) != (2, 3, 2, N_WORDS):
         raise ValueError(f"expected an int32[2, 3, 2, {N_WORDS}] Fq12, got {tuple(f.shape)}")
     if f.device.type == "cpu":
@@ -229,6 +238,57 @@ def final_exp_is_one(f: torch.Tensor) -> torch.Tensor:
     out = torch.empty((), dtype=torch.int32, device=f.device)
     _ext.launch("final_exp", "final_exp_is_one_launch", f.device, _ext.ptr(f), _ext.ptr(out))
     return out != 0
+
+
+# ------------------------------------ the cooperative tower's check entry --
+
+def _check_coop_args(a, b, line) -> int:
+    n = a.shape[0] if a.dim() == 5 else -1
+    if (n < 1 or tuple(a.shape) != (n, 2, 3, 2, N_WORDS) or tuple(b.shape) != tuple(a.shape)
+            or tuple(line.shape) != (n, 5, N_WORDS)):
+        raise ValueError(f"expected a and b [n, 2, 3, 2, {N_WORDS}] and line [n, 5, {N_WORDS}], "
+                         f"got {tuple(a.shape)}, {tuple(b.shape)}, {tuple(line.shape)}")
+    return n
+
+
+def fq12_coop_check_ref(a, b, line, reps: int = 1) -> torch.Tensor:
+    """Plain torch version of ``fq12_coop_check``."""
+    _check_coop_args(a, b, line)
+    x, y, ln = fl.from_words(a), fl.from_words(b), fl.from_words(line)
+    py, a3, a5 = ln[:, 0], ln[:, 1:3], ln[:, 3:5]
+    steps = (lambda v: tw.fq12_mul(v, y), tw.fq12_sqr, tw.fq12_cyclotomic_sqr,
+             lambda v: tw.fq12_mul_line(v, py, a3, a5))
+    outs = []
+    for step in steps:
+        v = x
+        for _ in range(reps):
+            v = step(v)
+        outs.append(fl.to_words(v))
+    return torch.stack(outs, dim=1)
+
+
+def fq12_coop_check(a: torch.Tensor, b: torch.Tensor, line: torch.Tensor, reps: int = 1,
+                    lanes: int = 1) -> torch.Tensor:
+    """The cooperative tower's operations on a batch, for checks and timing:
+    canonical a, b [n, 2, 3, 2, 12] and line [n, 5, 12] (py, a3, a5) ->
+    [n, 4, 2, 3, 2, 12]: a b^reps, a^(2^reps) by complex squarings and by
+    Granger-Scott squarings (the square only for a cyclotomic a), and
+    a l^reps for the sparse line l = py + a3 w^3 + a5 w^5.
+
+    CUDA tensors go through ``csrc/fq12_coop.cu`` (one group of threads an
+    element, ``lanes`` of 1 or 4 an Fq product); CPU tensors through the
+    plain version."""
+    n = _check_coop_args(a, b, line)
+    if reps < 1 or lanes not in (1, 4):
+        raise ValueError(f"reps must be at least 1 and lanes 1 or 4, got {reps}, {lanes}")
+    if a.device.type == "cpu":
+        return fq12_coop_check_ref(a, b, line, reps)
+    for t in (a, b, line):
+        _ext.check_cuda(t, torch.int32)
+    out = torch.empty((n, 4, 2, 3, 2, N_WORDS), dtype=torch.int32, device=a.device)
+    _ext.launch("fq12_coop", "fq12_coop_check_launch", a.device, _ext.ptr(a), _ext.ptr(b),
+                _ext.ptr(line), _ext.ptr(out), n, lanes, reps)
+    return out
 
 
 # ------------------------------------------------ K20: the exact GT value --

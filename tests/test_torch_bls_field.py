@@ -173,8 +173,12 @@ def test_fq2_and_fq6_ops_match_the_host_tower():
 
 
 def test_powx_and_is_one():
+    # fq12_powx squares by Granger-Scott, a square only in the cyclotomic
+    # subgroup (its callers' domain, after the easy part): feed it such an
+    # element, made from a random one by the easy part, and one
     rng = random.Random(10)
-    xs = [_rand12(rng), pf.Fq12.one()]
+    m = tw.fq12_to_host(pd._easy_part(tw.fq12_from_host([_rand12(rng)])))
+    xs = [m[0], pf.Fq12.one()]
     got = tw.fq12_to_host(tw.fq12_powx(tw.fq12_from_host(xs)))
     want = [_to_jax12(x).pow(-jf.BLS_X).conjugate() for x in xs]
     assert [g.ints() for g in got] == [_jax12_ints(w) for w in want]

@@ -412,7 +412,9 @@ def _pairs(n: int, inactive=()):
             for i in range(n)]
 
 
-@pytest.mark.parametrize("n,inactive", [(1, ()), (2, (1,)), (9, (0, 4)), (33, ())])
+# pair counts against K11's group (a pair) and block (two pairs) sizes
+@pytest.mark.parametrize("n,inactive", [(1, ()), (2, (1,)), (9, (0, 4)), (31, (3,)), (32, ()),
+                                        (33, ()), (33, (0, 32)), (129, (5, 64))])
 def test_miller_product_kernel(cuda, n, inactive):
     from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
     from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
@@ -422,9 +424,14 @@ def test_miller_product_kernel(cuda, n, inactive):
     got = pd.miller_product(*args)
     assert _ext.launches["miller"] == 1 and _ext.launches["miller_fold"] == 1
     assert torch.equal(got, pd.miller_product_ref(*args))
-    if n == 1:
-        p, q = _pairs(1)[0]
-        assert pd.fq12_from_words(got) == oracle.miller_loop(p, oracle.untwist(q))
+    for _ in range(20):  # shared memory races would show as other words
+        assert torch.equal(pd.miller_product(*args), got)
+    if n <= 2:
+        want = oracle.Fq12.one()
+        for i, (p, q) in enumerate(_pairs(n)):
+            if i not in inactive:
+                want = want * oracle.miller_loop(p, oracle.untwist(q))
+        assert pd.fq12_from_words(got) == want
 
 
 def test_final_exp_kernel(cuda):
@@ -444,8 +451,39 @@ def test_final_exp_kernel(cuda):
         got = pd.final_exp_is_one(f)
         assert _ext.launches["final_exp"] == 1
         assert bool(got) == (name == "true") == bool(pd.final_exp_is_one_ref(f))
+        assert all(torch.equal(pd.final_exp_is_one(f), got) for _ in range(20))
     one = torch.from_numpy(pd.fq12_to_words(Fq12.one())).to(cuda)
     assert bool(pd.final_exp_is_one(one))
+    zero = torch.zeros_like(one)
+    assert not bool(pd.final_exp_is_one(zero)) and not bool(pd.final_exp_is_one_ref(zero))
+    wide = pd.miller_product(*[torch.from_numpy(a).to(cuda) for a in pd.pack_pairs(_pairs(33))])
+    assert bool(pd.final_exp_is_one(wide)) == bool(pd.final_exp_is_one_ref(wide)) is False
+    with pytest.raises(ValueError):
+        pd.final_exp_is_one(one.to(torch.int64))
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+def test_fq12_coop_check_kernel(cuda, lanes):
+    from eth_consensus_specs_tpu_torch.crypto.fields import P
+    from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    rng = np.random.default_rng(lanes)
+
+    def words(*shape):
+        vals = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(int(np.prod(shape)))]
+        return torch.from_numpy(fl.ints_to_words(vals).reshape(*shape, 12)).to(cuda)
+
+    a, b, line = words(5, 2, 3, 2), words(5, 2, 3, 2), words(5, 5)
+    a = fl.to_words(pd._easy_part(fl.from_words(a)))  # cyclotomic: both squarings agree
+    for reps in (1, 3):
+        _ext.reset_launches()
+        got = pd.fq12_coop_check(a, b, line, reps, lanes)
+        assert _ext.launches["fq12_coop"] == 1
+        want = pd.fq12_coop_check_ref(a, b, line, reps)
+        assert torch.equal(got, want) and torch.equal(got[:, 1], got[:, 2])
+        assert all(torch.equal(pd.fq12_coop_check(a, b, line, reps, lanes), got)
+                   for _ in range(20))
 
 
 def test_verify_many_on_card(cuda):

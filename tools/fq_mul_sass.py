@@ -1,0 +1,95 @@
+"""Count the SASS instructions of one Fq product on 1, 2 and 4 lanes.
+
+Compiles, for ``sm_90a`` at the kernels' optimisation level, small kernels
+that each run K chained Montgomery products ``a = a * b`` through
+``csrc/fp12_coop.cuh``'s ``coop_mul<L>`` (``fp_mul`` of ``bls_fp.cuh`` on
+one lane), disassembles them with ``cuobjdump -sass`` and prints one JSON
+line: per L, the instructions one lane issues for one product, (count at
+K = 3 - count at K = 1) / 2, so that the kernels' loads, stores and set-up
+cancel, and the L lanes' sum. NOPs are not counted. ``chip_smoke.py``'s
+chain bounds of K11 and K12 take these counts (``FQ_MUL_LANE_INSTR``).
+
+Needs the CUDA toolkit (``nvcc``, ``cuobjdump``) and no card:
+
+    python3 tools/fq_mul_sass.py
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from eth_consensus_specs_tpu_torch import _ext  # noqa: E402
+
+LANES = (1, 2, 4)
+CHAINS = (1, 3)
+
+SOURCE = """#include "fp12_coop.cuh"
+template <int L, int K>
+__device__ __forceinline__ void chain(const uint32_t* in, uint32_t* out) {
+  fp a, b;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    a.v[k] = in[k];
+    b.v[k] = in[12 + k];
+  }
+  const int lane = threadIdx.x % L;
+  const unsigned mask = L == 1 ? 1u : ((1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
+#pragma unroll
+  for (int i = 0; i < K; ++i) coop_mul<L>(a, a, b, lane, mask);
+#pragma unroll
+  for (int k = 0; k < 12; ++k) out[threadIdx.x * 12 + k] = a.v[k];
+}
+"""
+KERNEL = ('extern "C" __global__ void chain_l{L}_k{K}(const uint32_t* in, uint32_t* out) '
+          "{{ chain<{L}, {K}>(in, out); }}\n")
+INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);")
+
+
+def count(sass: str) -> dict[str, int]:
+    """Instructions (NOPs aside) of each function in ``cuobjdump -sass`` output."""
+    out: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+            continue
+        m = INSN.search(line)
+        if name and m and m.group(1).split()[0] != "NOP":
+            out[name] += 1
+    return out
+
+
+def main() -> int:
+    inc = _ext.write_generated()
+    work = _ext.BUILD_DIR / "sass"
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "fq_mul_sass.cu"
+    src.write_text(SOURCE + "".join(KERNEL.format(L=L, K=K) for L in LANES for K in CHAINS))
+    cubin = work / "fq_mul_sass.cubin"
+    nvcc = _ext._nvcc()
+    subprocess.run([nvcc, "-O3", "-arch=sm_90a", "-std=c++17", "-cubin", "-I", str(_ext.CSRC),
+                    "-I", str(inc), "-o", str(cubin), str(src)], check=True)
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    n = count(sass)
+    lanes = {}
+    for L in LANES:
+        one, three = n[f"chain_l{L}_k1"], n[f"chain_l{L}_k3"]
+        per_lane = (three - one) / 2
+        lanes[L] = {"per_lane": per_lane, "all_lanes": per_lane * L, "k1": one, "k3": three}
+    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
+    print(json.dumps({"nvcc": version.strip().splitlines()[-1], "lanes": lanes}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
