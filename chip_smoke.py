@@ -141,7 +141,9 @@ K16 (fr_fft at the flush's [64, 4096] inverse, the das cell's [16, 8192]
 both ways and n = 2, 4, 16, on dense rows and corner rows, word for word
 and against the host ``fft_field``) and K17 (g1_msm_many at [2, 129],
 [2, 65], [2, 7], [2, 3], [1, 300] and on scalar and point corners, word for word
-and on affine points against the host ``msm_g1``), and K18 (slot_apply and
+and on affine points against the host ``msm_g1``; every shape but [3, 2],
+whose four half-lanes fill one block, spans several blocks and takes the
+fold), and K18 (slot_apply and
 slot_apply_scatter at 2^20 validators, at the slot cell's lane counts and on
 duplicate, end, already-set, wrapping and empty plans), K19 (block_slot at
 2^20 validators x 128 rows x 512 lanes on the cell's first slot and every
@@ -155,7 +157,7 @@ before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own paths, the state_inc main path
 for K1-K6, both kzg_flush and das_fft for K16, summed over its kernels where
 an entry launches two, as K11's loop and fold, K16's chunk and global
-stage and K18's copy and scatter; ``launches_by_path``: each path's; every kernel must have launched on
+stage, K17's lanes and fold and K18's copy and scatter; ``launches_by_path``: each path's; every kernel must have launched on
 one of its own paths) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
 without the last line; so does a machine without CUDA, or a directory
@@ -1897,12 +1899,16 @@ def check_g2_kernels(dev):
     u = torch.from_numpy(fl.ints_to_words(block + corner_rows)).to(dev)
     jac = hd.h2c_map(u)
     err_map = max_abs_err(jac, hd.h2c_map_ref(u))
+    # K14 also on the point at infinity (Z = 0): the flag, x = y = 0
+    jac = torch.cat([jac, torch.zeros_like(jac[:1])])
     xy, inf = hd.h2c_finish(jac)
     rxy, rinf = hd.h2c_finish_ref(jac)
     err_finish = max(max_abs_err(xy, rxy), max_abs_err(inf, rinf))
     want = [hash_to_g2(m) for m in msgs] + [
         clear_cofactor_g2(map_to_curve_g2(Fq2.from_ints(*a)) + map_to_curve_g2(Fq2.from_ints(*b)))
-        for a, b in corner_rows]
+        for a, b in corner_rows] + [g2_infinity()]
+    if int(inf[-1]) != 1 or bool(xy[-1].any()):
+        raise RuntimeError("h2c_finish of the point at infinity is not flagged with x = y = 0")
     if hd.points_from_words(xy, inf) != want:
         raise RuntimeError("h2c_map/h2c_finish differ from the host hash_to_g2 or map_to_curve_g2")
     # the square root alone: values in Fq (b = 0), zero, a non-square, general squares
@@ -1934,14 +1940,35 @@ def check_g2_kernels(dev):
         second_root_elements=sum(sswu_shape(Fq2.from_ints(*e))[0] for pair in block for e in pair),
     ))
     per_point = h2c_finish_products()
-    b_ms, b_by = fq_bound(BLS_ITEMS * per_point, per_point)
+    # the norms of the cleared points' Z, the GCD's inputs: the plain
+    # formulas give the kernel's Jacobian Z
+    from eth_consensus_specs_tpu_torch.ops import g2_jacobian as gj
+
+    zc = gj.g2_clear_cofactor(tuple(fl.from_card_words(jac_block[:, i]) for i in range(3)))[2]
+    rinv = pow(1 << 384, -1, P)
+    norms = [(a * a + b * b) * rinv % P for a, b in fl.words_to_ints(fl.to_card_words(zc))]
+    fermat_instr = fq_window_inverse_products() * FQ_ROUND_INSTR
+    gcd_instr = gcd_chain_instr(norms)
+    rounds = h2c_finish_rounds()
+    products = BLS_ITEMS * per_point
+    chain_ms = (rounds * FQ_ROUND_INSTR + min(fermat_instr, gcd_instr)) / CLOCK_HZ * 1e3
+    thru_ms = products * FQ_MUL_INSTR / INT_OPS_PER_S * 1e3
     rows.append(dict(
         name="h2c_finish", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/h2c.cu",
         replaces="eth_consensus_specs_tpu/ops/h2c_device.py:333", shape=[BLS_ITEMS, 3, 2, 12],
         max_abs_err=err_finish, ms=cuda_ms(lambda: hd.h2c_finish(jac_block), repeats=5),
+        device_ms=device_ms(lambda: hd.h2c_finish(jac_block),
+                            ("h2c_finish_kernel", "void h2c_finish_kernel")),
         plain_ms=cuda_ms(lambda: hd.h2c_finish_ref(jac_block), 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=BLS_ITEMS * per_point,
-        serial_fq_products=per_point, host_checked=len(want),
+        bound_ms=max(chain_ms, thru_ms), bound_by="operations", library_ms=None,
+        product_rounds=rounds, round_instr=FQ_ROUND_INSTR,
+        inverse_bound_ms={"fermat": fermat_instr / CLOCK_HZ * 1e3,
+                          "gcd": gcd_instr / CLOCK_HZ * 1e3},
+        gcd_steps_max=gcd_instr / GCD_STEP_INSTR, gcd_step_instr=GCD_STEP_INSTR,
+        one_lane_bound_ms=(rounds * FQ_MUL_INSTR + min(fermat_instr * FQ_MUL_INSTR / FQ_ROUND_INSTR,
+                                                       gcd_instr)) / CLOCK_HZ * 1e3,
+        fq_products=products, serial_fq_products=per_point,
+        serial_bound_ms=fq_bound(products, per_point)[0], host_checked=len(want),
     ))
 
     # K15: k * G2 for k = 1 .. 32,768, item i the lanes i L + 1 .. (i + 1) L;
@@ -2127,11 +2154,26 @@ DAS_REPEATS = 5
 # carry additions. Fr additions are not counted, so the bounds below are low.
 FR_MUL_INSTR = 200
 FQ_PER_G1_DBL = 7  # dbl-2009-l: 2 products and 5 squarings
+# product rounds of a curve formula at full formula parallelism, over Fq or
+# Fq2 (csrc/curve_coop.cuh): a doubling {X^2, Y^2, YZ}, {8B^2, 4XB, 9A^2},
+# {3A (3D - F)}; a complete add {Z1^2, Z2^2, Y1 Z2, Y2 Z1}, {U1, U2, S1, S2,
+# (Z1 + Z2)^2}, {I, r^2, Z3, r U1, r H, S1 H}, {H I, U1 I, r U1 I, r H I,
+# r^3, S1 H I}
+CURVE_DBL_ROUNDS = 3
+CURVE_ADD_ROUNDS = 4
+# K17's window table: T2; T3 beside T4; T5..T7 beside T8; T9..T15
+MSM_TABLE_ROUNDS = CURVE_DBL_ROUNDS + 3 * CURVE_ADD_ROUNDS
+# one step of the binary GCD inverse (h2c.cu fp_inv_gcd), counted as
+# FQ_MUL_INSTR is: a halving step's two 12-word halvings (an add with carry
+# and a funnel shift a word), or a subtraction step's 12-word subtraction and
+# 12-word modular subtraction; the compares and tests not counted
+GCD_STEP_INSTR = 48
 # G1's endomorphism phi(x, y) = (beta * x, y) acts as the scalar lambda =
 # z^2 - 1 (128 bits; lambda^2 + lambda + 1 = 0 mod r), so k * P = k1 * P +
 # k2 * phi(P) with k1, k2 = k mod lambda, k // lambda, each 128 bits at most
 # (Gallant, Lambert and Vanstone, CRYPTO 2001)
 GLV_LAMBDA = 0xD201000000010000 ** 2 - 1
+R_SCALAR = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001  # r
 MSM_WINDOW = 4  # the window width of the needed chain: one add a window
 FR_MAX_TOP = 0x73EDA753  # r's top word: words below it are below r
 
@@ -2158,12 +2200,12 @@ def msm_needed_products(scalar_lists: list) -> tuple[int, int]:
     product for beta * x), each half a lane of its own that takes, from its
     top bit, a doubling a bit and one add a window of MSM_WINDOW bits (the
     windows' tables are not counted, so this is low); then a tree over an
-    item's half-lanes."""
+    item's half-lanes: the one-thread chain (serial_bound_ms)."""
     total, serial = 0, 0
     for scalars in scalar_lists:
         chains = []
         for k in map(int, scalars):
-            halves = [h for h in divmod(k, GLV_LAMBDA) if h]
+            halves = [h for h in divmod(k % R_SCALAR, GLV_LAMBDA) if h]
             for h in halves:
                 bits = h.bit_length()
                 chains.append((bits - 1) * FQ_PER_G1_DBL
@@ -2175,21 +2217,67 @@ def msm_needed_products(scalar_lists: list) -> tuple[int, int]:
     return total, serial
 
 
-def msm_design_products(scalar_lists: list, threads: int = 256) -> tuple[int, int]:
-    """(all, the longest dependent chain) of the Fq products K17's design
-    runs: per lane, from its top set bit, a doubling a bit and an add a
-    further set bit; per item the adds that sum its lanes, as K17 sums them
-    (a running sum a thread, then a tree over the threads)."""
-    total, serial = 0, 0
+def msm_needed_rounds(scalar_lists: list) -> int:
+    """The chain of product rounds the MSMs need at full formula parallelism
+    (csrc/curve_coop.cuh: a doubling CURVE_DBL_ROUNDS, an add
+    CURVE_ADD_ROUNDS): per nonzero half scalar of b bits, phi, the window
+    table (MSM_TABLE_ROUNDS), b - 1 doublings and an add a further window;
+    then the tree over an item's nonzero half-lanes; the longest item."""
+    longest = 0
     for scalars in scalar_lists:
-        lanes = len(scalars)
-        chains = [(k.bit_length() - 1) * FQ_PER_G1_DBL + (bin(k).count("1") - 1) * FQ_PER_G1_ADD
-                  if k else 0 for k in map(int, scalars)]
-        t = min(lanes, threads)
-        depth = -(-lanes // t) - 1 + (t - 1).bit_length()
-        total += sum(chains) + (lanes - 1) * FQ_PER_G1_ADD
-        serial = max(serial, max(chains) + depth * FQ_PER_G1_ADD)
-    return total, serial
+        chains = []
+        for k in map(int, scalars):
+            for h in divmod(k % R_SCALAR, GLV_LAMBDA):
+                if h:
+                    bits = h.bit_length()
+                    chains.append(1 + MSM_TABLE_ROUNDS + (bits - 1) * CURVE_DBL_ROUNDS
+                                  + (-(-bits // MSM_WINDOW) - 1) * CURVE_ADD_ROUNDS)
+        if chains:
+            longest = max(longest, max(chains)
+                          + (len(chains) - 1).bit_length() * CURVE_ADD_ROUNDS)
+    return longest
+
+
+def msm_design_rounds(scalar_lists: list, groups: int = 4, fold_groups: int = 16) -> int:
+    """The chain of product rounds K17's design runs on the longest item
+    (csrc/g1_msm.cu): per half-lane phi, the table as built (a doubling, an
+    add, a doubling, an add of 3, a doubling, adds of 4 and of 3 in turn),
+    from the top nonzero window a dbl4 and an add a nonzero digit; the
+    block's tree; the fold's running sums and tree; the canonical form."""
+    longest = 0
+    for scalars in scalar_lists:
+        chains = []
+        for k in map(int, scalars):
+            for h in divmod(k % R_SCALAR, GLV_LAMBDA)[::-1]:
+                digits = [(h >> (MSM_WINDOW * w)) & 15 for w in range(32)]
+                top = max((w for w in range(32) if digits[w]), default=-1)
+                chains.append(0 if top < 0 else 1 + 3 * CURVE_DBL_ROUNDS + 4 * CURVE_ADD_ROUNDS
+                              + 4 * top * CURVE_DBL_ROUNDS
+                              + sum(1 for d in digits[:top] if d) * CURVE_ADD_ROUNDS)
+        bpi = -(-len(chains) // groups)
+        depth = (groups - 1).bit_length() * CURVE_ADD_ROUNDS
+        if bpi > 1:
+            depth += (-(-bpi // fold_groups) - 1 + (fold_groups - 1).bit_length()) * CURVE_ADD_ROUNDS
+        longest = max(longest, max(chains) + depth + 1)
+    return longest
+
+
+def h2c_finish_rounds() -> int:
+    """K14's chain of product rounds at full formula parallelism, the affine
+    inverse aside: two [|x|] ladders (63 doublings, 5 adds each), the four
+    adds after them (psi(a + P) and psi^2(2P) run beside the second
+    ladder), the norm of Z, Z^-1, Z^-2, x and Z^-3, y."""
+    ladder = 63 * CURVE_DBL_ROUNDS + 5 * CURVE_ADD_ROUNDS
+    return 2 * ladder + 4 * CURVE_ADD_ROUNDS + 5
+
+
+def gcd_chain_instr(norms: list[int]) -> float:
+    """Instructions of the longest binary-GCD inverse of ``norms`` (card
+    Montgomery ints): its steps (ops/fq12_coop.py gcd_inverse counts them)
+    at GCD_STEP_INSTR each."""
+    from eth_consensus_specs_tpu_torch.ops.fq12_coop import gcd_inverse
+
+    return max(gcd_inverse(n)[1] for n in norms) * GCD_STEP_INSTR
 
 
 def random_fr_words(gen, shape, dev):
@@ -2210,10 +2298,15 @@ def check_kzg_kernels(dev):
     version on the card and against the host ``fft_field`` on sampled rows;
     K17 at a 64-blob flush's [2, 129] (its items A and B: 64 and 129
     lanes), a 32-blob subset's [2, 65], a 3-blob one's [2, 7], a bisection
-    leaf's [2, 3], [1, 300] (threads summing several lanes) and
-    corner items (scalars 0, 1, r - 1, 2^256 - 1, r, r + 2; an infinity
-    lane; P and -P; one lane), word for word against its plain version and
-    on affine points against the host ``msm_g1``."""
+    leaf's [2, 3], [1, 300] (the fold's groups summing several block
+    partials), [3, 2] (one block an item, no fold) and corner items (scalars 0, 1, r - 1, 2^256 - 1, r, r + 2; an
+    infinity lane; P and -P; P and P, whose halves' tree doubles; one lane),
+    word for word against its plain version and on affine points against
+    the host ``msm_g1``. K17's bound is its chain of product rounds at full
+    formula parallelism, a round at the 4-lane split's FQ_ROUND_INSTR
+    (``round_bound``); beside it the same chain at a one-lane product as
+    ``one_lane_bound_ms`` and the one-thread product chain as
+    ``serial_bound_ms``."""
     import random
 
     import torch
@@ -2282,38 +2375,45 @@ def check_kzg_kernels(dev):
         K, X, Y, Z = (torch.from_numpy(a).to(dev)
                       for a in g1_msm.pack_msm(point_lists, scalar_lists))
         out = g1_msm.msm_many(K, X, Y, Z)
-        errs.append(max_abs_err(out, g1_msm.msm_many_ref(K, X, Y, Z)))
+        ref = g1_msm.msm_many_ref(K, X, Y, Z)
+        errs.append(max_abs_err(out, ref))
         want = [msm_g1(p, s) for p, s in zip(point_lists, scalar_lists)]
         if g1_msm.sums_to_points(out) != want:
             raise RuntimeError(f"g1_msm_many {label} differs from the host msm_g1")
         cases[label] = (K, X, Y, Z, scalar_lists)
 
     for items, lanes, label in ((2, 2 * KZG_BLOBS + 1, "flush"), (2, KZG_BLOBS + 1, "half"),
-                                (2, 7, "three"), (2, 3, "leaf"), (1, 300, "wide")):
+                                (2, 7, "three"), (2, 3, "leaf"), (1, 300, "wide"),
+                                (3, 2, "one_block")):
         point_lists = [keys[i * lanes:(i + 1) * lanes] for i in range(items)]
         if items == 2:  # item A has n of item B's 2n + 1 lanes
             point_lists[0] = point_lists[0][: lanes // 2]
         msm_case(point_lists, [[rnd.randrange(R) for _ in p] for p in point_lists], label)
     p, q, inf = keys[3], keys[4], g1_infinity()
-    msm_case([keys[10:16], [inf, keys[16]], [p, -p], [q, -q], [keys[17]], keys[18:22]],
+    msm_case([keys[10:16], [inf, keys[16]], [p, -p], [q, -q], [keys[17]], keys[18:22], [p, p]],
              [[0, 1, R - 1, (1 << 256) - 1, R, R + 2], [rnd.randrange(R), 5], [7, 7],
-              [rnd.randrange(R), 3], [rnd.randrange(R)], [0, 0, 0, 0]], "corners")
+              [rnd.randrange(R), 3], [rnd.randrange(R)], [0, 0, 0, 0], [9, 9]], "corners")
     K, X, Y, Z, scalar_lists = cases["flush"]
     products, serial = msm_needed_products(scalar_lists)
-    design, design_serial = msm_design_products(scalar_lists)
-    b_ms, b_by = fq_bound(products, serial)
+    rounds = msm_needed_rounds(scalar_lists)
+    b_ms, b_by = round_bound(rounds, products)
+    blocks = {k: -(-2 * c[1].shape[1] // g1_msm.MSM_GROUPS) for k, c in cases.items()}
     rows.append(dict(
         name="g1_msm_many", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/g1_msm.cu",
         replaces="eth_consensus_specs_tpu/ops/g1_msm.py:183", shape=list(X.shape[:2]),
-        max_abs_err=max(errs), ms=cuda_ms(lambda: g1_msm.msm_many(K, X, Y, Z), repeats=5),
+        max_abs_err=max(errs), ms=cuda_ms(lambda: g1_msm.msm_many(K, X, Y, Z), repeats=10),
+        device_ms=device_ms(lambda: g1_msm.msm_many(K, X, Y, Z), ("g1_msm_", "void g1_msm_")),
         plain_ms=cuda_ms(lambda: g1_msm.msm_many_ref(K, X, Y, Z), 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
-        serial_fq_products=serial, design_fq_products=design,
-        design_serial_fq_products=design_serial,
-        design_bound_ms=fq_bound(design, design_serial)[0],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, product_rounds=rounds,
+        round_instr=FQ_ROUND_INSTR,
+        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_INSTR)[0],
+        fq_products=products, serial_fq_products=serial,
+        serial_bound_ms=fq_bound(products, serial)[0],
+        design_product_rounds=msm_design_rounds(scalar_lists),
         ms_by_shape={k: cuda_ms(lambda c=c: g1_msm.msm_many(*c[:4]), repeats=3)
                      for k, c in cases.items() if k != "flush"},
         shapes_checked={k: list(c[1].shape[:2]) for k, c in cases.items()},
+        blocks_per_item=blocks, cross_block=[k for k, b in blocks.items() if b > 1],
     ))
     return rows
 
@@ -3386,7 +3486,7 @@ _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
               "g1_sum_many": "g1_sum", "miller_product": ("miller", "miller_fold"),
               "final_exp_is_one": "final_exp", "h2c_map": "h2c_map",
               "h2c_finish": "h2c_finish", "g2_sum_many": "g2_sum",
-              "fr_fft": ("fr_fft", "fr_fft_stage"), "g1_msm_many": "g1_msm",
+              "fr_fft": ("fr_fft", "fr_fft_stage"), "g1_msm_many": ("g1_msm", "g1_msm_fold"),
               "slot_apply": ("slot_apply", "slot_apply_scatter"), "block_slot": "block_slot",
               "final_exp_gt": "final_exp_gt"}
 # the paths whose counts a kernel's row reports, where it is not state_inc

@@ -6,7 +6,7 @@ libraries are built on first use on a CUDA tensor, all sources at once in
 parallel, into ``_build/`` beside this file (git-ignored), under a name
 that carries a digest of the sources, so an edited kernel is never served
 by a stale library. Headers generated from Python (``GENERATED``: the
-cooperative Fq12 tower's programs) are written into ``_build/include``
+cooperative round engine's programs) are written into ``_build/include``
 before ``nvcc`` runs and count in the digest. A failed build or launch
 raises; nothing falls back to the plain torch versions.
 
@@ -73,7 +73,8 @@ SIGNATURES = {
     "g2_sum": {"g2_sum_many_launch": [_P, _P, _P, _P, _I64, _I64]},
     "fr_fft": {"fr_fft_chunk_launch": [_P, _P, _P, _P, _I64, _I32, _I32, _I32],
                "fr_fft_stage_launch": [_P, _P, _P, _I64, _I32, _I32]},
-    "g1_msm": {"g1_msm_many_launch": [_P, _P, _P, _P, _P, _I64, _I64]},
+    "g1_msm": {"g1_msm_many_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64],
+               "g1_msm_fold_launch": [_P, _P, _I64, _I64]},
     "slot_apply": {"slot_apply_launch": [_P, _P, _P, _P, _P, _P, _I64],
                    "slot_apply_scatter_launch": [_P, _P, _P, _P, _P, _I64, _P, _P, _I64]},
     "block_epoch": {"block_slot_launch": [_P] * 21 + [_I64] * 5 + [_P]},

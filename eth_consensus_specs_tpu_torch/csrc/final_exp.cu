@@ -75,7 +75,7 @@ __device__ __noinline__ void fp12_pow_e(fp12& r, const fp12& a) {
 
 constexpr int kFeLanes = 4;  // lanes an Fq product
 constexpr int kFeThreads = 64 * kFeLanes;
-static_assert(coop_group_fits(kFeThreads, kFeLanes), "a round wider than the group");
+static_assert(coop_group_fits<kFamFq12>(kFeThreads, kFeLanes), "a round wider than the group");
 // S, then the chain's values f, t, m, a, b, c, d, e, g
 constexpr int kFeSlots = kCoopSlots + 9 * 12;
 

@@ -1,15 +1,19 @@
-// The cooperative Fq12 tower: K11 (miller.cu) and K12 (final_exp.cu) run
-// their Fq12 arithmetic on a group of threads whose values live in shared
-// memory, one Fq element a slot of 12 words laid out word-major (word k of
-// slot j at mem[k * stride + j]), so that 32 lanes on 32 neighbouring slots
-// touch 32 banks; element-major rows of 12 words would put them on 8.
+// The cooperative round engine: K11 (miller.cu) and K12 (final_exp.cu) run
+// their Fq12 arithmetic on it, K17 (g1_msm.cu) its G1 formulas and K14
+// (h2c.cu) its G2 formulas (curve_coop.cuh). A group of threads keeps its
+// values in shared memory, one Fq element a slot of 12 words laid out
+// word-major (word k of slot j at mem[k * stride + j]), so that 32 lanes on
+// 32 neighbouring slots touch 32 banks; element-major rows of 12 words would
+// put them on 8.
 //
-// Every tower operation is a program of rounds (ops/fq12_coop.py builds them
-// from the tower's formulas into fp12_coop_ops.cuh, which the build
-// generates), the group's named barrier (bar.sync id, n) between rounds, so
-// that groups of one block never wait on each other. A round holds at most
-// kCoopMaxWidth instructions, and a group runs them all at once:
-// coop_group_fits states the room a kernel's group must have.
+// Every operation is a program of rounds (ops/fq12_coop.py builds them from
+// the formulas into fp12_coop_ops.cuh, which the build generates), in three
+// families (CoopFam<F>: the Fq12 tower, G1 and G2), each with its own
+// constants, table and widest round. The group's barrier separates rounds: a
+// named barrier (bar.sync id, n), so that groups of one block never wait on
+// each other, or __syncwarp for a group of one warp. A round of family F
+// holds at most CoopFam<F>::kMaxWidth instructions, and a group runs them
+// all at once: coop_group_fits<F> states the room a kernel's group must have.
 // * a product round: instruction i is one Montgomery product L * R, L and R
 //   small signed sums of slots (Karatsuba's operand sums with xi and v
 //   folded in), on 1, 2 or 4 lanes (with more than one, half the lanes sum
@@ -44,10 +48,32 @@
 #include "bls_fp.cuh"
 #include "fp12_coop_ops.cuh"
 
-// a group of ``threads`` threads, ``lanes`` a product, runs every round whole:
-// threads / lanes products and threads sums at once
+// a group of ``threads`` threads, ``lanes`` a product, runs every round of
+// family F whole: threads / lanes products and threads sums at once
+template <int F>
 __host__ __device__ constexpr bool coop_group_fits(int threads, int lanes) {
-  return threads / lanes >= kCoopMaxWidth && threads % 32 == 0;
+  return threads / lanes >= CoopFam<F>::kMaxWidth && threads % 32 == 0;
+}
+
+template <int F>
+__device__ __forceinline__ const uint16_t* coop_table_src() {
+  if constexpr (F == kFamFq12) return COOP_TABLE;
+  else if constexpr (F == kFamG1) return COOP_TABLE_G1;
+  else return COOP_TABLE_G2;
+}
+
+template <int F>
+__device__ __forceinline__ uint32_t coop_op(int op, int k) {
+  if constexpr (F == kFamFq12) return COOP_OPS[op][k];
+  else if constexpr (F == kFamG1) return COOP_OPS_G1[op][k];
+  else return COOP_OPS_G2[op][k];
+}
+
+template <int F>
+__device__ __forceinline__ uint32_t coop_const_word(int i) {
+  if constexpr (F == kFamFq12) return COOP_CONST_WORDS[i];
+  else if constexpr (F == kFamG1) return COOP_CONST_WORDS_G1[i];
+  else return COOP_CONST_WORDS_G2[i];
 }
 
 struct Coop {
@@ -57,15 +83,17 @@ struct Coop {
   int tid;              // thread in the group
   int bar;              // the group's named barrier (1..15)
   int nthreads;         // threads in the group, a multiple of 32
-  const uint16_t* tab;  // COOP_TABLE, staged in shared memory
+  const uint16_t* tab;  // the family's program table, staged in shared memory
 };
 
-// the block's copy of the programs' table (kCoopTableWords u32 words of
-// shared memory at ``tab``): every thread of the block calls it, then the
-// block's barrier
+// the block's copy of family F's program table (CoopFam<F>::kTableWords u32
+// words of shared memory at ``tab``): every thread of the block calls it,
+// then the block's barrier
+template <int F = kFamFq12>
 __device__ __forceinline__ void coop_stage_table(uint32_t* tab) {
   uint16_t* t = reinterpret_cast<uint16_t*>(tab);
-  for (int i = threadIdx.x; i < 2 * kCoopTableWords; i += blockDim.x) t[i] = COOP_TABLE[i];
+  const uint16_t* src = coop_table_src<F>();
+  for (int i = threadIdx.x; i < 2 * CoopFam<F>::kTableWords; i += blockDim.x) t[i] = src[i];
   __syncthreads();
 }
 
@@ -74,7 +102,11 @@ struct CoopBases {
 };
 
 __device__ __forceinline__ void coop_sync(const Coop g) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g.bar), "r"(g.nthreads) : "memory");
+  if (g.nthreads == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(g.bar), "r"(g.nthreads) : "memory");
+  }
 }
 
 __device__ __forceinline__ int coop_slot(uint32_t term, const CoopBases& b) {
@@ -247,9 +279,9 @@ __device__ __forceinline__ void coop_write_lanes(const Coop g, int slot, const f
 
 // dest = x^(p-2), x = the table's x^1, by 4-bit windows from the top: the
 // top window is bit 380 alone (x itself), then 95 windows of 4 bits
-template <int L>
+template <int L, int F>
 __device__ void coop_inverse(const Coop g, int dest, const CoopBases& b, int lane, unsigned mask) {
-  const int tab = b.s + kCoopTable;
+  const int tab = b.s + CoopFam<F>::kTable;
   fp acc, t;
   coop_read(acc, g, tab);
   for (int i = 94; i >= 0; --i) {
@@ -264,12 +296,12 @@ __device__ void coop_inverse(const Coop g, int dest, const CoopBases& b, int lan
   coop_write_lanes<L>(g, dest, acc, lane);
 }
 
-// Run op ``op`` (fp12_coop_ops.cuh) on the group; every thread of the group
-// calls it, and it ends on the group's barrier.
-template <int L>
+// Run op ``op`` of family F (fp12_coop_ops.cuh) on the group; every thread
+// of the group calls it, and it ends on the group's barrier.
+template <int L, int F = kFamFq12>
 __device__ __noinline__ void coop_run(const Coop g, int op, int x, int y, int z, int o) {
   const CoopBases b{x, y, z, o, g.s};
-  const int r0 = COOP_OPS[op][0], nr = COOP_OPS[op][1];
+  const int r0 = coop_op<F>(op, 0), nr = coop_op<F>(op, 1);
   const int lane = g.tid % L;
   const unsigned mask = L == 1 ? 1u : ((1u << L) - 1u) << ((g.tid & 31) & ~(L - 1));
   for (int r = r0; r < r0 + nr; ++r) {
@@ -278,7 +310,7 @@ __device__ __noinline__ void coop_run(const Coop g, int op, int x, int y, int z,
     if (kind == 1) {
       const int i = g.tid / L;
       if (i < count) {
-        const uint16_t* code = g.tab + kCoopCodeAt + g.tab[kCoopInsnAt + first + i];
+        const uint16_t* code = g.tab + g.tab[first + i];
         const int nl = code[1], nrt = code[2];
         fp a, c, p;
         if constexpr (L == 1) {
@@ -299,23 +331,25 @@ __device__ __noinline__ void coop_run(const Coop g, int op, int x, int y, int z,
       }
     } else if (kind == 0) {
       if (g.tid < count) {
-        const uint16_t* code = g.tab + kCoopCodeAt + g.tab[kCoopInsnAt + first + g.tid];
+        const uint16_t* code = g.tab + g.tab[first + g.tid];
         fp a;
         coop_sum(a, g, code + 3, code[1], b);
         coop_write(g, coop_slot(code[0], b), a);
       }
     } else if (g.tid < L) {
-      const uint16_t* code = g.tab + kCoopCodeAt + g.tab[kCoopInsnAt + first];
-      coop_inverse<L>(g, coop_slot(code[0], b), b, lane, mask);
+      const uint16_t* code = g.tab + g.tab[first];
+      coop_inverse<L, F>(g, coop_slot(code[0], b), b, lane, mask);
     }
     coop_sync(g);
   }
 }
 
-// the group's constants into S[0..kCoopConsts), then the barrier
+// the group's constants of family F into S[0..CoopFam<F>::kConsts), then the
+// barrier
+template <int F = kFamFq12>
 __device__ __forceinline__ void coop_init(const Coop g) {
-  for (int i = g.tid; i < kCoopConsts * 12; i += g.nthreads)
-    g.mem[(i % 12) * g.stride + g.s + i / 12] = COOP_CONST_WORDS[i];
+  for (int i = g.tid; i < CoopFam<F>::kConsts * 12; i += g.nthreads)
+    g.mem[(i % 12) * g.stride + g.s + i / 12] = coop_const_word<F>(i);
   coop_sync(g);
 }
 

@@ -13,7 +13,7 @@ template <int L>
 __global__ __launch_bounds__(64 * L * kCheckGroups) void fq12_coop_check_kernel(
     const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
     const uint32_t* __restrict__ line, uint32_t* __restrict__ out, int64_t n, int reps) {
-  static_assert(coop_group_fits(64 * L, L), "a round wider than the group");
+  static_assert(coop_group_fits<kFamFq12>(64 * L, L), "a round wider than the group");
   constexpr int kStride = kCheckGroupSlots * kCheckGroups;
   __shared__ uint32_t mem[12 * kStride];
   __shared__ uint32_t tab[kCoopTableWords];

@@ -30,9 +30,20 @@
 //   it) and the root of a value in Fq (b = 0: a^((p+1)/4) if it squares
 //   to a, else the root of -a, which is -a^((p+1)/4) since (-1)^((p+1)/4)
 //   = -1, times u). The test entry fq2_sqrt_launch reaches the latter.
-// - K14 runs one point a thread: two [|x|] ladders (126 doublings, 10
-//   adds), the psi terms, and one Fq2 inversion; Z = 0 (an isogeny pole or a
-//   cleared cofactor) gives the infinity flag and x = y = 0.
+// - K14 runs one point a warp, on the cooperative round engine's G2 family
+//   (curve_coop.cuh), kFinishGroups points a block: the cofactor clearing of
+//   g2_jac.cuh g2_clear_cofactor in its order (two [|x|] ladders, each runs
+//   of doublings as dbl4/dbl1 programs and 5 complete adds; the psi terms;
+//   the adds), each doubling three product rounds and each add four, the
+//   Fq2 products of a formula side by side in a round; the doublings (7
+//   products a round) on four lanes a product, the rest a product a thread.
+//   Then the affine point by one Fq inverse of the norm of Z, a binary
+//   extended GCD on one thread between the affine step's two programs (the
+//   hashed message's point is public: a variable-time inverse is allowed;
+//   on the card it beat the engine's 4-bit-window Fermat chain, PERF.md).
+//   Z = 0 (an isogeny pole or a cleared cofactor) gives the infinity flag
+//   and x = y = 0. The output is canonical affine, so its words are the
+//   plain version's whatever the road.
 //
 // Boundary (u32 words, 12 per Fq element): K13 reads u canonical,
 // [B, 2, 2, 12], and writes the Jacobian sums [B, 3, 2, 12] in bls_fp.cuh's
@@ -40,6 +51,7 @@
 // [B, 2, 2, 12] and int32 flags [B]. The constants below are in the
 // Montgomery form (the exponents plain); a CPU test recomputes each.
 #include "g2_jac.cuh"
+#include "curve_coop.cuh"
 
 // SSWU: A', B', Z, -B'/A', B'/(Z A') (Fq2, Montgomery)
 __constant__ uint32_t SSWU_C[5][2][12] = {
@@ -133,7 +145,20 @@ __constant__ uint32_t SQRT_EXP[2][12] = {
      0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au}};
 
 constexpr int kMapThreads = 32;    // 16 messages a block
-constexpr int kFinishThreads = 32;
+constexpr int kFinishGroups = 4;   // points a block, a warp each
+constexpr int kFinishLanes = 4;    // lanes a product of the doublings
+constexpr int kG2Pt = CurveFam<kFamG2>::kPoint;
+// a point's group: S, P, a, b, t, the sum, a negated point, one add's work,
+// the affine words
+constexpr int kFinishSlots = CoopFam<kFamG2>::kSlots + 6 * kG2Pt + kG2AddWork + 4;
+constexpr int kFinishStride = kFinishSlots * kFinishGroups;
+static_assert(coop_op_fits(kProducts_g2_dbl4, kSums_g2_dbl4, 32, kFinishLanes) &&
+              coop_op_fits(kProducts_g2_dbl1, kSums_g2_dbl1, 32, kFinishLanes) &&
+              coop_op_fits(kProducts_g2_affine_a, kSums_g2_affine_a, 32, 1) &&
+              coop_op_fits(kProducts_g2_affine_b, kSums_g2_affine_b, 32, 1) &&
+              coop_op_fits(kProducts_g2_add_b1, kSums_g2_add_b1, 32, 1) &&
+              coop_op_fits(kProducts_g2_add_a1, kSums_g2_add_a1, 32, 1),
+              "a G2 op wider than a warp at its lanes");
 
 // a^e for e = SQRT_EXP[which]: (p+1)/4 (which 0) or (p-3)/4 (1), 379 bits
 __device__ __noinline__ void fp_pow_sqrt(fp& r, const fp& a, int which) {
@@ -312,21 +337,165 @@ __global__ __launch_bounds__(kMapThreads) void h2c_map_kernel(
   }
 }
 
-__global__ __launch_bounds__(kFinishThreads) void h2c_finish_kernel(
+// 12-word helpers of the binary GCD (plain integers, not field elements)
+__device__ __forceinline__ bool gcd_lt(const uint32_t* a, const uint32_t* b) {
+  for (int k = 11; k >= 0; --k)
+    if (a[k] != b[k]) return a[k] < b[k];
+  return false;
+}
+
+__device__ __forceinline__ void gcd_sub(uint32_t* a, const uint32_t* b) {  // a -= b, a >= b
+  int64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    c += static_cast<int64_t>(a[k]) - b[k];
+    a[k] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+}
+
+__device__ __forceinline__ void gcd_half(uint32_t* a, bool add_p) {  // (a + add_p p) / 2, a < p
+  uint64_t c = 0;
+  uint32_t t[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    c += static_cast<uint64_t>(a[k]) + (add_p ? FP_P[k] : 0u);
+    t[k] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+#pragma unroll
+  for (int k = 0; k < 11; ++k) a[k] = (t[k] >> 1) | (t[k + 1] << 31);
+  a[11] = t[11] >> 1;  // a + p < 2^382: no carry out of word 11
+}
+
+__device__ __forceinline__ void gcd_sub_mod(uint32_t* a, const uint32_t* b) {  // a = a - b mod p
+  if (gcd_lt(a, b)) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      c += static_cast<uint64_t>(a[k]) + FP_P[k];
+      a[k] = static_cast<uint32_t>(c);
+      c >>= 32;
+    }
+  }
+  gcd_sub(a, b);
+}
+
+__device__ __forceinline__ bool gcd_is_one(const uint32_t* a) {
+  uint32_t rest = a[0] ^ 1u;
+#pragma unroll
+  for (int k = 1; k < 12; ++k) rest |= a[k];
+  return rest == 0;
+}
+
+// r = a^-1 mod p (plain integers) for any a below 2^384, 0 for a = 0 mod p,
+// by the binary extended GCD: u = x1 a and v = x2 a (mod p) throughout.
+// Variable time: for public values only. ops/fq12_coop.py gcd_inverse runs
+// the same steps.
+__device__ __noinline__ void fp_inv_gcd(uint32_t* r, const uint32_t* a) {
+  uint32_t u[12], v[12], x1[12], x2[12], p[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    u[k] = a[k];
+    v[k] = p[k] = FP_P[k];
+    x1[k] = x2[k] = 0;
+  }
+  x1[0] = 1;
+  while (!gcd_lt(u, p)) gcd_sub(u, p);
+  uint32_t nz = 0;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) nz |= u[k];
+  if (nz == 0) {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) r[k] = 0;
+    return;
+  }
+  while (!gcd_is_one(u) && !gcd_is_one(v)) {
+    while (!(u[0] & 1u)) {
+      gcd_half(u, false);
+      gcd_half(x1, x1[0] & 1u);
+    }
+    while (!(v[0] & 1u)) {
+      gcd_half(v, false);
+      gcd_half(x2, x2[0] & 1u);
+    }
+    if (!gcd_lt(u, v)) {
+      gcd_sub(u, v);
+      gcd_sub_mod(x1, x2);
+    } else {
+      gcd_sub(v, u);
+      gcd_sub_mod(x2, x1);
+    }
+  }
+  const uint32_t* out = gcd_is_one(u) ? x1 : x2;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r[k] = out[k];
+}
+
+// dest = x^-1 in Montgomery form for x at ``src`` (x R -> x^-1 R), on the
+// calling thread alone: the GCD inverse of the words x R (a lazy value under
+// 3p), then a product by R^3 (the family's r3 constant)
+__device__ void cc_inverse_gcd(const Coop g, int dest, int src) {
+  fp x, inv, r3;
+  coop_read(x, g, src);
+  fp_inv_gcd(inv.v, x.v);
+  coop_read(r3, g, g.s + kC_G2_r3);
+  fp_mul(inv, inv, r3);
+  coop_write(g, dest, inv);
+}
+
+// dst = [|x|] src (g2_jac.cuh g2_mul_z): a run of doublings, then an add of
+// src, for each set bit below the top one
+__device__ void cc_g2_mul_z(const Coop g, int dst, int src, int w) {
+  cc_copy(g, dst, src, kG2Pt);
+  int run = 0;
+  for (int bit = 62; bit >= 0; --bit) {
+    ++run;
+    if ((kBlsXAbs >> bit) & 1ull) {
+      cc_dbl<kFamG2, kFinishLanes>(g, dst, run);
+      run = 0;
+      cc_add<kFamG2>(g, 1, dst, src, w, dst);
+    }
+  }
+  cc_dbl<kFamG2, kFinishLanes>(g, dst, run);
+}
+
+__global__ __launch_bounds__(kFinishGroups * 32) void h2c_finish_kernel(
     const uint32_t* __restrict__ jac, uint32_t* __restrict__ xy, int32_t* __restrict__ inf,
     int64_t n) {
-  const int64_t m = int64_t(blockIdx.x) * kFinishThreads + threadIdx.x;
-  if (m >= n) return;
-  const uint32_t* w = jac + m * 72;
-  g2j p;
-  fp2_read(p.X, w);
-  fp2_read(p.Y, w + 24);
-  fp2_read(p.Z, w + 48);
-  g2_clear_cofactor(p, p);
-  fp2 x, y;
-  inf[m] = g2_to_affine(x, y, p) ? 1 : 0;
-  fp2_store(xy + m * 48, x);
-  fp2_store(xy + m * 48 + 24, y);
+  __shared__ uint32_t mem[12 * kFinishStride];
+  __shared__ uint32_t tab[CoopFam<kFamG2>::kTableWords];
+  coop_stage_table<kFamG2>(tab);
+  const int grp = threadIdx.x / 32;
+  const int64_t m = int64_t(blockIdx.x) * kFinishGroups + grp;
+  if (m >= n) return;  // a whole warp leaves; the others sync on their own
+  const Coop g{mem, kFinishStride, grp * kFinishSlots, static_cast<int>(threadIdx.x % 32), 1 + grp,
+               32, reinterpret_cast<const uint16_t*>(tab)};
+  const int Pp = g.s + CoopFam<kFamG2>::kSlots, A = Pp + kG2Pt, B = A + kG2Pt, T = B + kG2Pt,
+            C = T + kG2Pt, N = C + kG2Pt, W = N + kG2Pt, OUT = W + kG2AddWork;
+  coop_init<kFamG2>(g);
+  cc_load(g, Pp, jac + m * 72, kG2Pt);
+  // [h_eff]P = [z^2]P + [z]P - P - psi([z+1]P) + psi^2(2P), z = |x|
+  cc_g2_mul_z(g, A, Pp, W);
+  cc_g2_mul_z(g, B, A, W);
+  cc_add<kFamG2>(g, 1, A, Pp, W, T);
+  coop_run<1, kFamG2>(g, kOp_g2_psi, T, 0, 0, T);
+  cc_add<kFamG2>(g, 1, B, A, W, C);
+  coop_run<1, kFamG2>(g, kOp_g2_neg, Pp, 0, 0, N);
+  cc_add<kFamG2>(g, 1, C, N, W, C);
+  coop_run<1, kFamG2>(g, kOp_g2_neg, T, 0, 0, N);
+  cc_add<kFamG2>(g, 1, C, N, W, C);
+  coop_run<kFinishLanes, kFamG2>(g, kOp_g2_dbl1, Pp, 0, 0, T);
+  coop_run<1, kFamG2>(g, kOp_g2_psi, T, 0, 0, T);
+  coop_run<1, kFamG2>(g, kOp_g2_psi, T, 0, 0, T);
+  cc_add<kFamG2>(g, 1, C, T, W, C);
+  coop_run<1, kFamG2>(g, kOp_g2_affine_a, C, 0, W, OUT);
+  if (g.tid == 0) cc_inverse_gcd(g, W + kG2AffineInv, W + kG2AffineNorm);
+  coop_sync(g);
+  coop_run<1, kFamG2>(g, kOp_g2_affine_b, C, 0, W, OUT);
+  const bool at_infinity = cc_zero<kFamG2>(g, W);  // the norm's two products z0^2, z1^2
+  cc_store(g, xy + m * 48, OUT, 4);
+  if (g.tid == 0) inf[m] = at_infinity ? 1 : 0;
 }
 
 __global__ void fq2_sqrt_kernel(const uint32_t* __restrict__ v, uint32_t* __restrict__ root,
@@ -350,12 +519,12 @@ extern "C" int h2c_map_launch(const void* u, void* out, int64_t n, cudaStream_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-// jac: u32[n, 3, 2, 12] Montgomery; xy: u32[n, 2, 2, 12] canonical; inf: int32[n].
+// jac: u32[n, 3, 2, 12] Montgomery; xy: u32[n, 2, 2, 12] canonical; inf: int32[n]
 extern "C" int h2c_finish_launch(const void* jac, void* xy, void* inf, int64_t n,
                                  cudaStream_t stream) {
   if (n < 1 || n > (int64_t(1) << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((n + kFinishThreads - 1) / kFinishThreads);
-  h2c_finish_kernel<<<blocks, kFinishThreads, 0, stream>>>(
+  const unsigned blocks = static_cast<unsigned>((n + kFinishGroups - 1) / kFinishGroups);
+  h2c_finish_kernel<<<blocks, kFinishGroups * 32, 0, stream>>>(
       static_cast<const uint32_t*>(jac), static_cast<uint32_t*>(xy), static_cast<int32_t*>(inf),
       n);
   return static_cast<int>(cudaGetLastError());

@@ -37,7 +37,7 @@ constexpr int kSteps = 68;  // 63 doublings and 5 additions: ops/pairing_device.
 constexpr int kMlLanes = 1;  // lanes an Fq product
 constexpr int kMlThreads = 64 * kMlLanes;  // a group: one pair
 constexpr int kMlGroups = 2;  // pairs a block: 129 pairs over 65 SMs
-static_assert(coop_group_fits(kMlThreads, kMlLanes), "a round wider than the group");
+static_assert(coop_group_fits<kFamFq12>(kMlThreads, kMlLanes), "a round wider than the group");
 // a group's slots: S, f, the coefficients (68 steps x a3, lam xi^-1), py, px
 constexpr int kMlGroupSlots = kCoopSlots + 12 + kSteps * 4 + 2;
 constexpr int kMlStride = kMlGroupSlots * kMlGroups;

@@ -1,8 +1,10 @@
-"""The programs of the cooperative Fq12 tower (``csrc/fp12_coop.cuh``).
+"""The programs of the cooperative round engine (``csrc/fp12_coop.cuh``):
+the Fq12 tower of K11 and K12, and the G1 and G2 curve formulas of K17 and
+K14 (``csrc/curve_coop.cuh``).
 
-K11 and K12 run their Fq12 arithmetic on a group of threads that keeps its
+A kernel runs its field arithmetic on a group of threads that keeps its
 values in shared memory, one Fq element a *slot* (12 words, word-major:
-word k of slot j at ``k * stride + j``). Every tower operation is a short
+word k of slot j at ``k * stride + j``). Every operation is a short
 program of *rounds* separated by the group's barrier:
 
 * a product round: each instruction is one Montgomery product L * R, where
@@ -13,46 +15,94 @@ program of *rounds* separated by the group's barrier:
 * an inverse round: one Fq inverse, a 4-bit-window Fermat chain over a
   table of the 15 small powers that the rounds before it fill.
 
-This module builds those programs once, from the tower's formulas (the host
-oracle's, ``crypto/fields.py``: Fq2 = Fq[u]/(u^2+1), Fq6 = Fq2[v]/(v^3 -
-xi), Fq12 = Fq6[w]/(w^2 - v), xi = 1 + u, an Fq12 at [half][v][u]), allots
-the scratch slots by liveness, checks that no round reads a slot another
-thread of the same round writes and that no round is wider than a group
-runs, and renders the tables as the header ``fp12_coop_ops.cuh``, which
-``_ext`` writes into its build directory before ``nvcc`` runs: this module
-is the one copy of the programs. ``simulate`` runs a program on host ints
-exactly as the card does, which is how the CPU tests hold the tables to the
-plain tower without a card.
+Programs come in *families*, each with its own constants, slot layout,
+widest round and rendered table: ``FQ12`` (the tower: Fq2 = Fq[u]/(u^2+1),
+Fq6 = Fq2[v]/(v^3 - xi), Fq12 = Fq6[w]/(w^2 - v), xi = 1 + u, an Fq12 at
+[half][v][u]), ``G1`` (Jacobian points over Fq, 3 slots: X, Y, Z) and
+``G2`` (Jacobian points over Fq2, 6 slots: X, Y, Z as c0, c1). This module
+builds the programs once from the formulas (the host oracle's for the
+tower, ``crypto/fields.py``; the plain versions' for the curves,
+``ops/g1_msm.py`` and ``ops/g2_jacobian.py``), allots the scratch slots by
+liveness, checks that no round reads a slot another thread of the same
+round writes and that no round is wider than its family's groups run, and
+renders the tables as the header ``fp12_coop_ops.cuh``, which ``_ext``
+writes into its build directory before ``nvcc`` runs: this module is the
+one copy of the programs. ``simulate`` runs a program on host ints exactly
+as the card does, ``simulate_add`` the complete add as the kernels drive
+it (its cases decided between two programs) and ``simulate_g2_affine`` K14's
+affine step (its inverse taken between two programs), which is how the CPU
+tests hold the tables to the plain versions without a card.
 
-Slots are named by region and index: X, Y, Z are an operation's inputs, O
-its output (which may be X itself: in place), S the group's own area:
-constants, the inverse's power table, then scratch.
+Slots are named by region and index: X, Y, Z are an operation's inputs (Z
+also the curve adds' work area), O its output (which may be X itself: in
+place), S the group's own area: constants, the inverse's power table (where
+the family has an inverse), then scratch.
 """
 
 from __future__ import annotations
 
-from ..crypto.fields import FROB2_GAMMA, FROB_GAMMA, P
+from ..crypto.curve import PSI_X, PSI_Y
+from ..crypto.fields import FROB2_GAMMA, FROB_GAMMA, P, R
 
 R_CARD = 1 << 384  # the card's Montgomery radix (csrc/bls_fp.cuh)
 X, Y, Z, O, S = range(5)
 ADD, PRODUCT, INVERSE = range(3)
-MAX_COEF = 7  # a term's coefficient is a 4-bit signed field
+MAX_COEF = 7  # a term's coefficient is a 4-bit signed field; larger ones take several terms
 MAX_WEIGHT = 63  # sum of |coef| of one sum: its value stays under 64 p
 MAX_SLOT = 511
-# instructions a round: every kernel's group runs this many products at once
-# (threads / lanes) and as many sums (threads); the header states it, and
-# each kernel asserts that its group has the room
-MAX_WIDTH = 64
-
-# S: constants, then the inverse's table x^1..x^15, then scratch
-CONSTS = ([("mont_one", R_CARD % P), ("raw_one", 1), ("r2", R_CARD * R_CARD % P),
+# G1's endomorphism phi(x, y) = (beta x, y) acts on the r-torsion as [lambda],
+# lambda = z^2 - 1 for the BLS parameter z (lambda^2 + lambda + 1 = 0 mod r);
+# beta is the cube root of unity in Fq that matches lambda, not lambda^2
+GLV_LAMBDA = 0xD201000000010000 ** 2 - 1
+GLV_BETA = pow(pow(2, (P - 1) // 3, P), 2, P)
+# Z slots of K14's affine step: the norm of Z, which g2_affine_a writes, and
+# its inverse, which the kernel writes before g2_affine_b reads it
+AFFINE_NORM, AFFINE_INV = 2, 3
+_COMMON = [("mont_one", R_CARD % P), ("raw_one", 1), ("r2", R_CARD * R_CARD % P),
            ("r3", R_CARD ** 3 % P)]
-          + [(f"frob1_{i}_{u}", (g.c0.n, g.c1.n)[u] * R_CARD % P)
-             for i, g in enumerate(FROB_GAMMA) for u in range(2)]
-          + [(f"frob2_{i}", g.c0.n * R_CARD % P) for i, g in enumerate(FROB2_GAMMA)])
-CONST_SLOT = {name: i for i, (name, _) in enumerate(CONSTS)}
-TABLE_BASE = len(CONSTS)
-SCRATCH_BASE = TABLE_BASE + 15
+
+
+class Family:
+    """A family of programs: its S constants (common ones first), whether
+    S holds the inverse's table, the widest round its groups run, and the
+    programs, filled once at import."""
+
+    def __init__(self, name: str, consts: list, max_width: int, inverse_table: bool):
+        self.name = name
+        self.consts = _COMMON + consts
+        self.const_slot = {n: i for i, (n, _) in enumerate(self.consts)}
+        self.table_base = len(self.consts)
+        self.scratch_base = self.table_base + (15 if inverse_table else 0)
+        self.max_width = max_width
+        self.programs: dict = {}
+
+    @property
+    def slots(self) -> int:
+        """S slots a group needs."""
+        return self.scratch_base + max(p.scratch for p in self.programs.values())
+
+
+# instructions a round: a family's groups run this many products at once
+# (threads / lanes) and as many sums (threads); the header states each, and
+# each kernel asserts that its group has the room. The tower's groups are 64
+# threads (K11: a product a thread) or 256 (K12: four lanes); a curve group
+# is one warp, a product a thread.
+FQ12 = Family("fq12", [(f"frob1_{i}_{u}", (g.c0.n, g.c1.n)[u] * R_CARD % P)
+                       for i, g in enumerate(FROB_GAMMA) for u in range(2)]
+              + [(f"frob2_{i}", g.c0.n * R_CARD % P) for i, g in enumerate(FROB2_GAMMA)],
+              max_width=64, inverse_table=True)
+G1 = Family("g1", [("beta", GLV_BETA * R_CARD % P)], max_width=32, inverse_table=False)
+G2 = Family("g2", [("psi_x0", PSI_X[0] * R_CARD % P), ("psi_x1", PSI_X[1] * R_CARD % P),
+                   ("psi_y0", PSI_Y[0] * R_CARD % P), ("psi_y1", PSI_Y[1] * R_CARD % P)],
+            max_width=32, inverse_table=False)
+FAMILIES = (FQ12, G1, G2)
+
+# the tower's names, as K11 and K12 and their tests use them
+MAX_WIDTH = FQ12.max_width
+CONSTS = FQ12.consts
+CONST_SLOT = FQ12.const_slot
+TABLE_BASE = FQ12.table_base
+SCRATCH_BASE = FQ12.scratch_base
 
 
 def const(name: str):
@@ -146,8 +196,9 @@ def flat12(a) -> list:
 class Program:
     """Rounds of one operation, built on forms; ``finish`` allots slots."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, family: Family = FQ12):
         self.name = name
+        self.family = family
         self.rounds: list = []  # (kind, [(dest, [forms])])
         self._n = 0
         self._open = None
@@ -176,20 +227,25 @@ class Program:
         self.rounds.append((ADD, [(r, [f]) for r, f in zip(refs, forms)]))
         return [F(r) for r in refs]
 
+    def const(self, name: str) -> dict:
+        """The form of one of the family's S constants."""
+        return F((S, self.family.const_slot[name]))
+
     def inverse(self, dest=None) -> dict:
-        """x^-1 of the table's x (S[TABLE_BASE]), after ``table`` filled it."""
+        """x^-1 of the table's x (S[table base]), after ``table`` filled it."""
         ref = dest or self._value()
-        self.rounds.append((INVERSE, [(ref, [F((S, TABLE_BASE))])]))
+        self.rounds.append((INVERSE, [(ref, [F((S, self.family.table_base))])]))
         return F(ref)
 
     def table(self, x: dict) -> None:
-        """S[TABLE_BASE + i - 1] = x^i for i = 1..15 (x^1 first, an add
+        """S[table base + i - 1] = x^i for i = 1..15 (x^1 first, an add
         round; then x^2; x^3, x^4; x^5..x^8; x^9..x^15)."""
-        t = [None] + self.adds([x], [(S, TABLE_BASE)])
+        base = self.family.table_base
+        t = [None] + self.adds([x], [(S, base)])
         for lo, hi in ((2, 2), (3, 4), (5, 8), (9, 15)):
             self.products()
             for i in range(lo, hi + 1):
-                t.append(self.mul(t[lo - 1], t[i - lo + 1], (S, TABLE_BASE + i - 1)))
+                t.append(self.mul(t[lo - 1], t[i - lo + 1], (S, base + i - 1)))
             self.close()
 
     # -- Fq2 / Fq6 / Fq12 products; each returns forms over this round's products
@@ -239,8 +295,8 @@ class Program:
                     s[1] = last[ref]
                     break
             else:
-                where[ref] = (S, SCRATCH_BASE + len(slots))
-                slots.append([SCRATCH_BASE + len(slots), last[ref]])
+                where[ref] = (S, self.family.scratch_base + len(slots))
+                slots.append([self.family.scratch_base + len(slots), last[ref]])
 
         def place(ref):
             return where.get(ref, ref)
@@ -254,10 +310,12 @@ class Program:
     def check(self) -> None:
         """No round writes a slot twice, or one another instruction of the
         round reads (O counted as X, for in-place use), or holds more than
-        MAX_WIDTH instructions; sums within the interpreter's limits."""
+        its family's widest round; sums within the interpreter's limits (a
+        coefficient above MAX_COEF is rendered as several terms)."""
+        width = self.family.max_width
         for r, (kind, insns) in enumerate(self.rounds):
-            assert len(insns) <= MAX_WIDTH, (
-                f"{self.name} round {r}: {len(insns)} instructions, a group runs {MAX_WIDTH}")
+            assert len(insns) <= width, (
+                f"{self.name} round {r}: {len(insns)} instructions, a group runs {width}")
             alias = [(X if d[0] == O else d[0], d[1]) for d, _ in insns]
             assert len(set(alias)) == len(alias), f"{self.name} round {r}: a slot written twice"
             for i, (d, forms) in enumerate(insns):
@@ -267,7 +325,7 @@ class Program:
                     assert f, f"{self.name} round {r}: an empty sum"
                     assert sum(abs(c) for c in f.values()) <= MAX_WEIGHT
                     for ref, c in f.items():
-                        assert abs(c) <= MAX_COEF and ref[1] <= MAX_SLOT
+                        assert ref[1] <= MAX_SLOT
                         rr = (X if ref[0] == O else ref[0], ref[1])
                         for j, w in enumerate(alias):
                             assert j == i or w != rr, (
@@ -526,6 +584,285 @@ def build_inverse() -> Program:
     return pg.finish()
 
 
+# ------------------------------------------------------------ curve points --
+# A G1 point is 3 slots (X, Y, Z over Fq), a G2 point 6 (X, Y, Z over Fq2,
+# each c0 then c1), Jacobian, Z = 0 infinity. The formulas are the plain
+# versions' (``ops/g1_msm.py`` _dbl and _add, ``ops/g2_jacobian.py``): the
+# same field values come out, so the canonical words do too.
+
+
+class _Field:
+    """Forms of a curve's coordinate field: Fq (``n`` = 1 slot an element)
+    or Fq2 (2 slots: c0, c1; Karatsuba products)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def elem(self, region: int, i: int):
+        if self.n == 1:
+            return F((region, i))
+        return (F((region, 2 * i)), F((region, 2 * i + 1)))
+
+    def lc(self, *pairs):
+        """sum of coef * element over (coef, element) pairs."""
+        if self.n == 1:
+            return lin(*pairs)
+        return tuple(lin(*[(c, e[k]) for c, e in pairs]) for k in range(2))
+
+    def parts(self, e) -> list:
+        return [e] if self.n == 1 else list(e)
+
+    def conj(self, e):
+        return (e[0], lin((-1, e[1])))
+
+    def mul(self, pg: Program, a, b, dest):
+        """a * b in the open product round; ``dest()`` gives each product's
+        slot (None: a scratch value)."""
+        if self.n == 1:
+            return pg.mul(a, b, dest())
+        p0 = pg.mul(a[0], b[0], dest())
+        p1 = pg.mul(a[1], b[1], dest())
+        p2 = pg.mul(add(a[0], a[1]), add(b[0], b[1]), dest())
+        return (sub(p0, p1), lin((1, p2), (-1, p0), (-1, p1)))
+
+    def sqr(self, pg: Program, a, b, dest):
+        """a * b for b a scalar multiple of a (a squaring, scaled): over Fq2
+        two products, (a0 + a1)(b0 - b1) and 2 a0 b1."""
+        if self.n == 1:
+            return pg.mul(a, b, dest())
+        p = pg.mul(add(a[0], a[1]), sub(b[0], b[1]), dest())
+        q = pg.mul(a[0], b[1], dest())
+        return (p, lin((2, q)))
+
+
+FQ1, FQ2 = _Field(1), _Field(2)
+FIELD = {"g1": FQ1, "g2": FQ2}
+
+
+def _scratch():
+    return None
+
+
+class _Work:
+    """Consecutive slots of the Z region from ``base``: a curve add's work
+    values, which its second program and the case tests read."""
+
+    def __init__(self, base: int):
+        self.next = base
+
+    def __call__(self):
+        self.next += 1
+        return (Z, self.next - 1)
+
+
+def _point(f: _Field, region: int, first: int = 0) -> tuple:
+    return tuple(f.elem(region, first + i) for i in range(3))
+
+
+def _flat(f: _Field, pt) -> list:
+    return [c for e in pt for c in f.parts(e)]
+
+
+def _dbl_forms(pg: Program, f: _Field, pt) -> tuple:
+    """dbl-2009-l (a = 0) on the forms of a point, three product rounds:
+    {A = X^2, B = Y^2, Z3 = 2YZ}, {8C = 2B 4B, D = 2X 2B, F = 3A 3A},
+    {3A (3D - F)}; then X3 = F - 2D, Y3 = 3A (3D - F) - 8C (the plain
+    version's D = 2((X + B)^2 - A - C) is 4XB, its E is 3A)."""
+    x, y, z = pt
+    pg.products()
+    a = f.sqr(pg, x, x, _scratch)
+    b = f.sqr(pg, y, y, _scratch)
+    z3 = f.mul(pg, f.lc((2, y)), z, _scratch)
+    pg.close()
+    pg.products()
+    c8 = f.sqr(pg, f.lc((2, b)), f.lc((4, b)), _scratch)
+    d = f.mul(pg, f.lc((2, x)), f.lc((2, b)), _scratch)
+    ff = f.sqr(pg, f.lc((3, a)), f.lc((3, a)), _scratch)
+    pg.close()
+    pg.products()
+    p3 = f.mul(pg, f.lc((3, a)), f.lc((3, d), (-1, ff)), _scratch)
+    pg.close()
+    return f.lc((1, ff), (-2, d)), f.lc((1, p3), (-1, c8)), z3
+
+
+def build_dbl(fam: Family, count: int) -> Program:
+    """O = [2^count] X: ``count`` doublings chained on forms, one add round."""
+    f = FIELD[fam.name]
+    pg = Program(f"{fam.name}_dbl{count}", fam)
+    pt = _point(f, X)
+    for _ in range(count):
+        pt = _dbl_forms(pg, f, pt)
+    pg.adds(_flat(f, pt), dests=[(O, k) for k in range(3 * f.n)])
+    return pg.finish()
+
+
+# where an add's case tests read, in its work slots: the first product of
+# Z1^2 (infinite first operand), of Z2^2 (infinite second), of (2H)^2 (equal
+# x) and of (2(S2 - S1))^2 (equal y), each f.n products that are all zero
+# exactly when the value is
+ADD_FLAGS = ("inf1", "inf2", "same_x", "same_y")
+ADD_GEOMETRY: dict = {}  # family name -> {"work": slots an add, flag: first slot}
+
+
+def build_add(fam: Family, n: int) -> tuple[Program, Program]:
+    """n complete adds X + Y_j -> O_j (add-2007-bl), X one point that all
+    share, Y_j and O_j consecutive points, the work of add j at Z[j W]:
+    ``add_a`` runs {Z1^2, Z2^2, Y1 Z2, Y2 Z1}, {U1, U2, S1, S2, (Z1 + Z2)^2},
+    {I = (2H)^2, r^2, Z3, r U1, r H, S1 H} (r = 2(S2 - S1)) into the work
+    slots; the kernel then reads the case tests; ``add_b`` runs {J = H I,
+    V = U1 I, (r U1) I, (r H) I, r^2 r, (S1 H) I} and writes X3 = r^2 - J -
+    2V, Y3 = 3 r V + r J - r^3 - 2 S1 J (the plain r (V - X3) - 2 S1 J) and
+    Z3. Four product rounds where the plain formula's chain is five."""
+    f = FIELD[fam.name]
+    pa = Program(f"{fam.name}_add_a{n}", fam)
+    pb = Program(f"{fam.name}_add_b{n}", fam)
+    work = ADD_GEOMETRY.setdefault(fam.name, {}).get("work")
+    x1, y1, z1 = _point(f, X)
+    vals, flags = [], []
+    w = [_Work(j * (work or 0)) for j in range(n)]
+    pa.products()
+    for j in range(n):
+        x2, y2, z2 = _point(f, Y, 3 * j)
+        fl_j = {"inf1": w[j].next}
+        z1z1 = f.sqr(pa, z1, z1, w[j])
+        fl_j["inf2"] = w[j].next
+        z2z2 = f.sqr(pa, z2, z2, w[j])
+        yz1 = f.mul(pa, y1, z2, _scratch)
+        yz2 = f.mul(pa, y2, z1, _scratch)
+        vals.append(dict(x2=x2, z1z1=z1z1, z2z2=z2z2, yz1=yz1, yz2=yz2, z2=z2))
+        flags.append(fl_j)
+    pa.close()
+    pa.products()
+    for j, v in enumerate(vals):
+        v["u1"] = f.mul(pa, x1, v["z2z2"], w[j])
+        v["u2"] = f.mul(pa, v["x2"], v["z1z1"], w[j])
+        v["s1"] = f.mul(pa, v["yz1"], v["z2z2"], w[j])
+        v["s2"] = f.mul(pa, v["yz2"], v["z1z1"], w[j])
+        v["zz"] = f.sqr(pa, f.lc((1, z1), (1, v["z2"])), f.lc((1, z1), (1, v["z2"])), _scratch)
+    pa.close()
+    pa.products()
+    for j, v in enumerate(vals):
+        h = f.lc((1, v["u2"]), (-1, v["u1"]))
+        r = f.lc((2, v["s2"]), (-2, v["s1"]))
+        v["h"], v["r"] = h, r
+        flags[j]["same_x"] = w[j].next
+        v["i"] = f.sqr(pa, f.lc((2, h)), f.lc((2, h)), w[j])
+        flags[j]["same_y"] = w[j].next
+        v["rr"] = f.sqr(pa, r, r, w[j])
+        v["z3"] = f.mul(pa, f.lc((1, v["zz"]), (-1, v["z1z1"]), (-1, v["z2z2"])), h, w[j])
+        v["ru1"] = f.mul(pa, r, v["u1"], w[j])
+        v["rh"] = f.mul(pa, r, h, w[j])
+        v["s1h"] = f.mul(pa, v["s1"], h, w[j])
+    pa.close()
+    pb.products()
+    for v in vals:
+        i = v["i"]
+        v["J"] = f.mul(pb, v["h"], i, _scratch)
+        v["V"] = f.mul(pb, v["u1"], i, _scratch)
+        v["a"] = f.mul(pb, v["ru1"], i, _scratch)
+        v["b"] = f.mul(pb, v["rh"], i, _scratch)
+        v["c"] = f.mul(pb, v["rr"], v["r"], _scratch)
+        v["d"] = f.mul(pb, v["s1h"], i, _scratch)
+    pb.close()
+    forms = []
+    for v in vals:
+        x3 = f.lc((1, v["rr"]), (-1, v["J"]), (-2, v["V"]))
+        y3 = f.lc((3, v["a"]), (1, v["b"]), (-1, v["c"]), (-2, v["d"]))
+        forms += _flat(f, (x3, y3, v["z3"]))
+    pb.adds(forms, dests=[(O, k) for k in range(3 * f.n * n)])
+    if work is None:  # the first build fixes the geometry; later ones must agree
+        ADD_GEOMETRY[fam.name] = {"work": w[0].next, **flags[0]}
+    geo = ADD_GEOMETRY[fam.name]
+    assert all(w[j].next - j * geo["work"] == geo["work"] for j in range(n))
+    assert all(fl_j[k] - j * geo["work"] == geo[k] for j, fl_j in enumerate(flags) for k in fl_j)
+    return pa.finish(), pb.finish()
+
+
+def build_g1_phi() -> Program:
+    """G1's endomorphism in place: X = beta X (Y and Z stay)."""
+    pg = Program("g1_phi", G1)
+    pg.products()
+    pg.mul(F((X, 0)), pg.const("beta"), dest=(O, 0))
+    pg.close()
+    return pg.finish()
+
+
+def build_curve_scale(fam: Family, name: str, const_name: str, slots: int) -> Program:
+    """O = X times a constant, slot by slot (``canon``: a lazy value's
+    canonical Montgomery words)."""
+    pg = Program(f"{fam.name}_{name}", fam)
+    pg.products()
+    for k in range(slots):
+        pg.mul(F((X, k)), pg.const(const_name), dest=(O, k))
+    pg.close()
+    return pg.finish()
+
+
+def build_g2_psi() -> Program:
+    """psi on Jacobian coordinates: each conjugated, X and Y times the psi
+    constants (``g2_jacobian.g2_psi``)."""
+    f, pg = FQ2, Program("g2_psi", G2)
+    x, y, z = _point(f, X)
+    pg.products()
+    px = f.mul(pg, f.conj(x), (pg.const("psi_x0"), pg.const("psi_x1")), _scratch)
+    py = f.mul(pg, f.conj(y), (pg.const("psi_y0"), pg.const("psi_y1")), _scratch)
+    pg.close()
+    pg.adds(_flat(f, (px, py, f.conj(z))), dests=[(O, k) for k in range(6)])
+    return pg.finish()
+
+
+def build_g2_neg() -> Program:
+    pg = Program("g2_neg", G2)
+    pg.adds([F((X, k)) if k not in (2, 3) else lin((-1, F((X, k)))) for k in range(6)],
+            dests=[(O, k) for k in range(6)])
+    return pg.finish()
+
+
+def build_g2_affine() -> tuple[Program, Program]:
+    """The affine point of X in plain canonical words, O = (x.c0, x.c1, y.c0,
+    y.c1) (``g2_jacobian.g2_to_affine``), as two programs around one Fq
+    inverse that the kernel takes between them on one thread (the binary
+    GCD: the point is public). ``g2_affine_a``: the norm's two products into
+    Z[0] and Z[1] (both zero exactly when the point is infinite), their sum
+    into Z[AFFINE_NORM]. ``g2_affine_b``, with N^-1 at Z[AFFINE_INV]: Z^-1 =
+    (z0, -z1) / N, then x = X Z^-2 and y = Y Z^-3, each left Montgomery form
+    by a product with 1. Z = 0 gives x = y = 0."""
+    f, pa = FQ2, Program("g2_affine_a", G2)
+    z = _point(f, X)[2]
+    pa.products()
+    n0 = pa.mul(z[0], z[0], dest=(Z, 0))
+    n1 = pa.mul(z[1], z[1], dest=(Z, 1))
+    pa.close()
+    pa.adds([add(n0, n1)], dests=[(Z, AFFINE_NORM)])
+    pg = Program("g2_affine_b", G2)
+    x, y, z = _point(f, X)
+    ninv = F((Z, AFFINE_INV))
+    pg.products()
+    zi = (pg.mul(z[0], ninv), pg.mul(lin((-1, z[1])), ninv))
+    pg.close()
+    pg.products()
+    zi2 = f.sqr(pg, zi, zi, _scratch)
+    pg.close()
+    pg.products()
+    zi3 = f.mul(pg, zi2, zi, _scratch)
+    ax = f.mul(pg, x, zi2, _scratch)
+    pg.close()
+    pg.products()
+    ay = f.mul(pg, y, zi3, _scratch)
+    for k, c in enumerate(f.parts(ax)):
+        pg.mul(c, pg.const("raw_one"), dest=(O, k))
+    pg.close()
+    pg.products()
+    for k, c in enumerate(f.parts(ay)):
+        pg.mul(c, pg.const("raw_one"), dest=(O, 2 + k))
+    pg.close()
+    return pa.finish(), pg.finish()
+
+
+G1_ADDS = (1, 3, 4)  # the widths of G1's add programs: the ladder's and the table's
+G2_ADDS = (1,)
+
+
 def build_all() -> dict:
     progs = [build_scale("load", "r2"), build_scale("store", "raw_one"),
              build_scale("canon", "mont_one"), build_mul(),
@@ -533,12 +870,19 @@ def build_all() -> dict:
              build_line(True), build_sqr_line(False), build_sqr_line(True), build_prep(),
              build_frobenius(), build_frobenius2(),
              build_conj(), build_inverse()]
+    g1 = [build_dbl(G1, 1), build_dbl(G1, 4), *[p for n in G1_ADDS for p in build_add(G1, n)],
+          build_g1_phi(), build_curve_scale(G1, "canon", "mont_one", 3)]
+    g2 = [build_dbl(G2, 1), build_dbl(G2, 4), *[p for n in G2_ADDS for p in build_add(G2, n)],
+          build_g2_psi(), build_g2_neg(), *build_g2_affine()]
+    for fam, ps in ((FQ12, progs), (G1, g1), (G2, g2)):
+        fam.programs.update({p.name: p for p in ps})
     return {p.name: p for p in progs}
 
 
 PROGRAMS = build_all()
 SCRATCH = max(p.scratch for p in PROGRAMS.values())
 SLOTS = SCRATCH_BASE + SCRATCH  # S slots a group needs
+assert SLOTS == FQ12.slots
 
 
 # ----------------------------------------------------------------- simulate --
@@ -546,6 +890,35 @@ SLOTS = SCRATCH_BASE + SCRATCH  # S slots a group needs
 
 def mont(a: int, b: int) -> int:
     return a * b * pow(R_CARD, -1, P) % P
+
+
+def gcd_inverse(x: int) -> tuple[int, int]:
+    """The binary extended GCD inverse of ``x`` (any value below 2^384) mod
+    p, as K14's ``fp_inv_gcd`` (``csrc/h2c.cu``) runs it: (x^-1 mod p, 0
+    for 0; the steps it took, a halving or a subtraction each)."""
+    u = x
+    while u >= P:
+        u -= P
+    if u == 0:
+        return 0, 0
+    v, x1, x2, steps = P, 1, 0, 0
+    while u != 1 and v != 1:
+        while not u & 1:
+            u >>= 1
+            x1 = x1 >> 1 if not x1 & 1 else (x1 + P) >> 1
+            steps += 1
+        while not v & 1:
+            v >>= 1
+            x2 = x2 >> 1 if not x2 & 1 else (x2 + P) >> 1
+            steps += 1
+        if u >= v:
+            u -= v
+            x1 = x1 - x2 if x1 >= x2 else x1 + P - x2
+        else:
+            v -= u
+            x2 = x2 - x1 if x2 >= x1 else x2 + P - x1
+        steps += 1
+    return (x1 if u == 1 else x2), steps
 
 
 def simulate(prog: Program, mem: dict, bases: dict) -> None:
@@ -565,16 +938,73 @@ def simulate(prog: Program, mem: dict, bases: dict) -> None:
             elif kind == ADD:
                 out.append((dest, val(forms[0])))
             else:
-                x = mem[bases[S] + TABLE_BASE]
+                x = mem[bases[S] + prog.family.table_base]
                 out.append((dest, R_CARD * R_CARD * pow(x, -1, P) % P if x else 0))
         for (r, i), v in out:
             mem[bases[r] + i] = v
 
 
-def stats() -> dict:
+def add_cases(fam: Family, n: int, mem: dict, work: int) -> list:
+    """The case of each of ``n`` adds whose ``add_a`` ran with its work at
+    ``work``, as the kernels decide it: "copy_y" (the first operand is
+    infinite: the second is the sum), "copy_x" (the second is), "dbl" (P +
+    P) or None (the generic formula; P + (-P) gives its Z3 = 0). G1 tests
+    the first operand first, G2 the second (the plain versions' order)."""
+    f, geo = FIELD[fam.name], ADD_GEOMETRY[fam.name]
+    out = []
+    for j in range(n):
+        base = work + j * geo["work"]
+        zero = {k: all(mem[base + geo[k] + i] == 0 for i in range(f.n)) for k in ADD_FLAGS}
+        order = (("inf1", "copy_y"), ("inf2", "copy_x"))
+        case = None
+        for k, c in (order if fam is G1 else order[::-1]):
+            if zero[k]:
+                case = c
+                break
+        if case is None and zero["same_x"] and zero["same_y"]:
+            case = "dbl"
+        out.append(case)
+    return out
+
+
+def simulate_add(fam: Family, n: int, mem: dict, bases: dict) -> list:
+    """n complete adds as the kernels run them (``csrc/curve_coop.cuh``
+    cc_add): ``add_a``, the case tests, ``add_b`` unless a case holds in
+    place (O = X), then each case's fix: a copy or ``dbl1`` of X."""
+    simulate(fam.programs[f"{fam.name}_add_a{n}"], mem, bases)
+    cases = add_cases(fam, n, mem, bases[Z])
+    in_place = bases[O] == bases[X]
+    assert n == 1 or not in_place
+    if not (in_place and any(cases)):
+        simulate(fam.programs[f"{fam.name}_add_b{n}"], mem, bases)
+    pt = 3 * FIELD[fam.name].n
+    for j, case in enumerate(cases):
+        o = bases[O] + j * pt
+        if case == "copy_y":
+            for k in range(pt):
+                mem[o + k] = mem[bases[Y] + j * pt + k]
+        elif case == "copy_x":
+            for k in range(pt):
+                mem[o + k] = mem[bases[X] + k]
+        elif case == "dbl":
+            simulate(fam.programs[f"{fam.name}_dbl1"], mem, {**bases, O: o})
+    return cases
+
+
+def simulate_g2_affine(mem: dict, bases: dict) -> None:
+    """K14's affine step as the kernel runs it (``csrc/h2c.cu``):
+    ``g2_affine_a``; on one thread the norm's inverse, the binary GCD of its
+    Montgomery words times R^3 (x R -> x^-1 R); ``g2_affine_b``."""
+    simulate(G2.programs["g2_affine_a"], mem, bases)
+    norm = mem[bases[Z] + AFFINE_NORM]
+    mem[bases[Z] + AFFINE_INV] = mont(gcd_inverse(norm)[0], R_CARD ** 3 % P)
+    simulate(G2.programs["g2_affine_b"], mem, bases)
+
+
+def stats(family: Family = FQ12) -> dict:
     """Per program: rounds by kind, products, the widest sum."""
     out = {}
-    for name, p in PROGRAMS.items():
+    for name, p in family.programs.items():
         kinds = [k for k, _ in p.rounds]
         out[name] = dict(
             rounds=len(kinds), product_rounds=kinds.count(PRODUCT), add_rounds=kinds.count(ADD),
@@ -588,74 +1018,128 @@ def stats() -> dict:
 # ------------------------------------------------------------------- header --
 
 
-def _term(ref, coef: int = 0) -> int:
-    region, idx = ref
-    return idx | (region << 9) | ((coef & 0xF) << 12)
+def _terms(f: dict) -> list:
+    """A sum's terms: slot | region << 9 | coefficient (4-bit signed) << 12,
+    a coefficient above MAX_COEF split over several terms of its slot."""
+    out = []
+    for (region, idx), c in sorted(f.items()):
+        while c:
+            step = max(-MAX_COEF, min(MAX_COEF, c))
+            out.append(idx | (region << 9) | ((step & 0xF) << 12))
+            c -= step
+    return out
+
+
+FAMILY_ID = {"fq12": 0, "g1": 1, "g2": 2}
+_SUFFIX = {"fq12": "", "g1": "_G1", "g2": "_G2"}
+
+
+def _rows(vals, per, fmt):
+    return ",\n".join("    " + ", ".join(fmt(v) for v in vals[i:i + per])
+                      for i in range(0, len(vals), per))
+
+
+def _family_text(fam: Family) -> list:
+    """One family's lines: its geometry, op enum, op table, program table
+    and constants. The program table is u16: the rounds (two u16 each:
+    first | count << 16 | kind << 24, first the index of the round's first
+    instruction offset), the instruction offsets (each the index of its
+    code), the code (dest, terms of L, terms of R, the terms); every index
+    counts u16 from the table's start."""
+    progs = list(fam.programs.values())
+    n_rounds = sum(len(p.rounds) for p in progs)
+    n_insns = sum(len(i) for p in progs for _, i in p.rounds)
+    rounds, insn_off, code, ops = [], [], [], []
+    code_at = 2 * n_rounds + n_insns
+    for p in progs:
+        ops.append((p.name, len(rounds), len(p.rounds)))
+        for kind, insns in p.rounds:
+            rounds.append((2 * n_rounds + len(insn_off)) | (len(insns) << 16) | (kind << 24))
+            for dest, forms in insns:
+                insn_off.append(code_at + len(code))
+                terms = [_terms(f) for f in forms]
+                assert len(terms[0]) < 256 and (len(terms) < 2 or len(terms[1]) < 256)
+                code += [_terms({dest: 1})[0] & 0xFFF, len(terms[0]),
+                         len(terms[1]) if len(terms) > 1 else 0]
+                code += [t for ts in terms for t in ts]
+    round_words = [h for r in rounds for h in (r & 0xFFFF, r >> 16)]
+    table = round_words + insn_off + code
+    assert len(table) < 1 << 16 and 2 * n_rounds + n_insns == len(round_words) + len(insn_off)
+    table += [0] * (len(table) % 2)
+    sfx, fid = _SUFFIX[fam.name], FAMILY_ID[fam.name]
+    const_words = [(v >> (32 * k)) & 0xFFFFFFFF for _, v in fam.consts for k in range(12)]
+    enum = "CoopOp" if fam is FQ12 else f"Coop{fam.name.upper()}Op"
+    lines = [
+        f"// family {fam.name}: {len(progs)} programs, {n_rounds} rounds",
+        f"template <> struct CoopFam<{fid}> {{",
+        f"  static constexpr int kConsts = {len(fam.consts)};",
+        f"  static constexpr int kTable = {fam.table_base};  // S slots of x^1..x^15",
+        f"  static constexpr int kSlots = {fam.slots};  // S slots a group needs",
+        f"  static constexpr int kMaxWidth = {fam.max_width};  // instructions a round, at most",
+        f"  static constexpr int kTableWords = {len(table) // 2};  // u32 words of its table",
+        "};",
+        f"enum {enum} : int {{",
+        *[f"  kOp_{name} = {i}," for i, (name, _, _) in enumerate(ops)],
+        "};",
+        *[f"constexpr int kC{sfx}_{name} = {i};" for name, i in fam.const_slot.items()],
+        f"__constant__ uint16_t COOP_OPS{sfx}[][2] = {{",
+        _rows([f"{{{a}, {b}}}" for _, a, b in ops], 6, str),
+        "};",
+        f"__device__ const uint16_t COOP_TABLE{sfx}[] = {{",
+        _rows(table, 10, lambda v: f"0x{v:04x}"),
+        "};",
+        f"__constant__ uint32_t COOP_CONST_WORDS{sfx}[{len(fam.consts)} * 12] = {{",
+        _rows(const_words, 6, lambda v: f"0x{v:08x}u"),
+        "};",
+    ]
+    if fam.name in ADD_GEOMETRY:
+        geo = ADD_GEOMETRY[fam.name]
+        up = fam.name.upper()
+        # each program's widest product round and widest add round: a kernel
+        # that runs an op on L lanes a product asserts L * products <= its threads
+        lines += [f"constexpr int kProducts_{p.name} = "
+                  f"{max([len(i) for k, i in p.rounds if k == PRODUCT], default=0)}, "
+                  f"kSums_{p.name} = {max([len(i) for k, i in p.rounds if k == ADD], default=0)};"
+                  for p in progs]
+        lines += [f"constexpr int k{up}Elem = {FIELD[fam.name].n};  // slots an element",
+                  f"constexpr int k{up}AddWork = {geo['work']};  // work slots an add"]
+        lines += [f"constexpr int k{up}Flag_{k} = {geo[k]};" for k in ADD_FLAGS]
+    if fam is G2:
+        assert AFFINE_INV < ADD_GEOMETRY["g2"]["work"]  # K14 runs the affine step on an add's work
+        lines += [f"constexpr int kG2AffineNorm = {AFFINE_NORM}, kG2AffineInv = {AFFINE_INV};"
+                  "  // Z slots of the affine step's inverse"]
+    return lines + [""]
 
 
 def header_text() -> str:
-    code, insn_off, rounds, ops = [], [], [], []
-    for name, p in PROGRAMS.items():
-        ops.append((name, len(rounds), len(p.rounds)))
-        for kind, insns in p.rounds:
-            rounds.append(len(insn_off) | (len(insns) << 16) | (kind << 24))
-            for dest, forms in insns:
-                insn_off.append(len(code))
-                terms = [[_term(ref, c) for ref, c in sorted(f.items())] for f in forms]
-                code += [_term(dest), len(terms[0]), len(terms[1]) if len(terms) > 1 else 0]
-                code += [t for ts in terms for t in ts]
-    assert len(code) < 1 << 16 and len(insn_off) < 1 << 16
-
-    def rows(vals, per, fmt):
-        return ",\n".join("    " + ", ".join(fmt(v) for v in vals[i:i + per])
-                          for i in range(0, len(vals), per))
-
-    const_words = [(v >> (32 * k)) & 0xFFFFFFFF for _, v in CONSTS for k in range(12)]
-    # one table of u16: the rounds (two u16 each), the instruction offsets,
-    # the code; the kernels copy it into shared memory
-    round_words = [h for r in rounds for h in (r & 0xFFFF, r >> 16)]
-    table = round_words + insn_off + code
-    table += [0] * (len(table) % 2)
-    insn_at, code_at = len(round_words), len(round_words) + len(insn_off)
     lines = [
         "// Generated by eth_consensus_specs_tpu_torch/ops/fq12_coop.py at build time.",
-        "// The programs of the cooperative Fq12 tower (fp12_coop.cuh): see that",
-        "// module for their rounds, and tests/test_torch_fq12_coop.py for the checks.",
+        "// The programs of the cooperative round engine (fp12_coop.cuh): see that",
+        "// module for their rounds, and tests/test_torch_fq12_coop.py and",
+        "// tests/test_torch_curve_coop.py for the checks.",
         "#pragma once",
         "#include <cstdint>",
         "",
+        "constexpr int kFamFq12 = 0, kFamG1 = 1, kFamG2 = 2;",
+        "template <int F> struct CoopFam;",
+        f"constexpr uint64_t kCoopTopInv = 0x{(1 << 64) // ((P >> 352) + 1):x}ull;"
+        "  // floor(2^64 / (p's top word + 1))",
+        "// K17's scalar split: lambda (128 bits) and r, little-endian words",
+        "__constant__ uint32_t GLV_LAMBDA_WORDS[4] = {"
+        + ", ".join(f"0x{(GLV_LAMBDA >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(4)) + "};",
+        "__constant__ uint32_t FR_R_WORDS[8] = {"
+        + ", ".join(f"0x{(R >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(8)) + "};",
+        "",
+    ]
+    for fam in FAMILIES:
+        lines += _family_text(fam)
+    lines += [
+        "// the tower's names, as K11 and K12 use them",
         f"constexpr int kCoopConsts = {len(CONSTS)};",
         f"constexpr int kCoopTable = {TABLE_BASE};  // S slots of x^1..x^15",
         f"constexpr int kCoopSlots = {SLOTS};  // S slots a group needs",
         f"constexpr int kCoopMaxWidth = {MAX_WIDTH};  // instructions a round, at most",
-        f"constexpr uint64_t kCoopTopInv = 0x{(1 << 64) // ((P >> 352) + 1):x}ull;"
-        "  // floor(2^64 / (p's top word + 1))",
-        f"constexpr int kCoopInsnAt = {insn_at};  // COOP_TABLE: rounds at 0, then",
-        f"constexpr int kCoopCodeAt = {code_at};  // instruction offsets, then code",
-        f"constexpr int kCoopTableWords = {len(table) // 2};  // u32 words of COOP_TABLE",
-        "",
-        "enum CoopOp : int {",
-        *[f"  kOp_{name} = {i}," for i, (name, _, _) in enumerate(ops)],
-        "};",
-        "",
-        "enum CoopSlot : int {",
-        *[f"  kC_{name} = {i}," for name, i in CONST_SLOT.items()],
-        "};",
-        "",
-        "// [first round, rounds] of each op",
-        "__constant__ uint16_t COOP_OPS[][2] = {",
-        rows([f"{{{a}, {b}}}" for _, a, b in ops], 6, str),
-        "};",
-        "// a round: first instruction | count << 16 | kind << 24 (0 add, 1 product,",
-        "// 2 inverse), as two u16; an instruction: dest, terms of L, terms of R, the",
-        "// terms; a term: slot | region << 9 | coefficient (4-bit signed) << 12",
-        "__device__ const uint16_t COOP_TABLE[] = {",
-        rows(table, 10, lambda v: f"0x{v:04x}"),
-        "};",
-        "// the S constants' words, in order (Montgomery form but raw_one, r2, r3)",
-        "__constant__ uint32_t COOP_CONST_WORDS[kCoopConsts * 12] = {",
-        rows(const_words, 6, lambda v: f"0x{v:08x}u"),
-        "};",
+        "constexpr int kCoopTableWords = CoopFam<kFamFq12>::kTableWords;",
         "",
     ]
     return "\n".join(lines)

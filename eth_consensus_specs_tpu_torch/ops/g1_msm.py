@@ -12,13 +12,19 @@ coordinates, not only the same point.
 ``msm_many`` replaces ``msm_many_kernel`` (:183): per lane the 256-step
 MSB-first double-and-add of ``_scalar_mul_lane`` (:119), then a sum over
 the item's lanes (``_msm_lanes`` :175; ``msm_kernel`` :153 is one item).
-K17 sums the lanes another way than JAX's tree (csrc/g1_msm.cu: a running
-sum a thread, then a tree over the threads) and launches at the exact lane
-count, so its Jacobian words differ from the JAX program's while the point
-is the same: parity with the JAX package holds on affine encodings, and the
-plain version ``msm_many_ref`` runs the kernel's own steps, word for word.
-Scalars cross as ``int32[..., 8]`` little-endian u32 words (32 bytes a
-lane, where JAX takes 256 u64 bits).
+K17 takes another road to the same point (csrc/g1_msm.cu): each scalar,
+reduced mod r, splits by G1's endomorphism phi(x, y) = (beta x, y) = [lambda]
+into two half scalars below 2^128, k = k1 + k2 lambda, so a lane is two
+half-lanes (k1, P) and (k2, phi(P)); each runs 4-bit windows over a table
+of 15 multiples; the half-lanes are summed by a tree in a block and, past
+one block, a second launch. The split holds for points in the r-torsion
+only, which every caller passes (KZG commitments and proofs are
+subgroup-checked; the setup's points and G are multiples of G). K17
+launches at the exact lane count, so its Jacobian words differ from the
+JAX program's while the point is the same: parity with the JAX package
+holds on affine encodings, and the plain version ``msm_many_ref`` runs the
+kernel's own steps, word for word. Scalars cross as ``int32[..., 8]``
+little-endian u32 words (32 bytes a lane, where JAX takes 256 u64 bits).
 
 Points cross to the card in the kernels' Montgomery form x * 2^384 mod p,
 as ``int32[..., 12]`` u32 words (``field_limbs.from_card_words``), as the
@@ -41,14 +47,19 @@ import torch
 from .. import _ext
 from ..crypto.curve import B1, Point, g1_infinity
 from ..crypto.fields import P as P_INT
+from ..crypto.fields import R as R_INT
 from ..crypto.fields import Fq
 from ..device import default_device
 from . import field_limbs as fl
+from .fq12_coop import GLV_BETA, GLV_LAMBDA
 
 N_WORDS = fl.N_WORDS
 SCALAR_BITS = 256
 SCALAR_WORDS = 8
-MSM_THREADS = 256  # threads of a K17 block (csrc/g1_msm.cu kThreads)
+MSM_GROUPS = 4  # half-lanes of a K17 block (csrc/g1_msm.cu kGroups)
+MSM_FOLD_GROUPS = 16  # groups of the fold's block (kFoldGroups)
+MSM_WINDOW = 4  # bits of a window
+MSM_WINDOWS = 32  # windows of a 128-bit half scalar
 
 
 def _dbl(X, Y, Z):
@@ -144,50 +155,116 @@ def sum_many(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
 # --- K17: full-scalar MSMs ----------------------------------------------------
 
 
-def _scalar_bits(K: torch.Tensor) -> torch.Tensor:
-    """int32[..., 8] little-endian scalar words -> bool[..., 256], MSB first."""
-    u = K.to(torch.int64) & 0xFFFFFFFF
-    shifts = torch.arange(31, -1, -1, device=K.device)
-    bits = (u.unsqueeze(-1) >> shifts) & 1  # [..., 8, 32], word 0 first
-    return bits.flip(-2).reshape(*K.shape[:-1], SCALAR_BITS).bool()
+def split_scalar(k: int) -> tuple[int, int]:
+    """(k1, k2), both below 2^128, with k1 + k2 lambda = k mod r: k1 = k mod
+    lambda, k2 = k div lambda of k mod r (r = lambda^2 + lambda + 1)."""
+    k2, k1 = divmod(int(k) % R_INT, GLV_LAMBDA)
+    return k1, k2
 
 
-def _scalar_mul_lanes(bits, X, Y, Z):
-    """Every lane's double-and-add (JAX ``_scalar_mul_lane``): from
-    all-zero words, per bit a doubling and, where the bit is set, an add of
-    the lane's point. Leading bit positions clear in every lane are skipped:
-    the doubling of all-zero words is all zeros."""
-    qX, qY, qZ = (torch.zeros_like(a) for a in (X, Y, Z))
-    live = bits.flatten(0, -2).any(dim=0).nonzero()
-    if live.numel() == 0:
-        return qX, qY, qZ
-    for i in range(int(live[0]), SCALAR_BITS):
-        qX, qY, qZ = _dbl(qX, qY, qZ)
-        sX, sY, sZ = _add(qX, qY, qZ, X, Y, Z)
-        take = bits[..., i]
-        qX, qY, qZ = fl.select(take, sX, qX), fl.select(take, sY, qY), fl.select(take, sZ, qZ)
-    return qX, qY, qZ
+def half_scalars(K: torch.Tensor) -> list[list[int]]:
+    """int32[I, L, 8] scalar words -> per item its 2L half scalars, lane j's
+    k1 at 2j and k2 at 2j + 1 (K17's half-lane order)."""
+    rows = (K.to(torch.int64) & 0xFFFFFFFF).tolist()
+    return [[h for words in item for h in split_scalar(
+        sum(w << (32 * i) for i, w in enumerate(words)))] for item in rows]
+
+
+def _digits(halves: list[int], device) -> tuple[torch.Tensor, torch.Tensor]:
+    """int64 [N, 32] 4-bit windows (window w at column w) and each half's top
+    nonzero window (-1 for 0), on ``device``."""
+    d = torch.tensor([[(h >> (MSM_WINDOW * w)) & 15 for w in range(MSM_WINDOWS)]
+                      for h in halves], dtype=torch.int64, device=device)
+    d = d.reshape(len(halves), MSM_WINDOWS)
+    cols = torch.arange(MSM_WINDOWS, device=device).expand_as(d)
+    top = torch.where(d != 0, cols, torch.full_like(cols, -1)).max(dim=1).values
+    return d, top
+
+
+def _sel_point(mask, p, q):
+    return tuple(fl.select(mask, a, b) for a, b in zip(p, q))
+
+
+def _window_table(pt) -> list:
+    """[T0 = 0, T1 = P, ..., T15 = 15 P] as K17 builds it: T2 = 2 T1, T3 =
+    T2 + T1, T4 = 2 T2, T5..T7 = T4 + T1..T3, T8 = 2 T4, T9..T12 = T8 +
+    T1..T4, T13..T15 = T8 + T5..T7 (complete adds, the first operand
+    first)."""
+    t = [tuple(torch.zeros_like(c) for c in pt), pt]
+    t.append(_dbl(*t[1]))
+    t.append(_add(*t[2], *t[1]))
+    t.append(_dbl(*t[2]))
+
+    def adds(base, first, count):
+        ys = [torch.stack([t[first + j][c] for j in range(count)]) for c in range(3)]
+        xs = [t[base][c].expand_as(ys[c]) for c in range(3)]
+        s = _add(*xs, *ys)
+        return [tuple(c[j] for c in s) for j in range(count)]
+
+    t += adds(4, 1, 3)
+    t.append(_dbl(*t[4]))
+    t += adds(8, 1, 4) + adds(8, 5, 3)
+    return t
+
+
+def _half_lane_ladders(halves: list[int], X, Y, Z):
+    """Each half-lane's [h] Q by K17's windows: from the top nonzero window
+    T[d], then per lower window four doublings and, for d != 0, an add of
+    T[d]; a zero half gives all-zero words. X, Y, Z: limbs [N, 15]."""
+    d, top = _digits(halves, X.device)
+    t = _window_table((X, Y, Z))
+    tab = [torch.stack([e[c] for e in t]) for c in range(3)]  # [16, N, 15]
+    rows = torch.arange(len(halves), device=X.device)
+
+    def pick(col):
+        return tuple(c[col, rows] for c in tab)
+
+    acc = tuple(torch.zeros_like(c) for c in (X, Y, Z))
+    for w in range(int(top.max()), -1, -1):
+        dw = d[:, w]
+        begun = top > w
+        dbl = acc
+        for _ in range(4):
+            dbl = _dbl(*dbl)
+        added = _add(*dbl, *pick(dw))
+        step = _sel_point(begun & (dw != 0), added, _sel_point(begun, dbl, acc))
+        acc = _sel_point(top == w, pick(dw), step)
+    return acc
 
 
 def msm_many_ref(K: torch.Tensor, X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor,
-                 threads: int = MSM_THREADS) -> torch.Tensor:
-    """Plain torch version of K17, the kernel's steps with ``threads``
-    threads a block: int32[I, L, 8] scalars and int32[I, L, 12] X, Y, Z ->
-    int32[I, 3, 12] Jacobian sums, points in the card's Montgomery words."""
-    qX, qY, qZ = _scalar_mul_lanes(_scalar_bits(K), *(fl.from_card_words(a) for a in (X, Y, Z)))
-    lanes = X.shape[1]
-    t = min(lanes, threads)
-    aX, aY, aZ = qX[:, :t], qY[:, :t], qZ[:, :t]
-    for lo in range(t, lanes, t):  # thread j adds lanes j + t, j + 2t, ... in turn
-        w = min(t, lanes - lo)
-        sX, sY, sZ = _add(aX[:, :w], aY[:, :w], aZ[:, :w],
-                          qX[:, lo:lo + w], qY[:, lo:lo + w], qZ[:, lo:lo + w])
-        aX, aY, aZ = (torch.cat([s, a[:, w:]], dim=1) for s, a in ((sX, aX), (sY, aY), (sZ, aZ)))
-    pad = lane_pad(t) - t  # the tree's infinity pad: all-zero words
-    if pad:
-        aX, aY, aZ = (torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in (aX, aY, aZ))
-    rX, rY, rZ = _tree_sum(aX, aY, aZ)
-    return torch.stack([fl.to_card_words(a) for a in (rX, rY, rZ)], dim=-2)
+                 groups: int = MSM_GROUPS, fold_groups: int = MSM_FOLD_GROUPS) -> torch.Tensor:
+    """Plain torch version of K17, the kernel's steps with ``groups``
+    half-lanes a block and ``fold_groups`` groups in the fold (powers of
+    two): int32[I, L, 8] scalars and int32[I, L, 12] X, Y, Z -> int32[I, 3,
+    12] Jacobian sums, points in the card's Montgomery words."""
+    items, lanes = X.shape[0], X.shape[1]
+    halves = half_scalars(K)
+    X, Y, Z = (fl.from_card_words(a) for a in (X, Y, Z))
+    beta = fl.from_ints(GLV_BETA, X.device)
+    X = torch.stack([X, fl.mul(X, beta.expand_as(X))], dim=2)  # odd half-lanes: phi(P)
+    Y, Z = (torch.stack([a, a], dim=2) for a in (Y, Z))
+    n = 2 * lanes
+    flat = [a.reshape(items * n, -1) for a in (X, Y, Z)]
+    acc = _half_lane_ladders([h for item in halves for h in item], *flat)
+    bpi = -(-n // groups)
+    acc = [torch.nn.functional.pad(a.reshape(items, n, -1), (0, 0, 0, bpi * groups - n))
+           .reshape(items, bpi, groups, -1) for a in acc]
+    part = _tree_sum(*acc)  # [I, bpi, 15]: each block's halving tree
+    if bpi > 1:  # the fold: group g sums partials g, g + G, ... in turn, then halves
+        rounds = -(-bpi // fold_groups)
+        part = [torch.nn.functional.pad(a, (0, 0, 0, rounds * fold_groups - bpi))
+                .reshape(items, rounds, fold_groups, -1) for a in part]
+        sums = [a[:, 0] for a in part]
+        for r in range(1, rounds):
+            live = (torch.arange(fold_groups, device=X.device) + r * fold_groups
+                    < bpi).expand(items, -1)
+            added = _add(*sums, *(a[:, r] for a in part))
+            sums = list(_sel_point(live, added, sums))
+        part = _tree_sum(*sums)
+    else:
+        part = [a[:, 0] for a in part]
+    return torch.stack([fl.to_card_words(a) for a in part], dim=-2)
 
 
 def _check_msm_args(K, X, Y, Z) -> None:
@@ -203,19 +280,29 @@ def _check_msm_args(K, X, Y, Z) -> None:
 def msm_many(K: torch.Tensor, X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """Per-item sum_j k_ij * P_ij of ``[I, L]`` lanes (any L) -> ``int32[I,
     3, 12]`` Jacobian sums in the card's Montgomery words; scalars
-    ``int32[I, L, 8]``, any 256-bit values.
+    ``int32[I, L, 8]``, any 256-bit values (reduced mod r). The points must
+    lie in G1's r-torsion (the endomorphism split assumes it).
 
-    CUDA tensors go through kernel K17 (``csrc/g1_msm.cu``, one block per
-    item, one launch); CPU tensors through the plain version."""
+    CUDA tensors go through kernel K17 (``csrc/g1_msm.cu``: a warp a
+    half-lane, MSM_GROUPS half-lanes a block, the ladder on four lanes a
+    product; where an item spans several blocks, a second launch, counted
+    as ``g1_msm_fold``, sums their partials); CPU tensors through the plain
+    version."""
     _check_msm_args(K, X, Y, Z)
     if X.device.type == "cpu":
         return msm_many_ref(K, X, Y, Z)
     for t in (K, X, Y, Z):
         _ext.check_cuda(t, torch.int32)
-    items, lanes = X.shape[0], X.shape[1]
+    items, n = X.shape[0], X.shape[1]
+    bpi = -(-2 * n // MSM_GROUPS)
     out = torch.empty((items, 3, N_WORDS), dtype=torch.int32, device=X.device)
+    part = (torch.empty((items, bpi, 3, N_WORDS), dtype=torch.int32, device=X.device)
+            if bpi > 1 else None)
     _ext.launch("g1_msm", "g1_msm_many_launch", X.device, _ext.ptr(K), _ext.ptr(X),
-                _ext.ptr(Y), _ext.ptr(Z), _ext.ptr(out), items, lanes)
+                _ext.ptr(Y), _ext.ptr(Z), _ext.ptr(out), _ext.ptr(part), items, n)
+    if part is not None:
+        _ext.launch("g1_msm", "g1_msm_fold_launch", X.device, _ext.ptr(part), _ext.ptr(out),
+                    items, bpi, counter="g1_msm_fold")
     return out
 
 

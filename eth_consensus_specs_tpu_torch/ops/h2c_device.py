@@ -13,7 +13,8 @@ of the pipeline:
   complete add of the message's two points (``g2_jacobian.g2_add``);
 * **K14** ``h2c_finish`` (JAX ``_h2c_finish`` :333): Budroni-Pintore
   cofactor clearing and the affine conversion by one Fq2 inversion
-  (``g2_jacobian`` :156-231).
+  (``g2_jacobian`` :156-231), on the cooperative round engine's G2
+  programs (``ops/fq12_coop.py``), a warp a point.
 
 The plain versions here mirror the JAX program step by step (its
 branchless square root included, so a CPU test holds the root choice
@@ -271,7 +272,10 @@ def h2c_map(u: torch.Tensor) -> torch.Tensor:
 def h2c_finish(jac: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K14: Jacobian sums ``[B, 3, 2, 12]`` (card Montgomery words) ->
     (canonical affine ``[B, 2, 2, 12]``, infinity flags ``int32[B]``). CUDA
-    tensors go through the kernel, CPU tensors through the plain version."""
+    tensors go through the kernel (``csrc/h2c.cu``: a warp a point on the
+    round engine's G2 programs, the doublings on four lanes a product, the
+    affine step's Fq inverse a binary GCD on one thread), CPU tensors
+    through the plain version."""
     _check(jac, (3, 2, N_WORDS), "h2c_finish")
     if jac.device.type == "cpu":
         return h2c_finish_ref(jac)

@@ -636,7 +636,7 @@ def test_fr_fft_kernel(cuda, b, n, inverse, bitrev):
     assert lf.words_to_ints(got[0]) == want
 
 
-@pytest.mark.parametrize("items,lanes", [(1, 1), (2, 7), (2, 129), (1, 300)])
+@pytest.mark.parametrize("items,lanes", [(1, 1), (2, 7), (2, 129), (1, 300), (3, 40)])
 def test_g1_msm_kernel(cuda, items, lanes):
     import random
 
@@ -652,7 +652,8 @@ def test_g1_msm_kernel(cuda, items, lanes):
     K, X, Y, Z = (torch.from_numpy(a).to(cuda) for a in g1_msm.pack_msm(points, scalars))
     _ext.reset_launches()
     got = g1_msm.msm_many(K, X, Y, Z)
-    assert _ext.launches["g1_msm"] == 1
+    blocks = -(-2 * lanes // g1_msm.MSM_GROUPS)  # past one block, the fold sums the partials
+    assert _ext.launches["g1_msm"] == 1 and _ext.launches["g1_msm_fold"] == int(blocks > 1)
     assert torch.equal(got, g1_msm.msm_many_ref(K, X, Y, Z))
     assert g1_msm.sums_to_points(got) == [msm_g1(p, s) for p, s in zip(points, scalars)]
 
@@ -666,8 +667,9 @@ def test_g1_msm_kernel_corners(cuda):
 
     keys = g1_keys(12)
     p = keys[0]
-    points = [keys[1:7], [g1_infinity(), keys[7]], [p, -p], [keys[8]], keys[9:12]]
-    scalars = [[0, 1, R - 1, (1 << 256) - 1, R, R + 2], [11, 5], [7, 7], [R - 3], [0, 0, 0]]
+    points = [keys[1:7], [g1_infinity(), keys[7]], [p, -p], [keys[8]], keys[9:12], [p, p]]
+    scalars = [[0, 1, R - 1, (1 << 256) - 1, R, R + 2], [11, 5], [7, 7], [R - 3], [0, 0, 0],
+               [9, 9]]
     K, X, Y, Z = (torch.from_numpy(a).to(cuda) for a in g1_msm.pack_msm(points, scalars))
     got = g1_msm.msm_many(K, X, Y, Z)
     assert torch.equal(got, g1_msm.msm_many_ref(K, X, Y, Z))

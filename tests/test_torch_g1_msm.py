@@ -1,9 +1,9 @@
 """The port's full-scalar G1 MSMs on the CPU (the plain version of K17)
 against the JAX package's ``msm_g1_many_device`` and the host ``msm_g1``.
 
-Points compare on their compressed encodings: K17 sums an item's lanes
-another way than JAX's tree, so Jacobian words differ between packages
-while the points do not. The JAX calls share one shape, ``pad_shape=(2,
+Points compare on their compressed encodings: K17 runs each lane as two
+half-lanes split by G1's endomorphism and sums them another way than JAX's
+tree, so Jacobian words differ between packages while the points do not. The JAX calls share one shape, ``pad_shape=(2,
 8)``, compiled once for the file (its first call takes most of a minute on
 XLA:CPU). Scalars cover 0, 1, r - 1, 2^256 - 1, r (the ladder meets -P in
 its last add), r + 2 (it meets +P: the add doubles), an infinity lane, P
@@ -95,13 +95,19 @@ def test_jax_lanes_through_convert():
 
 
 def test_running_sums_of_several_lanes_a_thread():
-    """K17's threads each sum several lanes once an item is wider than a
-    block (256 lanes); the plain version with 3 threads walks that branch
-    on 7 and 8 lanes."""
+    """K17 sums an item's block partials in a second launch once the item's
+    half-lanes span several blocks, each fold group running over several
+    partials when they outnumber its groups; the plain version with 2
+    half-lanes a block and 2 fold groups walks that branch on 7 and 8 lanes
+    (7 and 8 partials), and with one block holding every half-lane the
+    other; all give the host's points."""
     points, scalars = _cases()["random"]
     K, X, Y, Z = (torch.from_numpy(a) for a in g1_msm.pack_msm(points, scalars))
-    narrow = g1_msm.msm_many_ref(K, X, Y, Z, threads=3)
-    assert g1_msm.sums_to_points(narrow) == [msm_g1(p, s) for p, s in zip(points, scalars)]
+    want = [msm_g1(p, s) for p, s in zip(points, scalars)]
+    narrow = g1_msm.msm_many_ref(K, X, Y, Z, groups=2, fold_groups=2)
+    assert g1_msm.sums_to_points(narrow) == want
+    wide = g1_msm.msm_many_ref(K, X, Y, Z, groups=16)
+    assert g1_msm.sums_to_points(wide) == want
 
 
 def test_unit_scalars_take_the_point_sum(monkeypatch):
@@ -130,3 +136,31 @@ def test_bad_arguments_raise():
         g1_msm.msm_many(K[..., :7].contiguous(), X, Y, Z)
     with pytest.raises(ValueError):
         g1_msm.msm_many(K, X, Y[:, :1].contiguous(), Z)
+
+
+@pytest.mark.parametrize("k", [0, 1, g1_msm.GLV_LAMBDA - 1, g1_msm.GLV_LAMBDA,
+                               g1_msm.GLV_LAMBDA + 1, R - 1, R, R + 2, (1 << 256) - 1,
+                               "random"])
+def test_scalar_split_by_the_endomorphism(k):
+    rng = np.random.default_rng(23)
+    ks = ([int.from_bytes(rng.bytes(32), "little") for _ in range(20)] if k == "random"
+          else [k])
+    for k in ks:
+        k1, k2 = g1_msm.split_scalar(k)
+        assert (k1 + k2 * g1_msm.GLV_LAMBDA - k) % R == 0
+        assert 0 <= k1 < 1 << 128 and 0 <= k2 < 1 << 128
+    K = torch.from_numpy(g1_msm.scalars_to_words([ks], len(ks)))
+    assert g1_msm.half_scalars(K) == [[h for k in ks for h in g1_msm.split_scalar(k)]]
+
+
+def test_phi_is_lambda_on_g1():
+    """phi(x, y) = (beta x, y) is [lambda] on G and on the keys: beta is the
+    cube root of unity that matches lambda, not lambda^2."""
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator
+    from eth_consensus_specs_tpu_torch.crypto.fields import P, Fq
+
+    assert (g1_msm.GLV_LAMBDA ** 2 + g1_msm.GLV_LAMBDA + 1) % R == 0
+    assert pow(g1_msm.GLV_BETA, 3, P) == 1 != g1_msm.GLV_BETA
+    for pt in [g1_generator(), *g1_keys(4)]:
+        phi = type(pt)(Fq(pt.x.n * g1_msm.GLV_BETA % P), pt.y, pt.b)
+        assert pt.mul(g1_msm.GLV_LAMBDA) == phi
