@@ -121,8 +121,10 @@ Phases, each printing one JSON line:
 Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
 (phase0_epoch, on the example columns and every phase0 corner) and K2's
 batched entry (merkle_many_tree_root) against their plain versions at the
-shapes of phases 8-10, and K10 (g1_sum_many at [128, 512], [8, 32768] and
-corner items, against (sum of k) * G on the host), K11 (miller_product at
+shapes of phases 8-10, and K10 (g1_sum_many at [128, 512], [8, 32768],
+``agg_slot``'s tier-0 [1, 512], the slot's [64, 512] and corner items,
+against (sum of k) * G on the host; each shape's launches a call read from
+its counter), K11 (miller_product at
 1, 2, 31, 32, 33 and 129 pairs, some inactive, against the host Miller
 loops; 20 launches each giving the same words), K12 (final_exp_is_one on 1,
 on 0, on a product that is 1, one that is not and the 129-pair product,
@@ -156,7 +158,7 @@ Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own paths, the state_inc main path
 for K1-K6, both kzg_flush and das_fft for K16, summed over its kernels where
-an entry launches two, as K11's loop and fold, K16's chunk and global
+an entry launches two, as K10's lanes passes and fold, K11's loop and fold, K16's chunk and global
 stage, K17's lanes and fold and K18's copy and scatter; ``launches_by_path``: each path's; every kernel must have launched on
 one of its own paths) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
@@ -1289,6 +1291,7 @@ BLS_COMMITTEE = 512  # 2^20 validators / (32 slots x 64 committees)
 # KEY_BUDGET_S; fixed so that every run measures one workload
 BLS_BLOCK_COMMITTEE = 128
 ELECTRA_SHAPE = (8, 32768)  # 8 aggregates over 64 committees each
+SLOT_K10_ITEMS = 64  # the slot's K10 items: its 64 attestations' committees of 512
 BLS_TIMED_CALLS = 3
 BLS_TAMPERED = 17
 # K11's pair counts against the group (a pair) and block (2 pairs) sizes, and
@@ -1311,6 +1314,11 @@ FQ_MUL_INSTR = 450
 # lanes; a product round's shortest chain is the 4-lane split's 172.5. The
 # compiled code issues more (tools/fq_mul_sass.py counts its SASS).
 FQ_ROUND_INSTR = FQ_MUL_INSTR / 4 + 2 * 12 + 3 * 12
+# SASS instructions one lane issues for one Fq product on one lane, as the
+# toolkit compiles it (tools/fq_mul_sass.py, nvcc 12.9, sm_90a: the PTX carry
+# chains of csrc/bls_fp.cuh; 1244 for the C product before them). The
+# one-lane bounds (``one_lane_bound_ms``) count a product at this many.
+FQ_MUL_SASS = 1199
 FQ_PER_G1_ADD = 16  # add-2007-bl: 11 products and 5 squarings
 FQ_PER_FQ6_MUL = 18  # 6 Karatsuba Fq2 products of 3
 FQ_PER_FQ12_MUL = 54  # Karatsuba over Fq6 (3 Fq6 products)
@@ -1406,18 +1414,22 @@ def fq_bound(products: float, serial_products: float) -> tuple[float, str]:
 
 
 def check_bls_kernels(dev):
-    """Phase 3, continued: K10 at a deneb block's [128, 512] and an electra
-    block's [8, 32768], and on corner items; K11 at the pair counts of
-    K11_CASES, some pairs inactive; K12 on 1, 0, a product that is 1, one
-    that is not and the 129-pair product; the cooperative tower's check
-    entry. Each against its plain version on the card and against the host
-    oracle in canonical ints, K11 and K12 also over REPEATS launches. K11's
-    and K12's bounds are their chains of product rounds at full tower
-    parallelism, a product on the 4-lane split (``round_bound``); beside
-    them the same chains at a one-lane product as ``one_lane_bound_ms`` and
-    the one-thread chains as ``serial_bound_ms``."""
+    """Phase 3, continued: K10 at a deneb block's [128, 512], an electra
+    block's [8, 32768], ``agg_slot``'s tier 0 [1, 512] and the slot's
+    [64, 512], each shape's launches a call read from the counter, and on
+    corner items; K11 at the pair counts of K11_CASES, some pairs inactive;
+    K12 on 1, 0, a product that is 1, one that is not and the 129-pair
+    product; the cooperative tower's check entry. Each against its plain
+    version on the card and against the host oracle in canonical ints, K11
+    and K12 also over REPEATS launches. K10's, K11's and K12's bounds are
+    their chains of product rounds at full parallelism, a product on the
+    4-lane split (``round_bound``; K10's chain is log2(L) round-engine adds
+    of CURVE_ADD_ROUNDS); beside them the same chains at a one-lane product
+    as ``one_lane_bound_ms`` and the one-thread chains as
+    ``serial_bound_ms``."""
     import torch
 
+    from eth_consensus_specs_tpu_torch import _ext
     from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
     from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g1_infinity
     from eth_consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_g2
@@ -1433,10 +1445,12 @@ def check_bls_kernels(dev):
     def lanes_of(index_lists):
         return [[keys[k] for k in ks] for ks in index_lists]
 
-    # K10: both block shapes, every sum against (sum of k) * G on the host
+    # K10: both block shapes, agg_slot's tier 0 and the slot's shape, every
+    # sum against (sum of k) * G on the host
     shapes, timed = {}, {}
     for items, lanes, stride in ((BLS_ITEMS, BLS_COMMITTEE, BLS_COMMITTEE),
-                                 (*ELECTRA_SHAPE, 4096)):
+                                 (*ELECTRA_SHAPE, 4096), (1, BLS_COMMITTEE, BLS_COMMITTEE),
+                                 (SLOT_K10_ITEMS, BLS_COMMITTEE, BLS_COMMITTEE)):
         idx = committee_indices(items, lanes, n_keys, stride)
         X, Y, Z = (torch.from_numpy(a).to(dev) for a in g1_msm.pack_lanes(lanes_of(idx)))
         out = g1_msm.sum_many(X, Y, Z)
@@ -1448,15 +1462,26 @@ def check_bls_kernels(dev):
                     f"g1_sum_many [{items}, {lanes}] item {i} differs from the host sum")
         products = items * (lanes - 1) * FQ_PER_G1_ADD
         serial = (lanes.bit_length() - 1) * FQ_PER_G1_ADD
-        b_ms, b_by = fq_bound(products, serial)
+        rounds = (lanes.bit_length() - 1) * CURVE_ADD_ROUNDS
+        b_ms, b_by = round_bound(rounds, products)
         b_bytes = 3 * 48 * items * lanes / HBM_BYTES_PER_S * 1e3
+        before = _ext.launches["g1_sum"]
+        g1_msm.sum_many(X, Y, Z)
+        launches_a_call = _ext.launches["g1_sum"] - before
+        if launches_a_call != len(g1_msm.sum_plan(lanes)) + 1:
+            raise RuntimeError(f"g1_sum_many [{items}, {lanes}] launched {launches_a_call} "
+                               "kernels, not its plan's passes and the fold")
         k_ms = cuda_ms(lambda: g1_msm.sum_many(X, Y, Z), repeats=10)
         shapes[(items, lanes)] = dict(
             shape=[items, lanes], max_abs_err=err, ms=k_ms,
-            device_ms=device_ms(lambda: g1_msm.sum_many(X, Y, Z), ("g1_sum_many_kernel",)),
+            device_ms=device_ms(lambda: g1_msm.sum_many(X, Y, Z), ("g1_sum_", "void g1_sum_")),
             plain_ms=cuda_ms(lambda: g1_msm.sum_many_ref(X, Y, Z), 2),
             bound_ms=max(b_ms, b_bytes), bound_by=b_by if b_ms >= b_bytes else "bytes",
-            fq_products=products, serial_fq_products=serial, host_checked=items)
+            product_rounds=rounds, round_instr=FQ_ROUND_INSTR,
+            one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_SASS)[0],
+            serial_bound_ms=fq_bound(products, serial)[0],
+            fq_products=products, serial_fq_products=serial, host_checked=items,
+            launches_a_call=launches_a_call)
     # corner items at the deneb width: ragged, padded, P + P, P - P, all Z = 0
     p = keys[5]
     corners = [keys[:BLS_COMMITTEE], keys[:37], [p, p] + keys[10:20], [p, -p] + keys[20:30],
@@ -1477,9 +1502,12 @@ def check_bls_kernels(dev):
         name="g1_sum_many", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/g1_sum.cu",
         replaces="eth_consensus_specs_tpu/ops/g1_msm.py:168",
         **{k: deneb[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-        max_abs_err=max(deneb["max_abs_err"], err), library_ms=None,
-        electra=shapes[ELECTRA_SHAPE], corners_checked=len(corners),
-        fq_products=deneb["fq_products"], serial_fq_products=deneb["serial_fq_products"],
+        max_abs_err=max(max(v["max_abs_err"] for v in shapes.values()), err), library_ms=None,
+        electra=shapes[ELECTRA_SHAPE], agg_tier0=shapes[(1, BLS_COMMITTEE)],
+        slot=shapes[(SLOT_K10_ITEMS, BLS_COMMITTEE)], corners_checked=len(corners),
+        **{k: deneb[k] for k in ("launches_a_call", "product_rounds", "round_instr",
+                                 "one_lane_bound_ms", "serial_bound_ms", "fq_products",
+                                 "serial_fq_products")},
     ))
 
     # K11 at a block's 129 pairs (128 messages and the signature pair) and at
@@ -1527,7 +1555,7 @@ def check_bls_kernels(dev):
                      for n, _ in K11_CASES},
         active_by_pairs=counts, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         product_rounds=rounds, round_instr=FQ_ROUND_INSTR,
-        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_INSTR)[0],
+        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_SASS)[0],
         fq_products=products, serial_fq_products=serial,
         serial_bound_ms=fq_bound(products, serial)[0], oracle_checked=[n for n, _ in K11_CASES],
         repeats_equal=REPEATS,
@@ -1568,7 +1596,7 @@ def check_bls_kernels(dev):
         plain_ms=cuda_ms(lambda: pd.final_exp_is_one_ref(f), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, product_rounds=rounds,
         round_instr=FQ_ROUND_INSTR,
-        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_INSTR)[0],
+        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_SASS)[0],
         fq_products=products, serial_fq_products=products,
         serial_bound_ms=fq_bound(products, products)[0], design_fq_products=design,
         verdicts_checked=verdicts, repeats_equal=REPEATS,
@@ -1791,24 +1819,17 @@ def _pow_products(e: int, loop_bits: int) -> int:
     return loop_bits + bin(e).count("1")
 
 
-def h2c_element_products(second_root: bool, tv2_zero: bool) -> int:
-    """Fq products K13 spends on one field element: load, SSWU prelude, the
-    inverse of tv2 (unless tv2 = 0), g(x1) and its square root (norm power,
-    then one power of h = (a + sn)/2), the second candidate when g(x1) is not
-    a square, sgn0 and the isogeny (as ``csrc/h2c.cu`` runs them)."""
-    from eth_consensus_specs_tpu_torch.crypto.fields import P
+def h2c_element_products(u) -> int:
+    """Fq products K13 spends on one field element (a host Fq2 u): the load,
+    the SSWU map in the kernel's own steps (``ops.h2c_device.map_steps``:
+    the prelude, a lane's share of the warp's batch inverse of N(tv2), one
+    norm power that also decides the candidate, the second candidate's norm
+    root by products, one h power, sgn0) and the isogeny, as
+    ``csrc/h2c.cu`` runs them."""
+    from eth_consensus_specs_tpu_torch.ops import h2c_device as hd
 
-    p_sqrt = _pow_products((P + 1) // 4, 379)
-    p_half = _pow_products((P - 3) // 4, 379)
-    p_inv = _pow_products(P - 2, 381)
-    sqrt = 2 + p_sqrt + 1 + 1 + p_half + 1 + 1 + 2
-    iso = 11 * FQ_PER_FQ2_MUL + 4 * FQ_PER_FQ2_MUL + 2 * FQ_PER_FQ2_SQR + 6 * FQ_PER_FQ2_MUL
-    n = 2 + FQ_PER_FQ2_SQR + FQ_PER_FQ2_MUL + FQ_PER_FQ2_SQR  # load, u^2, tv1, tv1^2
-    n += 0 if tv2_zero else 2 + p_inv + 3 + FQ_PER_FQ2_MUL
-    n += FQ_PER_FQ2_SQR + FQ_PER_FQ2_MUL + sqrt  # g(x1), its root
-    if second_root:
-        n += FQ_PER_FQ2_MUL + FQ_PER_FQ2_SQR + FQ_PER_FQ2_MUL + sqrt  # x2, g(x2), its root
-    return n + 2 + iso  # sgn0(y), the isogeny
+    iso = 11 * FQ_PER_FQ2_MUL + 7 * FQ_PER_FQ2_MUL + 2 * FQ_PER_FQ2_SQR  # Horner, X, Y, Z
+    return 2 + hd.map_steps([u.c0.n, u.c1.n])[2] + iso
 
 
 def h2c_element_needed_products() -> int:
@@ -1818,9 +1839,9 @@ def h2c_element_needed_products() -> int:
     g(x1) = U/V as fractions; the norm's ratio root (one power a (a b)^e,
     which also decides the candidate: g(x2) = tv1^3 g(x1) gives the other
     norm root by constants); one h power for the square candidate's root;
-    sgn0 and the isogeny. The built design spends more
-    (:func:`h2c_element_products`): the tv2 inverse, and a second pair of
-    powers where g(x1) is not a square."""
+    sgn0 and the isogeny. The built design (:func:`h2c_element_products`)
+    keeps x1 affine by the tv2 inverse (a binary GCD), so that the words
+    stay the plain version's, and takes its powers in 4-bit windows."""
     from eth_consensus_specs_tpu_torch.crypto.fields import P
 
     p_ratio = _pow_products((P - 3) // 4, 379)
@@ -1863,14 +1884,20 @@ def sswu_shape(u) -> tuple[bool, bool]:
     return gx1.sqrt() is None, tv2.is_zero()
 
 
-def h2c_map_products(rows) -> tuple[int, int]:
-    """(all Fq products, the longest chain) K13 needs on ``rows`` of host u
-    pairs: per message its two elements, then the pair's add by one thread."""
+def h2c_map_products(rows) -> tuple[int, int, int]:
+    """(all Fq products, the longest chain of products, the most GCD steps a
+    warp takes) K13 spends on ``rows`` of host u pairs: per message its two
+    elements, then the pair's add by one thread; a warp's 16 messages share
+    one GCD inverse (``ops.h2c_device.warp_inverse``)."""
     from eth_consensus_specs_tpu_torch.crypto.fields import Fq2
+    from eth_consensus_specs_tpu_torch.ops import h2c_device as hd
 
-    per = [[h2c_element_products(*sswu_shape(Fq2.from_ints(*e))) for e in pair] for pair in rows]
+    per = [[h2c_element_products(Fq2.from_ints(*e)) for e in pair] for pair in rows]
     total = sum(a + b + FQ_PER_G2_ADD for a, b in per)
-    return total, max(max(a, b) for a, b in per) + FQ_PER_G2_ADD
+    warp = hd.WARP // 2
+    gcd = max(hd.warp_inverse([hd.tv2_norm(e) for pair in rows[i:i + warp] for e in pair])[1]
+              for i in range(0, len(rows), warp))
+    return total, max(max(a, b) for a, b in per) + FQ_PER_G2_ADD, gcd
 
 
 def check_g2_kernels(dev):
@@ -1924,18 +1951,21 @@ def check_g2_kernels(dev):
             raise RuntimeError(f"the kernels' Fq2 square root of {c} is wrong")
     u_block = u[:BLS_ITEMS].contiguous()
     jac_block = jac[:BLS_ITEMS].contiguous()
-    design, design_serial = h2c_map_products(block)
+    design, design_serial, design_gcd = h2c_map_products(block)
     serial = h2c_element_needed_products() + FQ_PER_G2_ADD
     products = BLS_ITEMS * (2 * serial - FQ_PER_G2_ADD)
-    b_ms, b_by = fq_bound(products, serial)
+    b_ms, b_by = round_bound(serial, products)
     rows.append(dict(
         name="h2c_map", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/h2c.cu",
         replaces="eth_consensus_specs_tpu/ops/h2c_device.py:307", shape=[BLS_ITEMS, 2, 2, 12],
         max_abs_err=err_map, ms=cuda_ms(lambda: hd.h2c_map(u_block), repeats=5),
         plain_ms=cuda_ms(lambda: hd.h2c_map_ref(u_block), 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
-        serial_fq_products=serial, design_fq_products=design,
-        design_serial_fq_products=design_serial, host_checked=len(want), corner_rows=corner_rows,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, product_rounds=serial,
+        round_instr=FQ_ROUND_INSTR, serial_bound_ms=fq_bound(products, serial)[0],
+        fq_products=products, serial_fq_products=serial, design_fq_products=design,
+        design_serial_fq_products=design_serial, design_gcd_steps_max=design_gcd,
+        design_chain_bound_ms=(design_serial * FQ_MUL_SASS + design_gcd * GCD_STEP_INSTR)
+        / CLOCK_HZ * 1e3, host_checked=len(want), corner_rows=corner_rows,
         sqrt_cases_checked=len(cases),
         second_root_elements=sum(sswu_shape(Fq2.from_ints(*e))[0] for pair in block for e in pair),
     ))
@@ -1965,8 +1995,8 @@ def check_g2_kernels(dev):
         inverse_bound_ms={"fermat": fermat_instr / CLOCK_HZ * 1e3,
                           "gcd": gcd_instr / CLOCK_HZ * 1e3},
         gcd_steps_max=gcd_instr / GCD_STEP_INSTR, gcd_step_instr=GCD_STEP_INSTR,
-        one_lane_bound_ms=(rounds * FQ_MUL_INSTR + min(fermat_instr * FQ_MUL_INSTR / FQ_ROUND_INSTR,
-                                                       gcd_instr)) / CLOCK_HZ * 1e3,
+        one_lane_bound_ms=(rounds * FQ_MUL_SASS + min(fermat_instr * FQ_MUL_SASS / FQ_ROUND_INSTR,
+                                                      gcd_instr)) / CLOCK_HZ * 1e3,
         fq_products=products, serial_fq_products=per_point,
         serial_bound_ms=fq_bound(products, per_point)[0], host_checked=len(want),
     ))
@@ -2406,7 +2436,7 @@ def check_kzg_kernels(dev):
         plain_ms=cuda_ms(lambda: g1_msm.msm_many_ref(K, X, Y, Z), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, product_rounds=rounds,
         round_instr=FQ_ROUND_INSTR,
-        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_INSTR)[0],
+        one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_SASS)[0],
         fq_products=products, serial_fq_products=serial,
         serial_bound_ms=fq_bound(products, serial)[0],
         design_product_rounds=msm_design_rounds(scalar_lists),

@@ -4,12 +4,12 @@
 // product and constants.
 //
 // Fq: 12 x 32-bit limbs, little-endian, in Montgomery form with R = 2^384,
-// every value kept canonical in [0, p). Multiplication is CIOS Montgomery:
-// Hopper issues the 32 x 32 -> 64-bit products as IMAD.WIDE on 32-bit
-// lanes, where a 64-bit limb would be emulated. The tower is the host
-// oracle's (crypto/fields.py): Fq2 = Fq[u]/(u^2+1), Fq6 = Fq2[v]/(v^3 - xi),
-// Fq12 = Fq6[w]/(w^2 - v), xi = 1 + u; an Fq12 is laid out [half][v][u], as
-// the port's torch tensors are.
+// every value kept canonical in [0, p). Multiplication is CIOS Montgomery in
+// PTX carry chains (mad.lo.cc / madc.hi.cc on 32-bit lanes, where a 64-bit
+// limb would be emulated); squaring takes each cross product once. The
+// tower is the host oracle's (crypto/fields.py): Fq2 = Fq[u]/(u^2+1),
+// Fq6 = Fq2[v]/(v^3 - xi), Fq12 = Fq6[w]/(w^2 - v), xi = 1 + u; an Fq12 is
+// laid out [half][v][u], as the port's torch tensors are.
 //
 // Boundary: values cross as little-endian u32 words, 12 per Fq element, in
 // one of two forms, which each kernel names in its header. K10 (g1_sum.cu)
@@ -28,6 +28,8 @@
 //
 // Multiplication is inlined into the tower functions; the tower functions
 // themselves are __noinline__, so that the kernels stay small to build.
+// fp_mul_call and fp_sqr_call are the product as a call, for code that
+// would inline many (K10's one-thread G1 adds, K13's map).
 #pragma once
 #include "common.cuh"
 
@@ -170,41 +172,199 @@ __device__ __forceinline__ void fp_neg(fp& r, const fp& a) {
   fp_sub(r, z, a);
 }
 
-// CIOS Montgomery product a * b / 2^384 mod p. Each 32 x 32-bit product plus
-// two 32-bit words fits 64 bits; the running sum stays under 2p.
-__device__ __forceinline__ void fp_mul(fp& r, const fp& a, const fp& b) {
-  uint32_t t[14];
-#pragma unroll
-  for (int i = 0; i < 14; ++i) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      uint64_t s = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[12] + c;
-    t[12] = (uint32_t)s;
-    t[13] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * FP_NP;
-    s = (uint64_t)m * FP_P[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < 12; ++j) {
-      s = (uint64_t)m * FP_P[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[12] + c;
-    t[11] = (uint32_t)s;
-    t[12] = t[13] + (uint32_t)(s >> 32);
-  }
-  fp_reduce(r, t, t[12]);
+// The Fq product as PTX carry chains. Each helper is one instruction; the
+// carry flag lives between them, so a chain is a run of asm volatile
+// statements back to back (volatile keeps their order, and nothing the
+// compiler emits in between touches the flag).
+__device__ __forceinline__ uint32_t ptx_mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t ptx_subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
 }
 
-__device__ __forceinline__ void fp_sqr(fp& r, const fp& a) { fp_mul(r, a, a); }
+// t[0..12] += m * p (two chains: the low halves at j, the high halves at
+// j + 1), then t >>= 32. t[0] + lo(m p0) is 0 mod 2^32 by the choice of m;
+// the sum fits 13 words (the callers' bounds), so t[12] takes the last
+// carry and nothing leaves it.
+__device__ __forceinline__ void fp_redc_row(uint32_t* t, uint32_t m) {
+  ptx_mad_lo_cc(m, FP_P[0], t[0]);
+#pragma unroll
+  for (int j = 1; j < 12; ++j) t[j] = ptx_madc_lo_cc(m, FP_P[j], t[j]);
+  t[12] = ptx_addc(t[12], 0u);
+  t[1] = ptx_mad_hi_cc(m, FP_P[0], t[1]);
+#pragma unroll
+  for (int j = 1; j < 11; ++j) t[j + 1] = ptx_madc_hi_cc(m, FP_P[j], t[j + 1]);
+  t[12] = ptx_madc_hi(m, FP_P[11], t[12]);
+#pragma unroll
+  for (int j = 0; j < 12; ++j) t[j] = t[j + 1];
+  t[12] = 0;
+}
+
+// r = t - p if t >= p, else t (t < 2p in 12 words)
+__device__ __forceinline__ void fp_final_sub(fp& r, const uint32_t* t) {
+  uint32_t d[12];
+  d[0] = ptx_sub_cc(t[0], FP_P[0]);
+#pragma unroll
+  for (int j = 1; j < 12; ++j) d[j] = ptx_subc_cc(t[j], FP_P[j]);
+  const uint32_t borrow = ptx_subc(0u, 0u);  // all ones where t < p
+#pragma unroll
+  for (int j = 0; j < 12; ++j) r.v[j] = borrow ? t[j] : d[j];
+}
+
+// CIOS Montgomery product a * b / 2^384 mod p for a, b under 3p, canonical.
+// Row i adds a * b_i (a low-half chain and a high-half chain) and m p, then
+// drops the low word. Bounds (p < 2^381): before a row t < a + p < 2^383, so
+// 12 words and t[12] = 0; within it t + a b_i + m p < 2^415, 13 words; at
+// the end t < 9p^2/R + p < 2p, so one conditional subtraction. About 610
+// instructions, all on carry chains (tools/fq_mul_sass.py counts the SASS).
+__device__ __forceinline__ void fp_mul(fp& r, const fp& a, const fp& b) {
+  uint32_t t[13];
+  const uint32_t b0 = b.v[0];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) t[j] = a.v[j] * b0;
+  t[1] = ptx_mad_hi_cc(a.v[0], b0, t[1]);
+#pragma unroll
+  for (int j = 1; j < 11; ++j) t[j + 1] = ptx_madc_hi_cc(a.v[j], b0, t[j + 1]);
+  t[12] = ptx_madc_hi(a.v[11], b0, 0u);
+  fp_redc_row(t, t[0] * FP_NP);
+#pragma unroll
+  for (int i = 1; i < 12; ++i) {
+    const uint32_t bi = b.v[i];
+    t[0] = ptx_mad_lo_cc(a.v[0], bi, t[0]);
+#pragma unroll
+    for (int j = 1; j < 12; ++j) t[j] = ptx_madc_lo_cc(a.v[j], bi, t[j]);
+    t[12] = ptx_addc(0u, 0u);
+    t[1] = ptx_mad_hi_cc(a.v[0], bi, t[1]);
+#pragma unroll
+    for (int j = 1; j < 11; ++j) t[j + 1] = ptx_madc_hi_cc(a.v[j], bi, t[j + 1]);
+    t[12] = ptx_madc_hi(a.v[11], bi, t[12]);
+    fp_redc_row(t, t[0] * FP_NP);
+  }
+  fp_final_sub(r, t);
+}
+
+// r = a^2 / 2^384 mod p for a under 3p: the same words as fp_mul(r, a, a).
+// The 24-word square takes each off-diagonal product a_i a_j (i < j) once,
+// doubles the sum and adds the diagonal a_i^2; the low 12 words are then
+// reduced by 12 rows of fp_redc_row (t < 2^384 + m p 2^0 < 2^414 within a
+// row, under p + 1 after the last) and the high 12 words added: (a^2 + M p)
+// / R with the one M < R that makes it exact, as fp_mul's, so after the
+// conditional subtraction the two agree word for word.
+__device__ __forceinline__ void fp_sqr(fp& r, const fp& a) {
+  uint32_t s[24];
+  // row 0: a_0 a_j at j (low halves, fresh words) and j + 1 (high halves)
+#pragma unroll
+  for (int j = 1; j < 12; ++j) s[j] = a.v[0] * a.v[j];
+  s[2] = ptx_mad_hi_cc(a.v[0], a.v[1], s[2]);
+#pragma unroll
+  for (int j = 2; j < 11; ++j) s[j + 1] = ptx_madc_hi_cc(a.v[0], a.v[j], s[j + 1]);
+  s[12] = ptx_madc_hi(a.v[0], a.v[11], 0u);
+  // rows 1..10: a_i a_j (j > i) at i + j and i + j + 1; the rows so far fit
+  // words below i + 12, so the low chain's carry opens word i + 12 and the
+  // high chain's last sum leaves no carry
+#pragma unroll
+  for (int i = 1; i < 11; ++i) {
+    s[2 * i + 1] = ptx_mad_lo_cc(a.v[i], a.v[i + 1], s[2 * i + 1]);
+#pragma unroll
+    for (int j = i + 2; j < 12; ++j) s[i + j] = ptx_madc_lo_cc(a.v[i], a.v[j], s[i + j]);
+    s[i + 12] = ptx_addc(0u, 0u);
+    if (i + 1 == 11) {
+      s[i + 12] += __umulhi(a.v[i], a.v[11]);  // one product: no chain
+    } else {
+      s[2 * i + 2] = ptx_mad_hi_cc(a.v[i], a.v[i + 1], s[2 * i + 2]);
+#pragma unroll
+      for (int j = i + 2; j < 11; ++j) s[i + j + 1] = ptx_madc_hi_cc(a.v[i], a.v[j], s[i + j + 1]);
+      s[i + 12] = ptx_madc_hi(a.v[i], a.v[11], s[i + 12]);
+    }
+  }
+  // double words 1..22 (word 0 is 0), the carry into word 23
+  s[1] = ptx_add_cc(s[1], s[1]);
+#pragma unroll
+  for (int k = 2; k < 23; ++k) s[k] = ptx_addc_cc(s[k], s[k]);
+  s[23] = ptx_addc(0u, 0u);
+  // the diagonal a_i^2 at 2i and 2i + 1, one chain
+  s[0] = ptx_mad_lo_cc(a.v[0], a.v[0], 0u);
+  s[1] = ptx_madc_hi_cc(a.v[0], a.v[0], s[1]);
+#pragma unroll
+  for (int i = 1; i < 11; ++i) {
+    s[2 * i] = ptx_madc_lo_cc(a.v[i], a.v[i], s[2 * i]);
+    s[2 * i + 1] = ptx_madc_hi_cc(a.v[i], a.v[i], s[2 * i + 1]);
+  }
+  s[22] = ptx_madc_lo_cc(a.v[11], a.v[11], s[22]);
+  s[23] = ptx_madc_hi(a.v[11], a.v[11], s[23]);
+  // reduce the low half, add the high half
+  uint32_t t[13];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) t[j] = s[j];
+  t[12] = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) fp_redc_row(t, t[0] * FP_NP);
+  t[0] = ptx_add_cc(t[0], s[12]);
+#pragma unroll
+  for (int j = 1; j < 11; ++j) t[j] = ptx_addc_cc(t[j], s[12 + j]);
+  t[11] = ptx_addc(t[11], s[23]);
+  fp_final_sub(r, t);
+}
+
+// The same product and squaring as calls, one copy of their code in the
+// kernel. A function that would inline many products runs them through
+// these, so that its code stays in the SM's instruction cache: a one-thread
+// G1 add inlines 16 (some 300 KB of SASS), a window of K13's powers 5. On the
+// card K10's one-thread adds took 0.31 -> 0.23 ms at [128, 512] and K13 2.06
+// -> 1.67 ms with them (PERF.md); the tower and the round engine inline the
+// product, which there was as fast or faster.
+__device__ __noinline__ void fp_mul_call(fp& r, const fp& a, const fp& b) { fp_mul(r, a, b); }
+__device__ __noinline__ void fp_sqr_call(fp& r, const fp& a) { fp_sqr(r, a); }
 
 // canonical words -> Montgomery form, and back
 __device__ __forceinline__ void fp_load(fp& r, const uint32_t* w) {

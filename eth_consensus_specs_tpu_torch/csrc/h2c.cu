@@ -11,25 +11,41 @@
 //
 // What bounds them on the H100: neither is throughput. A deneb block hashes
 // 128 messages, 256 field elements: a few SMs' worth of threads, each a long
-// chain of dependent Fq products (about 450 instructions each). So the
+// chain of dependent Fq products (some 600 instructions each). So the
 // design keeps each thread's chain short rather than the card busy:
-// - K13 maps one field element a thread (two threads a message; the even one
-//   adds the pair through shared memory). Its Fq2 square root is not JAX's
-//   branchless form but one of two exponentiations per candidate:
-//   sn = N(v)^((p+1)/4), then t = h^((p-3)/4) for h = (a + sn)/2, which is
-//   both 1/sqrt(h) when h is a square and, when it is not, gives the root of
-//   (a - sn)/2 as (b t / 2, -h t) with no inverse (t^2 = -1/h). The SSWU
-//   point does not depend on which root is taken: x is x1 exactly when
-//   g(x1) is a square, and sgn0(y) = sgn0(u) fixes y's sign. The chain is
-//   the inverse of tv2 (one Fermat power) and at most four such powers, the
-//   second pair only in threads whose g(x1) is not a square (a warp runs
-//   both pairs when its threads differ).
+// - K13 maps one field element a thread (two threads a message, a warp a
+//   block; the even thread adds the pair through shared memory), on one root
+//   pair and one GCD inverse a warp, so that every thread of a warp runs the
+//   same two Fq powers:
+//   1. x1 = (-B'/A')(1 + 1/tv2) with 1/tv2 = conj(tv2) / N(tv2). The warp's
+//      32 norms are inverted together (warp_batch_inverse: prefix and suffix
+//      products by shuffles, then one binary extended GCD on plain integers
+//      of their product, on lane 0; the hashed message is public, so a
+//      variable-time inverse is allowed, as in K14). One GCD a warp beat a
+//      GCD a thread (whose steps diverge across the warp) on the card
+//      (PERF.md). So x1 stays affine and the isogeny's Jacobian words stay
+//      the plain version's.
+//   2. s = N(g(x1))^((p+1)/4), one power. g(x1) is a square in Fq2 exactly
+//      when N(g(x1)) is one in Fq, which s^2 = N(g(x1)) tells; otherwise s^2
+//      = -N(g(x1)) (-1 is not a square). Then the candidate is x2 = tv1 x1
+//      with g(x2) = tv1^3 g(x1), and a root of N(g(x2)) = N(Z)^3 N(u)^6
+//      N(g(x1)) follows by products, no power: N(Z) c N(u)^3 s with c^2 =
+//      -N(Z) (SSWU_NORM_C holds N(Z) c).
+//   3. The chosen candidate v = a + b u and its norm root sn give h = (a +
+//      sn)/2 (h = a where that is 0: b = 0 and sn = -a) and one more power,
+//      t = h^((p-3)/4): if x = t h squares to h, the root is (x, b t / 2)
+//      (1/x = t); else t^2 = -1/h and the root of (a - sn)/2 = -b^2/(4h)
+//      gives (b t / 2, -h t). The SSWU point does not depend on which root
+//      is taken: sgn0(y) = sgn0(u) fixes y's sign.
+//   Both powers run 4-bit fixed windows over the table x^0..x^15, their
+//   squarings on fp_sqr; the map's products are calls (fp_mul_call,
+//   fp_sqr_call), which keeps a window's code in the instruction cache
+//   (1.2x faster on the card). The rare branches are carried: tv2 = 0 (u = 0
+//   takes it; x1 = B'/(Z A'), whose g is a square) and a candidate in Fq
+//   (b = 0, where h may be 0; the test entry fq2_sqrt_launch runs the same
+//   root function on such values).
 // - sgn0 reads parity of the plain value: u arrives canonical, y leaves the
 //   Montgomery form (a product by 1) before its parity is read.
-// - Both rare branches are carried: tv2 = 0 (x1 = B'/(Z A'); u = 0 takes
-//   it) and the root of a value in Fq (b = 0: a^((p+1)/4) if it squares
-//   to a, else the root of -a, which is -a^((p+1)/4) since (-1)^((p+1)/4)
-//   = -1, times u). The test entry fq2_sqrt_launch reaches the latter.
 // - K14 runs one point a warp, on the cooperative round engine's G2 family
 //   (curve_coop.cuh), kFinishGroups points a block: the cofactor clearing of
 //   g2_jac.cuh g2_clear_cofactor in its order (two [|x|] ladders, each runs
@@ -144,7 +160,14 @@ __constant__ uint32_t SQRT_EXP[2][12] = {
     {0xffffeaaau, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu, 0x3dac3d89u, 0xd9cc34a8u,
      0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au}};
 
-constexpr int kMapThreads = 32;    // 16 messages a block
+// N(Z) c with c^2 = -N(Z) = -5, c = (-5)^((p+1)/4) (Montgomery), and R^3 mod p
+// (plain words: a product by it takes the GCD's plain inverse of x R to x^-1 R)
+__constant__ uint32_t SSWU_NORM_C[12] = {0x7c72b3a1u, 0xd5ebd442u, 0x2ddcd3e5u, 0x1cd49652u, 0x81eec7dfu,
+     0xbef2fbb7u, 0x7bd484bfu, 0xa7e8879du, 0x147c4f33u, 0x8ae5e5b2u, 0xba7795dau, 0x12c7e800u};
+__constant__ uint32_t FP_R3[12] = {0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu,
+     0x9a53352au, 0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
+
+constexpr int kMapThreads = 32;    // 16 messages a block, one warp (warp_batch_inverse)
 constexpr int kFinishGroups = 4;   // points a block, a warp each
 constexpr int kFinishLanes = 4;    // lanes a product of the doublings
 constexpr int kG2Pt = CurveFam<kFamG2>::kPoint;
@@ -160,181 +183,12 @@ static_assert(coop_op_fits(kProducts_g2_dbl4, kSums_g2_dbl4, 32, kFinishLanes) &
               coop_op_fits(kProducts_g2_add_a1, kSums_g2_add_a1, 32, 1),
               "a G2 op wider than a warp at its lanes");
 
-// a^e for e = SQRT_EXP[which]: (p+1)/4 (which 0) or (p-3)/4 (1), 379 bits
-__device__ __noinline__ void fp_pow_sqrt(fp& r, const fp& a, int which) {
-  fp acc;
-  fp_set(acc, FP_ONE);
-  for (int bit = 378; bit >= 0; --bit) {
-    fp_sqr(acc, acc);
-    if ((SQRT_EXP[which][bit >> 5] >> (bit & 31)) & 1u) fp_mul(acc, acc, a);
-  }
-  r = acc;
-}
-
-// a square root of v, true if v is a square
-__device__ __noinline__ bool fp2_sqrt(fp2& r, const fp2& v) {
-  fp t0, t1, inv2;
-  fp_set(inv2, FP_INV2);
-  if (fp_is_zero(v.c1)) {
-    if (fp_is_zero(v.c0)) {
-      fp2_zero(r);
-      return true;
-    }
-    fp s;
-    fp_pow_sqrt(s, v.c0, 0);
-    fp_sqr(t0, s);
-    if (fp_eq(t0, v.c0)) {
-      r.c0 = s;
-      fp_zero(r.c1);
-    } else {  // the root of -a is -s; times u
-      fp_zero(r.c0);
-      fp_neg(r.c1, s);
-    }
-    return true;
-  }
-  fp norm, sn, h, t, x;
-  fp_sqr(t0, v.c0);
-  fp_sqr(t1, v.c1);
-  fp_add(norm, t0, t1);
-  fp_pow_sqrt(sn, norm, 0);
-  fp_sqr(t0, sn);
-  if (!fp_eq(t0, norm)) return false;
-  fp_add(h, v.c0, sn);
-  fp_mul(h, h, inv2);  // h != 0 since b != 0
-  fp_pow_sqrt(t, h, 1);
-  fp_mul(x, t, h);
-  fp_sqr(t0, x);
-  if (fp_eq(t0, h)) {  // x = sqrt(h), 1/x = t: root (x, b / (2x))
-    r.c0 = x;
-    fp_mul(t1, v.c1, t);
-    fp_mul(r.c1, t1, inv2);
-  } else {  // (a - sn)/2 = -b^2/(4h) is the square: root (b t / 2, -h t)
-    fp_mul(t1, v.c1, t);
-    fp_mul(r.c0, t1, inv2);
-    fp_mul(t1, h, t);
-    fp_neg(r.c1, t1);
-  }
-  return true;
-}
-
-// RFC 9380 sgn0 (m = 2) of a Montgomery value, on its plain value
-__device__ __forceinline__ uint32_t fp2_sgn0(const fp2& a) {
-  fp one, c0, c1;
-  fp_zero(one);
-  one.v[0] = 1;
-  fp_mul(c0, a.c0, one);
-  fp_mul(c1, a.c1, one);
-  return (c0.v[0] & 1u) | (fp_is_zero(c0) & (c1.v[0] & 1u));
-}
-
-// g(x) = x^3 + A' x + B'
-__device__ __forceinline__ void sswu_g(fp2& r, const fp2& x) {
-  fp2 c, t;
-  fp2_sqr(t, x);
-  fp2_set(c, SSWU_C[0]);
-  fp2_add(t, t, c);
-  fp2_mul(t, t, x);
-  fp2_set(c, SSWU_C[1]);
-  fp2_add(r, t, c);
-}
-
-// affine (x', y') on E2' of u (Montgomery), sgn0(u) given
-__device__ __noinline__ void map_to_curve_sswu(fp2& x, fp2& y, const fp2& u, uint32_t sgn_u) {
-  fp2 c, tv1, tv2, t, x1, gx;
-  fp2_sqr(t, u);
-  fp2_set(c, SSWU_C[2]);
-  fp2_mul(tv1, c, t);
-  fp2_sqr(tv2, tv1);
-  fp2_add(tv2, tv2, tv1);
-  if (fp2_is_zero(tv2)) {
-    fp2_set(x1, SSWU_C[4]);  // B' / (Z A')
-  } else {
-    fp2_inv(t, tv2);
-    fp one;
-    fp_set(one, FP_ONE);
-    fp_add(t.c0, t.c0, one);
-    fp2_set(c, SSWU_C[3]);  // -B' / A'
-    fp2_mul(x1, c, t);
-  }
-  sswu_g(gx, x1);
-  if (fp2_sqrt(y, gx)) {
-    x = x1;
-  } else {
-    fp2_mul(x, tv1, x1);
-    sswu_g(gx, x);
-    fp2_sqrt(y, gx);  // g(x1) g(x2) = tv1^3 g(x1)^2: one of the two is a square
-  }
-  if (fp2_sgn0(y) != sgn_u) fp2_neg(y, y);
-}
-
-// sum_i K[first + i] x^i for the n coefficients, Horner
-__device__ __forceinline__ void iso_poly(fp2& r, const fp2& x, int first, int n) {
-  fp2 c;
-  fp2_set(r, ISO_K[first + n - 1]);
-  for (int i = n - 2; i >= 0; --i) {
-    fp2_mul(r, r, x);
-    fp2_set(c, ISO_K[first + i]);
-    fp2_add(r, r, c);
-  }
-}
-
-// the 3-isogeny E2' -> E2 into Jacobian coordinates:
-// Z = xd yd, X = xn xd yd^2, Y = y yn xd^3 yd^2 (a pole gives Z = 0)
-__device__ __noinline__ void iso_map_jacobian(g2j& r, const fp2& x, const fp2& y) {
-  fp2 xn, xd, yn, yd, yd2, t;
-  iso_poly(xn, x, 0, 4);
-  iso_poly(xd, x, 4, 3);
-  iso_poly(yn, x, 7, 4);
-  iso_poly(yd, x, 11, 4);
-  fp2_mul(r.Z, xd, yd);
-  fp2_sqr(yd2, yd);
-  fp2_mul(t, xn, xd);
-  fp2_mul(r.X, t, yd2);
-  fp2_sqr(t, xd);
-  fp2_mul(t, t, xd);
-  fp2_mul(t, t, yn);
-  fp2_mul(t, t, y);
-  fp2_mul(r.Y, t, yd2);
-}
-
-// canonical words -> Montgomery, and back
-__device__ __forceinline__ void fp2_load(fp2& r, const uint32_t* w) {
-  fp_load(r.c0, w);
-  fp_load(r.c1, w + 12);
-}
-
-__device__ __forceinline__ void fp2_store(uint32_t* w, const fp2& a) {
-  fp_store(w, a.c0);
-  fp_store(w + 12, a.c1);
-}
-
-__device__ __forceinline__ uint32_t sgn0_words(const uint32_t* w) {
-  uint32_t zero = 0;
-  for (int k = 0; k < 12; ++k) zero |= w[k];
-  return (w[0] & 1u) | ((zero == 0) & (w[12] & 1u));
-}
-
-__global__ __launch_bounds__(kMapThreads) void h2c_map_kernel(
-    const uint32_t* __restrict__ u, uint32_t* __restrict__ out, int64_t n) {
-  __shared__ g2j pts[kMapThreads];
-  const int64_t e = int64_t(blockIdx.x) * kMapThreads + threadIdx.x;  // element 2 m + k
-  const bool live = e < 2 * n;
-  if (live) {
-    const uint32_t* w = u + e * 24;
-    fp2 uu, x, y;
-    fp2_load(uu, w);
-    map_to_curve_sswu(x, y, uu, sgn0_words(w));
-    iso_map_jacobian(pts[threadIdx.x], x, y);
-  }
-  __syncthreads();
-  if (live && (threadIdx.x & 1) == 0) {
-    g2j s;
-    g2_add(s, pts[threadIdx.x], pts[threadIdx.x + 1]);
-    uint32_t* o = out + (e >> 1) * 72;
-    fp2_write(o, s.X);
-    fp2_write(o + 24, s.Y);
-    fp2_write(o + 48, s.Z);
-  }
+// N(v) = v0^2 + v1^2, the norm to Fq
+__device__ __forceinline__ void fp2_norm(fp& n, const fp2& v) {
+  fp t;
+  fp_sqr_call(n, v.c0);
+  fp_sqr_call(t, v.c1);
+  fp_add(n, n, t);
 }
 
 // 12-word helpers of the binary GCD (plain integers, not field elements)
@@ -432,6 +286,240 @@ __device__ __noinline__ void fp_inv_gcd(uint32_t* r, const uint32_t* a) {
   for (int k = 0; k < 12; ++k) r[k] = out[k];
 }
 
+// a^e for e = SQRT_EXP[which]: (p+1)/4 (which 0) or (p-3)/4 (1), 379 bits,
+// in 4-bit fixed windows: the table a^0..a^15 (a squaring and 13 products),
+// then from the top window (94, bits 376..379) four squarings and, for a
+// nonzero digit d, a product by a^d a window
+constexpr int kPowTopWindow = 94;
+__device__ __noinline__ void fp_pow_sqrt(fp& r, const fp& a, int which) {
+  fp tab[16];
+  fp_set(tab[0], FP_ONE);
+  tab[1] = a;
+  fp_sqr_call(tab[2], a);
+  for (int k = 3; k < 16; ++k) fp_mul_call(tab[k], tab[k - 1], a);
+  fp acc = tab[(SQRT_EXP[which][kPowTopWindow >> 3] >> ((kPowTopWindow & 7) * 4)) & 15u];
+  for (int w = kPowTopWindow - 1; w >= 0; --w) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) fp_sqr_call(acc, acc);
+    const uint32_t d = (SQRT_EXP[which][w >> 3] >> ((w & 7) * 4)) & 15u;
+    if (d) fp_mul_call(acc, acc, tab[d]);
+  }
+  r = acc;
+}
+
+// a square root of v = a + b u, a square, from a root sn of N(v): one power
+// of h = (a + sn)/2 (see the header)
+__device__ __noinline__ void fp2_root_from_norm(fp2& r, const fp2& v, const fp& sn) {
+  fp h, t, x, t0, inv2;
+  fp_set(inv2, FP_INV2);
+  fp_add(h, v.c0, sn);
+  fp_mul_call(h, h, inv2);
+  if (fp_is_zero(h)) h = v.c0;  // b = 0, sn = -a: (a - sn)/2 = a
+  fp_pow_sqrt(t, h, 1);
+  fp_mul_call(x, t, h);
+  fp_sqr_call(t0, x);
+  if (fp_eq(t0, h)) {  // x = sqrt(h), 1/x = t: root (x, b / (2x))
+    r.c0 = x;
+    fp_mul_call(t0, v.c1, t);
+    fp_mul_call(r.c1, t0, inv2);
+  } else {  // (a - sn)/2 = -b^2/(4h) is the square: root (b t / 2, -h t)
+    fp_mul_call(t0, v.c1, t);
+    fp_mul_call(r.c0, t0, inv2);
+    fp_mul_call(t0, h, t);
+    fp_neg(r.c1, t0);
+  }
+}
+
+// RFC 9380 sgn0 (m = 2) of a Montgomery value, on its plain value
+__device__ __forceinline__ uint32_t fp2_sgn0(const fp2& a) {
+  fp one, c0, c1;
+  fp_zero(one);
+  one.v[0] = 1;
+  fp_mul_call(c0, a.c0, one);
+  fp_mul_call(c1, a.c1, one);
+  return (c0.v[0] & 1u) | (fp_is_zero(c0) & (c1.v[0] & 1u));
+}
+
+// g(x) = x^3 + A' x + B'
+__device__ __forceinline__ void sswu_g(fp2& r, const fp2& x) {
+  fp2 c, t;
+  fp2_sqr(t, x);
+  fp2_set(c, SSWU_C[0]);
+  fp2_add(t, t, c);
+  fp2_mul(t, t, x);
+  fp2_set(c, SSWU_C[1]);
+  fp2_add(r, t, c);
+}
+
+__device__ __forceinline__ void fp_shfl(fp& r, const fp& a, int src) {
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r.v[k] = __shfl_sync(0xffffffffu, a.v[k], src);
+}
+__device__ __forceinline__ void fp_shfl_up(fp& r, const fp& a, int d) {
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r.v[k] = __shfl_up_sync(0xffffffffu, a.v[k], d);
+}
+__device__ __forceinline__ void fp_shfl_down(fp& r, const fp& a, int d) {
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r.v[k] = __shfl_down_sync(0xffffffffu, a.v[k], d);
+}
+
+// every lane's 1/n for the warp's n (Montgomery, none zero; every lane of
+// the warp calls it): prefix and suffix products by shuffles (5 rounds
+// each), one GCD inverse of the total on lane 0 (its words N R to (N R)^-1,
+// then a product by R^3: N^-1 R), then 1/n_i = (prefix_{i-1} suffix_{i+1})
+// / total
+__device__ __noinline__ void warp_batch_inverse(fp& r, const fp& n) {
+  const int lane = threadIdx.x & 31;
+  fp pre = n, suf = n, t, inv, ex, sx;
+  for (int d = 1; d < 32; d <<= 1) {
+    fp_shfl_up(t, pre, d);
+    if (lane >= d) fp_mul_call(pre, pre, t);
+  }
+  for (int d = 1; d < 32; d <<= 1) {
+    fp_shfl_down(t, suf, d);
+    if (lane + d < 32) fp_mul_call(suf, suf, t);
+  }
+  fp_shfl(t, pre, 31);
+  if (lane == 0) {
+    fp r3;
+    fp_inv_gcd(inv.v, t.v);
+    fp_set(r3, FP_R3);
+    fp_mul_call(inv, inv, r3);
+  }
+  fp_shfl(inv, inv, 0);
+  fp_shfl_up(ex, pre, 1);
+  fp_shfl_down(sx, suf, 1);
+  if (lane == 0) fp_set(ex, FP_ONE);
+  if (lane == 31) fp_set(sx, FP_ONE);
+  fp_mul_call(r, inv, ex);
+  fp_mul_call(r, r, sx);
+}
+
+// affine (x', y') on E2' of u (Montgomery), sgn0(u) given, from the prelude
+// tv1 = Z u^2, tv1^2, tv2 = tv1^2 + tv1 and 1/N(tv2) (ninv; unused where
+// tv2 = 0): the header's steps
+__device__ __noinline__ void map_to_curve_sswu(fp2& x, fp2& y, const fp2& u, uint32_t sgn_u,
+                                               const fp2& tv1, const fp2& tv1_2, const fp2& tv2,
+                                               const fp& ninv) {
+  fp2 c, t, gx;
+  if (fp2_is_zero(tv2)) {
+    fp2_set(x, SSWU_C[4]);  // B' / (Z A')
+  } else {
+    fp m;
+    fp_mul_call(t.c0, tv2.c0, ninv);
+    fp_mul_call(m, tv2.c1, ninv);
+    fp_neg(t.c1, m);
+    fp one;
+    fp_set(one, FP_ONE);
+    fp_add(t.c0, t.c0, one);
+    fp2_set(c, SSWU_C[3]);  // -B' / A'
+    fp2_mul(x, c, t);
+  }
+  sswu_g(gx, x);
+  fp n, s, sn;
+  fp2_norm(n, gx);
+  fp_pow_sqrt(s, n, 0);
+  fp_sqr_call(sn, s);
+  if (fp_eq(sn, n)) {  // g(x1) is a square
+    sn = s;
+  } else {  // x2 = tv1 x1, g(x2) = tv1^3 g(x1), its norm root N(Z) c N(u)^3 s
+    fp2_mul(t, tv1_2, tv1);
+    fp2_mul(gx, t, gx);
+    fp2_mul(x, tv1, x);
+    fp nu, k;
+    fp2_norm(nu, u);
+    fp_sqr_call(sn, nu);
+    fp_mul_call(sn, sn, nu);
+    fp_set(k, SSWU_NORM_C);
+    fp_mul_call(sn, sn, k);
+    fp_mul_call(sn, sn, s);
+  }
+  fp2_root_from_norm(y, gx, sn);
+  if (fp2_sgn0(y) != sgn_u) fp2_neg(y, y);
+}
+
+// sum_i K[first + i] x^i for the n coefficients, Horner
+__device__ __forceinline__ void iso_poly(fp2& r, const fp2& x, int first, int n) {
+  fp2 c;
+  fp2_set(r, ISO_K[first + n - 1]);
+  for (int i = n - 2; i >= 0; --i) {
+    fp2_mul(r, r, x);
+    fp2_set(c, ISO_K[first + i]);
+    fp2_add(r, r, c);
+  }
+}
+
+// the 3-isogeny E2' -> E2 into Jacobian coordinates:
+// Z = xd yd, X = xn xd yd^2, Y = y yn xd^3 yd^2 (a pole gives Z = 0)
+__device__ __noinline__ void iso_map_jacobian(g2j& r, const fp2& x, const fp2& y) {
+  fp2 xn, xd, yn, yd, yd2, t;
+  iso_poly(xn, x, 0, 4);
+  iso_poly(xd, x, 4, 3);
+  iso_poly(yn, x, 7, 4);
+  iso_poly(yd, x, 11, 4);
+  fp2_mul(r.Z, xd, yd);
+  fp2_sqr(yd2, yd);
+  fp2_mul(t, xn, xd);
+  fp2_mul(r.X, t, yd2);
+  fp2_sqr(t, xd);
+  fp2_mul(t, t, xd);
+  fp2_mul(t, t, yn);
+  fp2_mul(t, t, y);
+  fp2_mul(r.Y, t, yd2);
+}
+
+// canonical words -> Montgomery, and back
+__device__ __forceinline__ void fp2_load(fp2& r, const uint32_t* w) {
+  fp_load(r.c0, w);
+  fp_load(r.c1, w + 12);
+}
+
+__device__ __forceinline__ void fp2_store(uint32_t* w, const fp2& a) {
+  fp_store(w, a.c0);
+  fp_store(w + 12, a.c1);
+}
+
+__device__ __forceinline__ uint32_t sgn0_words(const uint32_t* w) {
+  uint32_t zero = 0;
+  for (int k = 0; k < 12; ++k) zero |= w[k];
+  return (w[0] & 1u) | ((zero == 0) & (w[12] & 1u));
+}
+
+__global__ __launch_bounds__(kMapThreads) void h2c_map_kernel(
+    const uint32_t* __restrict__ u, uint32_t* __restrict__ out, int64_t n) {
+  __shared__ g2j pts[kMapThreads];
+  const int64_t e = int64_t(blockIdx.x) * kMapThreads + threadIdx.x;  // element 2 m + k
+  const bool live = e < 2 * n;
+  fp2 uu, x, y, c, t, tv1, tv1_2, tv2;
+  fp nrm;  // N(tv2), one where tv2 = 0 and on idle lanes
+  fp_set(nrm, FP_ONE);
+  if (live) {
+    fp2_load(uu, u + e * 24);
+    fp2_sqr(t, uu);
+    fp2_set(c, SSWU_C[2]);
+    fp2_mul(tv1, c, t);
+    fp2_sqr(tv1_2, tv1);
+    fp2_add(tv2, tv1_2, tv1);
+    if (!fp2_is_zero(tv2)) fp2_norm(nrm, tv2);
+  }
+  fp ninv;
+  warp_batch_inverse(ninv, nrm);  // the whole warp, idle lanes on one
+  if (live) {
+    map_to_curve_sswu(x, y, uu, sgn0_words(u + e * 24), tv1, tv1_2, tv2, ninv);
+    iso_map_jacobian(pts[threadIdx.x], x, y);
+  }
+  __syncthreads();
+  if (live && (threadIdx.x & 1) == 0) {
+    g2j s;
+    g2_add(s, pts[threadIdx.x], pts[threadIdx.x + 1]);
+    uint32_t* o = out + (e >> 1) * 72;
+    fp2_write(o, s.X);
+    fp2_write(o + 24, s.Y);
+    fp2_write(o + 48, s.Z);
+  }
+}
+
 // dest = x^-1 in Montgomery form for x at ``src`` (x R -> x^-1 R), on the
 // calling thread alone: the GCD inverse of the words x R (a lazy value under
 // 3p), then a product by R^3 (the family's r3 constant)
@@ -504,8 +592,16 @@ __global__ void fq2_sqrt_kernel(const uint32_t* __restrict__ v, uint32_t* __rest
   if (i >= n) return;
   fp2 a, r;
   fp2_load(a, v + i * 24);
-  const bool good = fp2_sqrt(r, a);
-  if (!good) fp2_zero(r);
+  fp nrm, s, t;
+  fp2_norm(nrm, a);
+  fp_pow_sqrt(s, nrm, 0);
+  fp_sqr(t, s);
+  const bool good = fp_eq(t, nrm);  // a is a square exactly when its norm is
+  if (good) {
+    fp2_root_from_norm(r, a, s);
+  } else {
+    fp2_zero(r);
+  }
   ok[i] = good ? 1 : 0;
   fp2_store(root + i * 24, r);
 }
@@ -530,7 +626,8 @@ extern "C" int h2c_finish_launch(const void* jac, void* xy, void* inf, int64_t n
   return static_cast<int>(cudaGetLastError());
 }
 
-// v, root: u32[n, 2, 12] canonical; ok: int32[n]. The square root of K13 alone.
+// v, root: u32[n, 2, 12] canonical; ok: int32[n]. K13's square root alone:
+// the norm's power, then fp2_root_from_norm.
 extern "C" int fq2_sqrt_launch(const void* v, void* root, void* ok, int64_t n,
                                cudaStream_t stream) {
   if (n < 1 || n > (int64_t(1) << 30)) return static_cast<int>(cudaErrorInvalidValue);

@@ -13,8 +13,9 @@ odd r_i. The flow of ``verify_many`` and ``batch_verify_aggregates``:
 1. parse every item (``_parse_item``): the keys through the cached,
    validated ``_load_pk`` (a malformed, infinity or off-subgroup key rejects
    its item), the signature through ``_load_sig``;
-2. K10 sums every item's committee in one launch (``g1_msm.sum_many``);
-   each sum is multiplied by its r_i on the host;
+2. K10 sums every item's committee in one call (``g1_msm.sum_many``: a
+   lanes pass and the fold at 512 lanes, ``len(sum_plan(L)) + 1``
+   launches); each sum is multiplied by its r_i on the host;
 3. items that share a message merge into one pair; the distinct messages
    are hashed to G2 (cached, at most 512 entries): when more than one is
    new, by K13 and K14 on the card (``h2c_device.hash_to_g2_device``, the

@@ -134,21 +134,62 @@ def _check_sum_args(X, Y, Z) -> None:
         raise ValueError("X, Y and Z must have one shape")
 
 
+# K10's plan, here alone: the build renders it into csrc/g1_sum.cu's
+# generated header (``sum_plan_header``)
+SUM_FOLD_PARTIALS = 32  # partials an item K10's fold takes
+SUM_PASS_LEVELS = 8  # levels a K10 lanes pass takes at most
+
+
+def sum_plan_header() -> str:
+    """The text of ``g1_sum_plan.cuh``, which ``_ext`` writes before the
+    build: K10's fold width and pass depth as ``csrc/g1_sum.cu`` takes them."""
+    return "\n".join([
+        "// Generated by eth_consensus_specs_tpu_torch/ops/g1_msm.py at build time:",
+        "// K10's plan (sum_plan), for csrc/g1_sum.cu.",
+        "#pragma once",
+        f"constexpr int kFoldPartials = {SUM_FOLD_PARTIALS};  // partials an item the fold takes",
+        f"constexpr int kPassLevels = {SUM_PASS_LEVELS};  // levels a lanes pass takes at most",
+        "",
+    ])
+
+
+def sum_plan(lanes: int) -> list[int]:
+    """The levels of each of K10's lanes passes for an item of ``lanes``
+    lanes, before its fold takes the last log2(SUM_FOLD_PARTIALS) levels or
+    fewer; a call launches ``len(sum_plan(lanes)) + 1`` kernels."""
+    rest = max(0, lanes.bit_length() - SUM_FOLD_PARTIALS.bit_length())
+    plan = []
+    while rest:
+        plan.append(min(SUM_PASS_LEVELS, rest))
+        rest -= plan[-1]
+    return plan
+
+
 def sum_many(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """Per-item Jacobian sums of ``[I, L, 12]`` lanes (L a power of two)
     -> ``int32[I, 3, 12]``, both in the card's Montgomery words.
 
-    CUDA tensors go through kernel K10 (``csrc/g1_sum.cu``, one block per
-    item, one launch); CPU tensors through the plain version."""
+    CUDA tensors go through kernel K10 (``csrc/g1_sum.cu``: a lanes pass a
+    launch, one thread an add, while more than SUM_FOLD_PARTIALS partials
+    an item remain, then the fold, a warp an add on the round engine; each
+    launch counts under ``g1_sum``); CPU tensors through the plain
+    version."""
     _check_sum_args(X, Y, Z)
     if X.device.type == "cpu":
         return sum_many_ref(X, Y, Z)
     for t in (X, Y, Z):
         _ext.check_cuda(t, torch.int32)
-    items, lanes = X.shape[0], X.shape[1]
+    items, n = X.shape[0], X.shape[1]
+    for r in sum_plan(n):
+        part = torch.empty((3, items, n >> r, N_WORDS), dtype=torch.int32, device=X.device)
+        _ext.launch("g1_sum", "g1_sum_lanes_launch", X.device, _ext.ptr(X), _ext.ptr(Y),
+                    _ext.ptr(Z), _ext.ptr(part[0]), _ext.ptr(part[1]), _ext.ptr(part[2]), items,
+                    n, r)
+        X, Y, Z = part
+        n >>= r
     out = torch.empty((items, 3, N_WORDS), dtype=torch.int32, device=X.device)
-    _ext.launch("g1_sum", "g1_sum_many_launch", X.device, _ext.ptr(X), _ext.ptr(Y), _ext.ptr(Z),
-                _ext.ptr(out), items, lanes)
+    _ext.launch("g1_sum", "g1_sum_fold_launch", X.device, _ext.ptr(X), _ext.ptr(Y), _ext.ptr(Z),
+                _ext.ptr(out), items, n)
     return out
 
 
@@ -402,7 +443,11 @@ def msm_g1_many_device(point_lists: list[list[Point]], scalar_lists: list[list[i
                        device=None) -> list[Point]:
     """Independent full-scalar MSMs for many items in one launch on
     ``device`` (the card by default): ``[msm_g1(points, scalars) for
-    ...]``, the KZG RLC fold's two lincombs."""
+    ...]``, the KZG RLC fold's two lincombs. The points must lie in G1:
+    K17 splits each scalar by G1's endomorphism, which gives k P only in
+    the r-torsion (the JAX double-and-add takes any point of E1; on one
+    outside G1 the two agree only after cofactor clearing). Callers pass
+    subgroup-checked points; nothing here checks them."""
     if not point_lists:
         return []
     dev = default_device(device)
@@ -413,7 +458,8 @@ def msm_g1_many_device(point_lists: list[list[Point]], scalar_lists: list[list[i
 def msm_g1_device(points: list[Point], scalars: list[int], device=None) -> Point:
     """sum_i scalars[i] * points[i] on ``device``: unit scalars take the
     point sum (K10), as JAX ``msm_g1_device`` routes them to ``sum_kernel``;
-    any other scalars one item of K17."""
+    any other scalars one item of K17, whose points must lie in G1 (see
+    ``msm_g1_many_device``)."""
     if len(points) != len(scalars):
         raise ValueError("one scalar per point")
     if not points:

@@ -307,6 +307,169 @@ def fq2_sqrt(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return root, ok
 
 
+# ------------------------------------------- K13's steps on host ints --
+#
+# csrc/h2c.cu map_to_curve_sswu in its order, on canonical ints (the card's
+# Montgomery words are these values times R), counting the Fq products the
+# kernel takes: a CPU test holds it against the host SSWU map, and
+# chip_smoke.py takes the counts for K13's design chain.
+
+POW_WINDOW = 4  # bits of a window of K13's two powers
+
+
+def _n_zz() -> int:
+    return (h2c.Z_SSWU.c0.n ** 2 + h2c.Z_SSWU.c1.n ** 2) % P_INT
+
+
+# N(Z) c with c = (-N(Z))^((p+1)/4), a root of -N(Z) (csrc/h2c.cu SSWU_NORM_C)
+SSWU_NORM_C = _n_zz() * pow(P_INT - _n_zz(), E_SQRT, P_INT) % P_INT
+
+
+class _Steps:
+    """Host Fq and Fq2 arithmetic as the kernel's one thread runs it (Fq2
+    products Karatsuba, 3 Fq products; squarings 2), counting products."""
+
+    def __init__(self):
+        self.products = 0
+
+    def mul(self, a: int, b: int) -> int:
+        self.products += 1
+        return a * b % P_INT
+
+    def mul2(self, a, b):
+        t0, t1 = self.mul(a[0], b[0]), self.mul(a[1], b[1])
+        full = self.mul(a[0] + a[1], b[0] + b[1])
+        return ((t0 - t1) % P_INT, (full - t0 - t1) % P_INT)
+
+    def sqr2(self, a):
+        t = self.mul(a[0] + a[1], a[0] - a[1])
+        return (t, 2 * self.mul(a[0], a[1]) % P_INT)
+
+    def norm(self, a) -> int:
+        return (self.mul(a[0], a[0]) + self.mul(a[1], a[1])) % P_INT
+
+    def pow(self, x: int, e: int) -> int:
+        """x^e in fixed windows of POW_WINDOW bits from the top window: the
+        table x^0..x^15 (a squaring and 13 products), then four squarings
+        and, for a nonzero digit, a product a window (fp_pow_sqrt)."""
+        table = [1, x, self.mul(x, x)]
+        for _ in range(3, 1 << POW_WINDOW):
+            table.append(self.mul(table[-1], x))
+        top = (e.bit_length() - 1) // POW_WINDOW
+        acc = table[(e >> (POW_WINDOW * top)) & 15]
+        for w in range(top - 1, -1, -1):
+            for _ in range(POW_WINDOW):
+                acc = self.mul(acc, acc)
+            d = (e >> (POW_WINDOW * w)) & 15
+            if d:
+                acc = self.mul(acc, table[d])
+        return acc
+
+    def root_from_norm(self, v, sn: int):
+        """A root of the square v = a + b u from a root sn of N(v): one
+        power of h = (a + sn)/2 (fp2_root_from_norm)."""
+        inv2 = pow(2, P_INT - 2, P_INT)
+        h = self.mul(v[0] + sn, inv2)
+        if h == 0:
+            h = v[0]
+        t = self.pow(h, (P_INT - 3) // 4)
+        x = self.mul(t, h)
+        if self.mul(x, x) == h:
+            return (x, self.mul(self.mul(v[1], t), inv2))
+        return (self.mul(self.mul(v[1], t), inv2), (-self.mul(h, t)) % P_INT)
+
+
+WARP = 32  # K13's elements a warp, which share one inverse
+# a lane's products in warp_batch_inverse: at most 5 + 5 in the prefix and
+# suffix scans, lane 0's product by R^3 after the GCD, the two of 1/n_i
+BATCH_INVERSE_PRODUCTS = 13
+
+
+def warp_inverse(norms: list[int]) -> tuple[list[int], int]:
+    """K13's ``warp_batch_inverse`` on host ints: the inverses of a warp's
+    norms (values, none zero; a lane with tv2 = 0 or no element holds 1)
+    by prefix and suffix products, the binary GCD of the total's Montgomery
+    words (x R -> (x R)^-1, then a product by R^3: x^-1 R, the value x^-1)
+    and two products a lane; and the GCD's steps."""
+    from .fq12_coop import gcd_inverse
+
+    n = list(norms) + [1] * (WARP - len(norms))
+    pre, suf = n[:], n[:]
+    d = 1
+    while d < WARP:  # Hillis-Steele scans, as the shuffles run them
+        pre = [pre[i] * pre[i - d] % P_INT if i >= d else pre[i] for i in range(WARP)]
+        suf = [suf[i] * suf[i + d] % P_INT if i + d < WARP else suf[i] for i in range(WARP)]
+        d *= 2
+    r = 1 << 384
+    inv_total, steps = gcd_inverse(pre[-1] * r % P_INT)
+    inv_total = inv_total * r % P_INT
+    out = [inv_total * (pre[i - 1] if i else 1) % P_INT * (suf[i + 1] if i + 1 < WARP else 1)
+           % P_INT for i in range(WARP)]
+    return out[: len(norms)], steps
+
+
+def tv2_norm(u: list[int]) -> int:
+    """N(tv2) of one element u (canonical ints), tv2 = Z^2 u^4 + Z u^2: the
+    value K13's warp inverts (1 where tv2 = 0)."""
+    st = _Steps()
+    Z = tuple(_CONST_INTS["Z"])
+    tv1 = st.mul2(Z, st.sqr2(tuple(v % P_INT for v in u)))
+    tv1_2 = st.sqr2(tv1)
+    tv2 = tuple((a + b) % P_INT for a, b in zip(tv1_2, tv1))
+    return st.norm(tv2) if tv2 != (0, 0) else 1
+
+
+def map_steps(u: list[int], ninv: int | None = None) -> tuple[tuple, tuple, int]:
+    """(x, y, Fq products) of K13's SSWU map of one element u = [c0, c1]
+    (canonical ints), in the kernel's step order: the prelude, the tv2
+    inverse from ``ninv`` = 1/N(tv2) (the warp's, ``warp_inverse``; taken
+    here by Fermat where not given, counted as a lane's share of the warp's
+    inverse, BATCH_INVERSE_PRODUCTS), the norm power of g(x1) that also
+    decides the candidate, g(x2)'s norm root by products with SSWU_NORM_C,
+    one h power, sgn0."""
+    st = _Steps()
+    A, B, Z = (tuple(_CONST_INTS[k]) for k in ("A", "B", "Z"))
+    u = tuple(v % P_INT for v in u)
+    tv1 = st.mul2(Z, st.sqr2(u))
+    tv1_2 = st.sqr2(tv1)
+    tv2 = tuple((a + b) % P_INT for a, b in zip(tv1_2, tv1))
+    if tv2 != (0, 0):
+        st.norm(tv2)
+    st.products += BATCH_INVERSE_PRODUCTS
+    if tv2 == (0, 0):
+        x = tuple(_CONST_INTS["b_over_za"])
+    else:
+        if ninv is None:
+            ninv = pow(tv2_norm(u), P_INT - 2, P_INT)
+        t = (st.mul(tv2[0], ninv), (-st.mul(tv2[1], ninv)) % P_INT)
+        x = st.mul2(tuple(_CONST_INTS["neg_b_over_a"]), ((t[0] + 1) % P_INT, t[1]))
+
+    def g(x):
+        x2 = st.sqr2(x)
+        t = st.mul2(((x2[0] + A[0]) % P_INT, (x2[1] + A[1]) % P_INT), x)
+        return ((t[0] + B[0]) % P_INT, (t[1] + B[1]) % P_INT)
+
+    gx = g(x)
+    n = st.norm(gx)
+    s = st.pow(n, E_SQRT)
+    if st.mul(s, s) == n:
+        sn = s
+    else:
+        gx = st.mul2(st.mul2(tv1_2, tv1), gx)
+        x = st.mul2(tv1, x)
+        nu = st.norm(u)
+        sn = st.mul(st.mul(st.mul(st.mul(nu, nu), nu), SSWU_NORM_C), s)
+    y = st.root_from_norm(gx, sn)
+    st.products += 2  # sgn0(y): y leaves the Montgomery form
+
+    def sgn0(a):
+        return (a[0] & 1) | ((a[0] == 0) & (a[1] & 1))
+
+    if sgn0(y) != sgn0(u):
+        y = ((-y[0]) % P_INT, (-y[1]) % P_INT)
+    return x, y, st.products
+
+
 # ------------------------------------------------------------- host side --
 
 

@@ -392,7 +392,7 @@ def test_g1_sum_kernel(cuda, lanes):
     X, Y, Z = (torch.from_numpy(a) for a in g1_msm.pack_lanes(lists, lanes))
     _ext.reset_launches()
     got = g1_msm.sum_many(X.to(cuda), Y.to(cuda), Z.to(cuda))
-    assert _ext.launches["g1_sum"] == 1
+    assert _ext.launches["g1_sum"] == len(g1_msm.sum_plan(lanes)) + 1
     assert torch.equal(got, g1_msm.sum_many_ref(X.to(cuda), Y.to(cuda), Z.to(cuda)))
     want = []
     for pts in lists:
@@ -400,6 +400,61 @@ def test_g1_sum_kernel(cuda, lanes):
         for p in pts:
             acc = acc + p
         want.append(acc)
+    assert g1_msm.sums_to_points(got) == want
+
+
+# K10's split: lanes passes of one thread an add, then the fold a warp an
+# add; the shapes of a block, agg_slot's tiers and the slot, an electra block
+@pytest.mark.parametrize("items, lanes", [(1, 512), (64, 512), (128, 512), (8, 32768), (3, 1),
+                                          (3, 2)])
+def test_g1_sum_kernel_split_shapes(cuda, items, lanes):
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g1_infinity
+    from eth_consensus_specs_tpu_torch.crypto.fields import R
+    from eth_consensus_specs_tpu_torch.ops import g1_msm
+
+    # lanes as signed multiples s of G (0: infinity), so the host sum is one
+    # scalar multiple
+    g = g1_generator()
+    lists = [[(i + j) % 64 + 11 for j in range(lanes)] for i in range(items)]
+    # corners on different levels of the split (B = min(lanes, 32) partials
+    # meet in the fold): P + P and P + (-P) at the first level; both in a
+    # lanes pass's last level (lanes 0 and B of an item of infinity); both
+    # in the fold's first two levels (lanes 1 and 1 + B/2, 2 and 2 + B/4);
+    # every other lane at infinity; an item all at infinity; a ragged item
+    B = min(lanes, g1_msm.SUM_FOLD_PARTIALS)
+    p, q = 14, 15
+    for i, sc in enumerate(lists):
+        c = (i + 3) % 6
+        if c == 0 and lanes >= 2:
+            sc[1] = sc[1 + lanes // 2] = p
+        elif c == 1 and lanes >= 2:
+            sc[0], sc[lanes // 2] = p, -p
+        elif c == 2 and lanes > B:
+            sc[:] = [0] * lanes
+            sc[0] = sc[B] = p
+            sc[3], sc[3 + B] = q, -q
+        elif c == 3 and lanes >= 8:
+            sc[:] = [0] * lanes
+            sc[1], sc[1 + B // 2] = p, -p
+            sc[2] = sc[2 + B // 4] = q
+        elif c == 4:
+            sc[::2] = [0] * len(sc[::2])
+        elif c == 5:
+            sc[:] = [0] * lanes
+    if items > 1:
+        lists[-1] = lists[-1][: max(1, lanes // 3)]
+    cache = {0: g1_infinity()}
+    for sc in lists:
+        for k in sc:
+            if k not in cache:
+                cache[k] = g.mul(abs(k)) if k > 0 else -g.mul(-k)
+    pts = [[cache[k] for k in sc] for sc in lists]
+    X, Y, Z = (torch.from_numpy(a).to(cuda) for a in g1_msm.pack_lanes(pts, lanes))
+    _ext.reset_launches()
+    got = g1_msm.sum_many(X, Y, Z)
+    assert _ext.launches["g1_sum"] == len(g1_msm.sum_plan(lanes)) + 1
+    assert torch.equal(got, g1_msm.sum_many_ref(X, Y, Z))
+    want = [g.mul(sum(sc) % R) if sum(sc) % R else g1_infinity() for sc in lists]
     assert g1_msm.sums_to_points(got) == want
 
 
@@ -523,6 +578,47 @@ def test_h2c_kernels(cuda, n):
     assert hd.hash_to_g2_device(msgs[:3], device=cuda) == [hash_to_g2(m) for m in msgs[:3]]
 
 
+def test_h2c_map_square_and_non_square_in_one_warp(cuda):
+    """K13's one warp (16 messages, 32 elements) holds elements whose g(x1)
+    is a square and elements whose g(x1) is not, alternating, and u = 0 and
+    u with c1 = 0 among them: the words equal the plain version's and the
+    points the host map's."""
+    import random
+
+    from eth_consensus_specs_tpu_torch.crypto import hash_to_curve as h2c
+    from eth_consensus_specs_tpu_torch.crypto.fields import P, Fq, Fq2
+    from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
+    from eth_consensus_specs_tpu_torch.ops import h2c_device as hd
+
+    def g_x1_square(u):
+        tv1 = h2c.Z_SSWU * u.square()
+        tv2 = tv1.square() + tv1
+        if tv2.is_zero():
+            return True
+        x1 = (-h2c.B_PRIME) * h2c.A_PRIME.inv() * (Fq2.one() + tv2.inv())
+        return ((x1.square() + h2c.A_PRIME) * x1 + h2c.B_PRIME).sqrt() is not None
+
+    rnd = random.Random(13)
+    pools = {True: [], False: []}
+    while min(len(v) for v in pools.values()) < 15:
+        u = [rnd.randrange(P), rnd.randrange(P)]
+        pools[g_x1_square(Fq2.from_ints(*u))].append(u)
+    elems = [[0, 0], [12345, 0]] + [pools[k % 2 == 0][k // 2] for k in range(30)]
+    kinds = [g_x1_square(Fq2.from_ints(*e)) for e in elems]
+    assert any(kinds) and not all(kinds)
+    rows = [elems[2 * m: 2 * m + 2] for m in range(16)]
+    u = torch.from_numpy(fl.ints_to_words(rows)).to(cuda)
+    _ext.reset_launches()
+    jac = hd.h2c_map(u)
+    assert _ext.launches["h2c_map"] == 1
+    assert torch.equal(jac, hd.h2c_map_ref(u))
+    xy, inf = hd.h2c_finish(jac)
+    want = [h2c.clear_cofactor_g2(h2c.map_to_curve_g2(Fq2(Fq(a[0]), Fq(a[1])))
+                                  + h2c.map_to_curve_g2(Fq2(Fq(b[0]), Fq(b[1]))))
+            for a, b in rows]
+    assert hd.points_from_words(xy, inf) == want
+
+
 def test_fq2_sqrt_kernel(cuda):
     from eth_consensus_specs_tpu_torch.crypto.fields import P, Fq, Fq2
     from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
@@ -565,10 +661,24 @@ def test_aggregate_slot_on_card(cuda):
     from eth_consensus_specs_tpu_torch.inputs import slot_committees
     from eth_consensus_specs_tpu_torch.ops import agg_tree, bls_batch
 
+    from eth_consensus_specs_tpu_torch.ops import g1_msm
+
     atts, bad = slot_committees(256, 8, 16, n_roots=2, invalid=2)
+    lanes, sum_many = [], g1_msm.sum_many
+
+    def recorded(X, Y, Z):
+        lanes.append(X.shape[1])
+        return sum_many(X, Y, Z)
+
     _ext.reset_launches()
-    slot, subs = agg_tree.aggregate_slot(atts, device=cuda)
-    assert _ext.launches["g2_sum"] == 8 + 2 and _ext.launches["g1_sum"] == 8 + 2
+    g1_msm.sum_many = recorded
+    try:
+        slot, subs = agg_tree.aggregate_slot(atts, device=cuda)
+    finally:
+        g1_msm.sum_many = sum_many
+    # 8 + 2 tiers, each K10 call len(sum_plan(L)) + 1 launches
+    assert _ext.launches["g2_sum"] == 8 + 2 and len(lanes) == 8 + 2
+    assert _ext.launches["g1_sum"] == sum(len(g1_msm.sum_plan(n)) + 1 for n in lanes)
     hslot, hsubs = agg_tree.aggregate_slot_host(atts)
     assert [(s.sig, s.pubkey, s.bits.tolist()) for s in slot] == \
         [(s.sig, s.pubkey, s.bits.tolist()) for s in hslot]

@@ -110,6 +110,46 @@ def test_running_sums_of_several_lanes_a_thread():
     assert g1_msm.sums_to_points(wide) == want
 
 
+def _point_outside_g1():
+    """The point of E1 (y^2 = x^3 + 4) with the least x >= 1, not in G1."""
+    from eth_consensus_specs_tpu_torch.crypto.curve import B1, Point
+    from eth_consensus_specs_tpu_torch.crypto.fields import P, Fq
+
+    x = 1
+    while pow((x ** 3 + 4) % P, (P - 1) // 2, P) != 1:
+        x += 1
+    y = pow((x ** 3 + 4) % P, (P + 1) // 4, P)
+    pt = Point(Fq(x), Fq(y), B1)
+    assert not pt.mul(R).is_infinity()  # outside the r-torsion
+    return pt
+
+
+def test_points_outside_g1_differ_from_jax_until_cofactor_clearing():
+    """K17 (and its plain twin) splits scalars by G1's endomorphism, which
+    gives k P only for P in G1 (the wrappers' stated precondition); the JAX
+    double-and-add gives k P on all of E1. On a point of E1 outside G1 the
+    two differ, and agree once the cofactor h1 = (x - 1)^2 / 3 clears the
+    part outside the r-torsion. The JAX side runs at the file's one compiled
+    shape."""
+    from eth_consensus_specs_tpu.crypto.curve import B1 as JB1
+    from eth_consensus_specs_tpu.crypto.curve import Point as JPoint
+    from eth_consensus_specs_tpu.crypto.fields import Fq as JFq
+
+    h1 = (0xD201000000010000 + 1) ** 2 // 3  # (x - 1)^2 / 3 for x = -0xd201000000010000
+    pt = _point_outside_g1()
+    jpt = JPoint(JFq(pt.x.n), JFq(pt.y.n), JB1)
+    key = g1_keys(1, first=9)[0]
+    scalars = [random.Random(17).randrange(R), 5]
+    port = g1_msm.msm_g1_many_device([[pt, key]], [scalars], device="cpu")[0]
+    assert port == g1_msm.msm_g1_device([pt, key], scalars, device="cpu")
+    jax = jg.msm_g1_many_device([[jpt, _jax_points([key])[0]]], [scalars],
+                                pad_shape=JAX_SHAPE)[0]
+    assert (port.x.n, port.y.n) != (jax.x.n, jax.y.n)
+    cleared, jcleared = port.mul(h1), jax.mul(h1)
+    assert not cleared.is_infinity()
+    assert (cleared.x.n, cleared.y.n) == (jcleared.x.n, jcleared.y.n)
+
+
 def test_unit_scalars_take_the_point_sum(monkeypatch):
     keys = g1_keys(5)
     calls = []

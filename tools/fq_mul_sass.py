@@ -1,13 +1,16 @@
-"""Count the SASS instructions of one Fq product on 1, 2 and 4 lanes.
+"""Count the SASS instructions of one Fq product on 1, 2 and 4 lanes, and of
+one Fq squaring.
 
 Compiles, for ``sm_90a`` at the kernels' optimisation level, small kernels
 that each run K chained Montgomery products ``a = a * b`` through
 ``csrc/fp12_coop.cuh``'s ``coop_mul<L>`` (``fp_mul`` of ``bls_fp.cuh`` on
-one lane), disassembles them with ``cuobjdump -sass`` and prints one JSON
-line: per L, the instructions one lane issues for one product, (count at
-K = 3 - count at K = 1) / 2, so that the kernels' loads, stores and set-up
-cancel, and the L lanes' sum. NOPs are not counted. ``chip_smoke.py``'s
-chain bounds of K11 and K12 take these counts (``FQ_MUL_LANE_INSTR``).
+one lane), and K chained squarings ``a = a^2`` through ``fp_sqr``,
+disassembles them with ``cuobjdump -sass`` and prints one JSON line: per L,
+the instructions one lane issues for one product, (count at K = 3 - count
+at K = 1) / 2, so that the kernels' loads, stores and set-up cancel, and
+the L lanes' sum; the same for the squaring under ``"sqr"``. NOPs are not
+counted. ``chip_smoke.py``'s one-lane bounds take the one-lane product's
+count (``FQ_MUL_SASS``).
 
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``) and no card:
 
@@ -46,9 +49,21 @@ __device__ __forceinline__ void chain(const uint32_t* in, uint32_t* out) {
 #pragma unroll
   for (int k = 0; k < 12; ++k) out[threadIdx.x * 12 + k] = a.v[k];
 }
+template <int K>
+__device__ __forceinline__ void sqr_chain(const uint32_t* in, uint32_t* out) {
+  fp a;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) a.v[k] = in[k];
+#pragma unroll
+  for (int i = 0; i < K; ++i) fp_sqr(a, a);
+#pragma unroll
+  for (int k = 0; k < 12; ++k) out[threadIdx.x * 12 + k] = a.v[k];
+}
 """
 KERNEL = ('extern "C" __global__ void chain_l{L}_k{K}(const uint32_t* in, uint32_t* out) '
           "{{ chain<{L}, {K}>(in, out); }}\n")
+SQR_KERNEL = ('extern "C" __global__ void sqr_k{K}(const uint32_t* in, uint32_t* out) '
+              "{{ sqr_chain<{K}>(in, out); }}\n")
 INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);")
 
 
@@ -73,7 +88,8 @@ def main() -> int:
     work = _ext.BUILD_DIR / "sass"
     work.mkdir(parents=True, exist_ok=True)
     src = work / "fq_mul_sass.cu"
-    src.write_text(SOURCE + "".join(KERNEL.format(L=L, K=K) for L in LANES for K in CHAINS))
+    src.write_text(SOURCE + "".join(KERNEL.format(L=L, K=K) for L in LANES for K in CHAINS)
+                   + "".join(SQR_KERNEL.format(K=K) for K in CHAINS))
     cubin = work / "fq_mul_sass.cubin"
     nvcc = _ext._nvcc()
     subprocess.run([nvcc, "-O3", "-arch=sm_90a", "-std=c++17", "-cubin", "-I", str(_ext.CSRC),
@@ -86,8 +102,10 @@ def main() -> int:
         one, three = n[f"chain_l{L}_k1"], n[f"chain_l{L}_k3"]
         per_lane = (three - one) / 2
         lanes[L] = {"per_lane": per_lane, "all_lanes": per_lane * L, "k1": one, "k3": three}
+    one, three = n["sqr_k1"], n["sqr_k3"]
+    sqr = {"per_lane": (three - one) / 2, "k1": one, "k3": three}
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
-    print(json.dumps({"nvcc": version.strip().splitlines()[-1], "lanes": lanes}))
+    print(json.dumps({"nvcc": version.strip().splitlines()[-1], "lanes": lanes, "sqr": sqr}))
     return 0
 
 
