@@ -136,8 +136,10 @@ messages plus rows holding u = 0 and u with c1 = 0 (against the host
 ``hash_to_g2`` and ``map_to_curve_g2``; K13's square root alone also on
 values in Fq, the branch no message is known to reach), and K15
 (g2_sum_many at ``agg_slot``'s tier shapes [1, 512], [64, 1] and [2, 32],
-at [64, 512] and on corner items: all infinity, one lane, P + P, P - P,
-ragged, against the host ``_sum_g2``; ``agg_slot`` holds K15 and K10 word
+at [64, 512], each shape's launches a call against its plan's passes, and
+on corner items: all infinity, one lane, P + P, P - P, ragged, sums that
+meet across the passes' boundaries, against the host ``_sum_g2``;
+``agg_slot`` holds K15 and K10 word
 for word against their plain versions again on each tier's own points),
 K16 (fr_fft at the flush's [64, 4096] inverse, the das cell's [16, 8192]
 both ways and n = 2, 4, 16, on dense rows and corner rows, word for word
@@ -153,7 +155,8 @@ corner of ``inputs.block_slot_corners``: a window that wraps, full and partial
 payloads, repeated rows, unpaid runs, the proposer in the sync committee,
 repeated sync indices, duplicate deposits, values at and above 2^63, an
 all-pad slot) and K20 (final_exp_gt on 4 Miller values, against its plain
-version and the host ``final_exponentiation``; K12's verdict against K20 == 1).
+version and the host ``final_exponentiation``, over 20 repeated launches;
+K12's verdict against K20 == 1).
 Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own paths, the state_inc main path
@@ -1810,6 +1813,7 @@ AGG_COMMITTEE = AGG_VALIDATORS // 32 // AGG_SUBNETS  # 512: mainnet's committee
 AGG_ATTESTERS = AGG_VALIDATORS // 32  # one slot's attesters
 AGG_ROOTS = 2
 AGG_INVALID = 2
+K15_CORNER_ITEMS = 16  # with 512 lanes, enough adds for K15's plan to take a lanes pass
 AGG_TIMED = 3
 
 
@@ -1909,6 +1913,7 @@ def check_g2_kernels(dev):
     the host oracle."""
     import torch
 
+    from eth_consensus_specs_tpu_torch import _ext
     from eth_consensus_specs_tpu_torch.crypto.curve import g2_generator, g2_infinity
     from eth_consensus_specs_tpu_torch.crypto.fields import P, Fq, Fq2
     from eth_consensus_specs_tpu_torch.crypto.hash_to_curve import (
@@ -2017,21 +2022,43 @@ def check_g2_kernels(dev):
         want_sums = [g.mul(sum(range(i * lanes + 1, (i + 1) * lanes + 1))) for i in range(items)]
         if ga.sums_to_points(out) != want_sums:
             raise RuntimeError(f"g2_sum_many [{items}, {lanes}] differs from the host sums")
+        repeats_equal(f"g2_sum_many [{items}, {lanes}]", lambda: ga.g2_sum_many(X, Y, Z), out)
+        before = _ext.launches["g2_sum"]
+        ga.g2_sum_many(X, Y, Z)
+        launches_a_call = _ext.launches["g2_sum"] - before
+        plan = ga.sum_plan(items, lanes)
+        if launches_a_call != len(plan):
+            raise RuntimeError(f"g2_sum_many [{items}, {lanes}] launched {launches_a_call} "
+                               "kernels, not its plan's passes")
         products = items * (lanes - 1) * FQ_PER_G2_ADD
         serial = (lanes.bit_length() - 1) * FQ_PER_G2_ADD
-        b_ms, b_by = fq_bound(products, serial)
+        rounds = (lanes.bit_length() - 1) * CURVE_ADD_ROUNDS
+        b_ms, b_by = round_bound(rounds, products)
         b_bytes = (3 * items * lanes + 3 * items) * 96 / HBM_BYTES_PER_S * 1e3
         shapes[(items, lanes)] = dict(
             shape=[items, lanes], max_abs_err=err, ms=cuda_ms(lambda: ga.g2_sum_many(X, Y, Z),
                                                               repeats=10),
+            device_ms=device_ms(lambda: ga.g2_sum_many(X, Y, Z), ("g2_sum_", "void g2_sum_")),
             plain_ms=cuda_ms(lambda: ga.g2_sum_many_ref(X, Y, Z), 1),
             bound_ms=max(b_ms, b_bytes), bound_by=b_by if b_ms >= b_bytes else "bytes",
-            fq_products=products, serial_fq_products=serial, host_checked=items)
-    p, inf = pts[5], g2_infinity()
+            product_rounds=rounds, round_instr=FQ_ROUND_INSTR,
+            one_lane_bound_ms=round_bound(rounds, products, FQ_MUL_SASS)[0],
+            serial_bound_ms=fq_bound(products, serial)[0], fq_products=products,
+            serial_fq_products=serial, host_checked=items, launches_a_call=launches_a_call,
+            plan=plan, repeats_equal=REPEATS)
+    # corners, padded to K15_CORNER_ITEMS items (all infinity) so that the
+    # plan starts with a lanes pass: sums that meet as P + P and P + (-P)
+    # within a pass, across the lanes pass's boundary (blocks of 2) and
+    # across the warp passes' (blocks of 8)
+    p, q, inf = pts[5], pts[6], g2_infinity()
     corners = [[inf] * AGG_COMMITTEE, [p], [p, p] + pts[10:20], [p, -p] + pts[20:30], pts[:37],
-               [inf, p, inf, pts[9]]]
+               [inf, p, inf, pts[9]], [p, q, p, q], [p, q, -p, -q], pts[:8] + pts[:8],
+               pts[16:24] + [-x for x in pts[16:24]]]
+    corners += [[] for _ in range(K15_CORNER_ITEMS - len(corners))]
     X, Y, Z = (torch.from_numpy(a).to(dev)
                for a in ga._points_to_lanes(corners, len(corners), AGG_COMMITTEE))
+    if ga.sum_plan(len(corners), AGG_COMMITTEE)[0][0] != "thread":
+        raise RuntimeError("K15's corner items do not reach a lanes pass")
     out = ga.g2_sum_many(X, Y, Z)
     err = max_abs_err(out, ga.g2_sum_many_ref(X, Y, Z))
     if ga.sums_to_points(out) != [_sum_g2(c) for c in corners]:
@@ -2040,8 +2067,10 @@ def check_g2_kernels(dev):
     rows.append(dict(
         name="g2_sum_many", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/g2_sum.cu",
         replaces="eth_consensus_specs_tpu/ops/g2_aggregate.py:103",
-        **{k: tier0[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                 "fq_products", "serial_fq_products")},
+        **{k: tier0[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                 "product_rounds", "round_instr", "one_lane_bound_ms",
+                                 "serial_bound_ms", "fq_products", "serial_fq_products",
+                                 "launches_a_call", "plan")},
         max_abs_err=max(max(r["max_abs_err"] for r in shapes.values()), err), library_ms=None,
         at_64x512=shapes[(64, AGG_COMMITTEE)], at_tier1=shapes[tiers[1]],
         at_tier2=shapes[tiers[2]], corners_checked=len(corners),
@@ -2193,7 +2222,7 @@ CURVE_DBL_ROUNDS = 3
 CURVE_ADD_ROUNDS = 4
 # K17's window table: T2; T3 beside T4; T5..T7 beside T8; T9..T15
 MSM_TABLE_ROUNDS = CURVE_DBL_ROUNDS + 3 * CURVE_ADD_ROUNDS
-# one step of the binary GCD inverse (h2c.cu fp_inv_gcd), counted as
+# one step of the binary GCD inverse (fp_gcd.cuh fp_inv_gcd), counted as
 # FQ_MUL_INSTR is: a halving step's two 12-word halvings (an add with carry
 # and a funnel shift a word), or a subtraction step's 12-word subtraction and
 # 12-word modular subtraction; the compares and tests not counted
@@ -3059,6 +3088,34 @@ def final_exp_gt_fq_products(sqr: int = FQ_PER_CYC_SQR) -> int:
             + squarings * sqr + 3 * powx_products(sqr) + 18 + 2 * 12)
 
 
+def final_exp_gt_rounds() -> int:
+    """K20's chain at full tower parallelism, as ``final_exp_rounds`` counts
+    K12's, without the easy part's Fq inverse (the row bounds it apart): the
+    Fq12 inverse's 7 rounds; the easy part's conj product, p^2-Frobenius and
+    product; the power by (x-1)^2/3 (125 squarings, 47 products); three
+    powers by x (63 squarings and 5 products each); a Frobenius, a
+    p^2-Frobenius and three products; the last product by m; the store."""
+    from eth_consensus_specs_tpu_torch.ops.pairing_device import _HARD_E
+
+    squarings, products = _HARD_E.bit_length() - 1, bin(_HARD_E).count("1") - 1
+    return 7 + 3 + squarings + products + 3 * (63 + 5) + 5 + 1 + 1
+
+
+def final_exp_gt_norm(f) -> int:
+    """The Fq value whose inverse K20 takes by the binary GCD, as card
+    Montgomery int: ``inv_a``'s norm on canonical words ``f``, run on host
+    ints (``fq12_coop.simulate``) as the kernel runs it."""
+    from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
+    from eth_consensus_specs_tpu_torch.ops import fq12_coop as coop
+
+    mem = {i: v for i, (_, v) in enumerate(coop.CONSTS)}
+    F, W = coop.SLOTS, coop.SLOTS + 12
+    mem.update({F + k: v for k, v in enumerate(fl.words_to_ints(f.cpu().numpy().reshape(12, 12)))})
+    for op, z in (("load", 0), ("inv_a", W)):
+        coop.simulate(coop.PROGRAMS[op], mem, {coop.X: F, coop.Y: 0, coop.Z: z, coop.O: F, coop.S: 0})
+    return mem[W + coop.INV_NORM]
+
+
 def check_block_epoch_kernels(dev):
     """Phase 3, continued: K19 (``block_slot``) word for word against
     ``block_slot_ref`` (balance, both participation columns, the withdrawal
@@ -3167,17 +3224,32 @@ def check_block_epoch_kernels(dev):
             raise RuntimeError(f"K12's verdict and K20's value disagree on e(6P, 5Q) e(-{c_}P, Q)")
         verdicts["one" if c_ == 30 else "not_one"] = one
     f = fs[0]
+    repeats_equal("final_exponentiation", lambda: pd.final_exponentiation(f),
+                  pd.final_exponentiation(f))
     products, design = final_exp_gt_fq_products(), final_exp_gt_fq_products(FQ_PER_FQ12_SQR)
-    b_ms, b_by = fq_bound(products, products)
+    rounds = final_exp_gt_rounds()
+    fermat_instr = fq_window_inverse_products() * FQ_ROUND_INSTR
+    gcd_instr = gcd_chain_instr([final_exp_gt_norm(f)])
+    chain_ms = (rounds * FQ_ROUND_INSTR + min(fermat_instr, gcd_instr)) / CLOCK_HZ * 1e3
+    thru_ms = products * FQ_MUL_INSTR / INT_OPS_PER_S * 1e3
     rows.append(dict(
-        name="final_exp_gt", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/final_exp.cu",
+        name="final_exp_gt", route="cuda",
+        source="eth_consensus_specs_tpu_torch/csrc/final_exp_gt.cu",
         replaces="eth_consensus_specs_tpu/ops/pairing_device.py:281", shape=[2, 3, 2, 12],
-        max_abs_err=err, ms=cuda_ms(lambda: pd.final_exponentiation(f), repeats=3, inner=INNER),
+        max_abs_err=err, ms=cuda_ms(lambda: pd.final_exponentiation(f), repeats=5, inner=INNER),
+        device_ms=device_ms(lambda: pd.final_exponentiation(f), ("final_exp_gt_kernel",)),
         plain_ms=cuda_ms(lambda: pd.final_exponentiation_ref(f), 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, fq_products=products,
-        serial_fq_products=products, design_fq_products=design,
-        design_bound_ms=fq_bound(design, design)[0], k12_fq_products=final_exp_fq_products(),
-        oracle_checked=len(GT_PAIRS), verdicts_checked=verdicts,
+        bound_ms=max(chain_ms, thru_ms), bound_by="operations", library_ms=None,
+        product_rounds=rounds, round_instr=FQ_ROUND_INSTR,
+        inverse_bound_ms={"fermat": fermat_instr / CLOCK_HZ * 1e3,
+                          "gcd": gcd_instr / CLOCK_HZ * 1e3},
+        gcd_steps=gcd_instr / GCD_STEP_INSTR, gcd_step_instr=GCD_STEP_INSTR,
+        one_lane_bound_ms=(rounds * FQ_MUL_SASS + min(fermat_instr * FQ_MUL_SASS / FQ_ROUND_INSTR,
+                                                      gcd_instr)) / CLOCK_HZ * 1e3,
+        fq_products=products, serial_fq_products=products,
+        serial_bound_ms=fq_bound(products, products)[0], design_fq_products=design,
+        k12_fq_products=final_exp_fq_products(), oracle_checked=len(GT_PAIRS),
+        verdicts_checked=verdicts, repeats_equal=REPEATS,
     ))
     return rows
 

@@ -6,7 +6,7 @@ libraries are built on first use on a CUDA tensor, all sources at once in
 parallel, into ``_build/`` beside this file (git-ignored), under a name
 that carries a digest of the sources, so an edited kernel is never served
 by a stale library. Headers generated from Python (``GENERATED``: the
-cooperative round engine's programs, K10's plan) are written into ``_build/include``
+cooperative round engine's programs, K10's and K15's plans) are written into ``_build/include``
 before ``nvcc`` runs and count in the digest. A failed build or launch
 raises; nothing falls back to the plain torch versions.
 
@@ -37,10 +37,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # headers generated at build time: file name -> "module:function" returning its text
 GENERATED = {"fp12_coop_ops.cuh": "eth_consensus_specs_tpu_torch.ops.fq12_coop:header_text",
-             "g1_sum_plan.cuh": "eth_consensus_specs_tpu_torch.ops.g1_msm:sum_plan_header"}
+             "g1_sum_plan.cuh": "eth_consensus_specs_tpu_torch.ops.g1_msm:sum_plan_header",
+             "g2_sum_plan.cuh": "eth_consensus_specs_tpu_torch.ops.g2_aggregate:sum_plan_header"}
 KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
-           "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "h2c", "g2_sum",
-           "fr_fft", "g1_msm", "slot_apply", "block_epoch", "fq12_coop")
+           "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "final_exp_gt", "h2c",
+           "g2_sum", "fr_fft", "g1_msm", "slot_apply", "block_epoch", "fq12_coop")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -69,10 +70,12 @@ SIGNATURES = {
                "g1_sum_fold_launch": [_P, _P, _P, _P, _I64, _I64]},
     "miller": {"miller_loop_launch": [_P, _P, _P, _P, _P, _I64],
                "miller_fold_launch": [_P, _P, _I64]},
-    "final_exp": {"final_exp_is_one_launch": [_P, _P], "final_exp_launch": [_P, _P]},
+    "final_exp": {"final_exp_is_one_launch": [_P, _P]},
+    "final_exp_gt": {"final_exp_gt_launch": [_P, _P]},
     "h2c": {"h2c_map_launch": [_P, _P, _I64], "h2c_finish_launch": [_P, _P, _P, _I64],
             "fq2_sqrt_launch": [_P, _P, _P, _I64]},
-    "g2_sum": {"g2_sum_many_launch": [_P, _P, _P, _P, _I64, _I64]},
+    "g2_sum": {"g2_sum_lanes_launch": [_P, _P, _P, _I64, _P, _I64, _I64, _I32],
+               "g2_sum_fold_launch": [_P, _P, _P, _I64, _P, _I64, _I64, _I32]},
     "fr_fft": {"fr_fft_chunk_launch": [_P, _P, _P, _P, _I64, _I32, _I32, _I32],
                "fr_fft_stage_launch": [_P, _P, _P, _I64, _I32, _I32]},
     "g1_msm": {"g1_msm_many_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64],

@@ -1,5 +1,6 @@
 // Curve points on the cooperative round engine (fp12_coop.cuh): K17
-// (g1_msm.cu) runs G1's formulas on it, K14 (h2c.cu) G2's. A point is 3
+// (g1_msm.cu) and K10's fold (g1_sum.cu) run G1's formulas on it, K14
+// (h2c.cu) and K15's warp passes (g2_sum.cu) G2's. A point is 3
 // slots (G1: X, Y, Z) or 6 (G2: each coordinate c0 then c1), Jacobian, Z = 0
 // infinity. A group is one warp, its barrier __syncwarp. The families'
 // rounds hold at most 32 instructions (a G1 add 6 products, a G2 add 18), so

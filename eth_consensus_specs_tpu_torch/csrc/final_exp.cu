@@ -1,20 +1,11 @@
-// K12: the final-exponentiation membership check of a pairing product, and
-// K20: the exact final exponentiation (the GT export).
+// K12: the final-exponentiation membership check of a pairing product.
 //
-// K12 replaces eth_consensus_specs_tpu/ops/pairing_device.py final_exp_is_one
+// Replaces eth_consensus_specs_tpu/ops/pairing_device.py final_exp_is_one
 // (:259) and the small jits it chains (_easy_j :231, _powx_j :215,
 // _mul_conj_j :225, _frob1_j / _frob2_j, _cube_j :249, _is_one_j :255):
 // the easy part m = f^((p^6-1)(p^2+1)), then m^(3H) with
 // 3H = (x-1)^2 (x+p)(x^2+p^2-1) + 3, which is 1 exactly when m^H is
-// (gcd(3, r) = 1).
-//
-// K20 replaces final_exponentiation (:281: _easy_j, then _hard_exp_j :277,
-// a naive power by H = (p^4 - p^2 + 1)/r, 1,268 bits with 633 ones) and
-// gives m^H itself, by H = ((x-1)^2/3)(x+p)(x^2+p^2-1) + 1: one power by
-// the 126-bit e = (x-1)^2/3 (125 squarings, 47 products), then K12's tail
-// from b = m^e (three powers by x, Frobenius maps, a few products) and a
-// last product by m. The same value as the naive power, in about a fifth of
-// its products.
+// (gcd(3, r) = 1). K20, the exact value m^H, is final_exp_gt.cu.
 //
 // K12 runs on one block, one group of the cooperative tower
 // (fp12_coop.cuh): every Fq12 operation is a few rounds of independent Fq
@@ -25,53 +16,8 @@
 // H100: the chain of product rounds, about 760 of them and the inverse's
 // 470 products, each a dependent Fq product.
 //
-// K20 still runs in one thread (about 17,000 Fq products in a row through
-// bls_fp.cuh's tower); its move onto the cooperative tower is queued.
-//
-// Input: canonical u32 words f [2, 3, 2, 12]; output: K12 an i32 1 or 0,
-// K20 the canonical words of f^((p^12-1)/r) [2, 3, 2, 12].
+// Input: canonical u32 words f [2, 3, 2, 12]; output: an i32 1 or 0.
 #include "fp12_coop.cuh"
-
-__device__ __noinline__ void mul_conj(fp12& r, const fp12& a, const fp12& b) {
-  fp12 c;
-  fp12_conj(c, b);
-  fp12_mul(r, a, c);
-}
-
-// m = f^((p^6 - 1)(p^2 + 1)), in the cyclotomic subgroup
-__device__ __noinline__ void easy_part(fp12& m, const fp12& f) {
-  fp12 t, c;
-  fp12_inv(t, f);
-  fp12_conj(c, f);
-  fp12_mul(t, c, t);  // f^(p^6 - 1)
-  fp12_frobenius2(m, t);
-  fp12_mul(m, m, t);  // ^(p^2 + 1)
-}
-
-// g = b^((x+p)(x^2+p^2-1)): c = b^(x+p), then c^(x^2) c^(p^2) c^-1 (the
-// inverse of a cyclotomic element is its conjugate)
-__device__ __noinline__ void hard_tail(fp12& g, const fp12& b) {
-  fp12 c, d, t;
-  fp12_powx(c, b);
-  fp12_frobenius(t, b);
-  fp12_mul(c, c, t);  // b^(x+p)
-  fp12_powx(d, c);
-  fp12_powx(d, d);  // c^(x^2)
-  fp12_frobenius2(t, c);
-  fp12_mul(g, d, t);
-  mul_conj(g, g, c);
-}
-
-// a^e, e = (x-1)^2 / 3 = 0x396c8c005555e156_8c00aaab0000aaab (126 bits)
-__device__ __noinline__ void fp12_pow_e(fp12& r, const fp12& a) {
-  constexpr uint64_t kHi = 0x396c8c005555e156ull, kLo = 0x8c00aaab0000aaabull;
-  fp12 acc = a;
-  for (int bit = 124; bit >= 0; --bit) {
-    fp12_sqr(acc, acc);
-    if (((bit >= 64 ? kHi : kLo) >> (bit & 63)) & 1ull) fp12_mul(acc, acc, a);
-  }
-  r = acc;
-}
 
 constexpr int kFeLanes = 4;  // lanes an Fq product
 constexpr int kFeThreads = 64 * kFeLanes;
@@ -123,28 +69,9 @@ __global__ __launch_bounds__(kFeThreads) void final_exp_is_one_kernel(
   if (threadIdx.x == 0) *out = differs ? 0 : 1;
 }
 
-__global__ void final_exp_kernel(const uint32_t* __restrict__ f_words,
-                                 uint32_t* __restrict__ out) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  fp12 f, m, b, g;
-  fp12_load(f, f_words);
-  easy_part(m, f);
-  fp12_pow_e(b, m);  // m^((x-1)^2 / 3)
-  hard_tail(g, b);
-  fp12_mul(g, g, m);  // m^H
-  fp12_store(out, g);
-}
-
 // f: u32[2, 3, 2, 12] canonical; out: i32[1].
 extern "C" int final_exp_is_one_launch(const void* f, void* out, cudaStream_t stream) {
   final_exp_is_one_kernel<<<1, kFeThreads, 0, stream>>>(static_cast<const uint32_t*>(f),
                                                  static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// f, out: u32[2, 3, 2, 12] canonical; out may not alias f.
-extern "C" int final_exp_launch(const void* f, void* out, cudaStream_t stream) {
-  final_exp_kernel<<<1, 32, 0, stream>>>(static_cast<const uint32_t*>(f),
-                                         static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

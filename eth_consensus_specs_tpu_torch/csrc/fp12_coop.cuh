@@ -1,6 +1,7 @@
-// The cooperative round engine: K11 (miller.cu) and K12 (final_exp.cu) run
-// their Fq12 arithmetic on it, K17 (g1_msm.cu) its G1 formulas and K14
-// (h2c.cu) its G2 formulas (curve_coop.cuh). A group of threads keeps its
+// The cooperative round engine: K11 (miller.cu), K12 (final_exp.cu) and K20
+// (final_exp_gt.cu) run their Fq12 arithmetic on it, K17 (g1_msm.cu) and
+// K10's fold (g1_sum.cu) its G1 formulas, K14 (h2c.cu) and K15's warp
+// passes (g2_sum.cu) its G2 formulas (curve_coop.cuh). A group of threads keeps its
 // values in shared memory, one Fq element a slot of 12 words laid out
 // word-major (word k of slot j at mem[k * stride + j]), so that 32 lanes on
 // 32 neighbouring slots touch 32 banks; element-major rows of 12 words would
@@ -382,4 +383,18 @@ __device__ void coop_powx(const Coop g, int dst, int src) {
     if ((kX >> bit) & 1ull) coop_run<L>(g, kOp_mul, dst, src, 0, dst);
   }
   coop_run<L>(g, kOp_conj, dst, 0, 0, dst);
+}
+
+// dst = src^e by Granger-Scott squarings, e = hi:lo (128 bits, its top bit
+// ``top``): one squaring a bit below the top one, a product by src a set
+// bit; src cyclotomic, dst another Fq12. K20 runs its powers through it (the
+// exponent a run-time value): on the card K20 ran 1.682 ms on it against
+// 2.179 on coop_powx's loop over a constant, which K12 keeps (1.634 ms
+// against 1.711 on this loop, 4.7% faster there; PERF.md).
+template <int L>
+__device__ void coop_pow_cyc(const Coop g, int dst, int src, uint64_t hi, uint64_t lo, int top) {
+  for (int bit = top - 1; bit >= 0; --bit) {
+    coop_run<L>(g, kOp_cyc, bit == top - 1 ? src : dst, 0, 0, dst);
+    if (((bit >= 64 ? hi >> (bit - 64) : lo >> bit) & 1ull)) coop_run<L>(g, kOp_mul, dst, src, 0, dst);
+  }
 }

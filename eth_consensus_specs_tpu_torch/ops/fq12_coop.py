@@ -58,6 +58,10 @@ GLV_BETA = pow(pow(2, (P - 1) // 3, P), 2, P)
 # Z slots of K14's affine step: the norm of Z, which g2_affine_a writes, and
 # its inverse, which the kernel writes before g2_affine_b reads it
 AFFINE_NORM, AFFINE_INV = 2, 3
+# Z slots of K20's easy-part inverse: t's cofactors (3 Fq2), d (Fq2), d's
+# norm, which inv_a writes, and the norm's inverse, which the kernel writes
+# before inv_b reads it
+INV_T, INV_D, INV_NORM, INV_INV = 0, 6, 8, 9
 _COMMON = [("mont_one", R_CARD % P), ("raw_one", 1), ("r2", R_CARD * R_CARD % P),
            ("r3", R_CARD ** 3 % P)]
 
@@ -345,10 +349,10 @@ def _mul12(pg: Program, a, b, out) -> None:
     pg.adds(flat12((c0, c1)), dests=[(O, k) for k in range(12)])
 
 
-def _level(pg: Program, groups: list) -> list:
-    """Materialize lists of Fq2 forms in one add round; the same nesting
-    back, each form a slot."""
-    refs = iter(pg.adds([c for g in groups for e in g for c in e]))
+def _level(pg: Program, groups: list, dests=None) -> list:
+    """Materialize lists of Fq2 forms in one add round (into ``dests``
+    where given); the same nesting back, each form a slot."""
+    refs = iter(pg.adds([c for g in groups for e in g for c in e], dests))
     return [[(next(refs), next(refs)) for _ in g] for g in groups]
 
 
@@ -541,11 +545,11 @@ def build_conj() -> Program:
     return pg.finish()
 
 
-def build_inverse() -> Program:
-    """O = X^-1 (``csrc/bls_fp.cuh`` fp12_inv, fp6_inv, fp2_inv): the halves'
-    squares, t = a0^2 - v a1^2, t's Fq6 inverse down to one Fq inverse of
-    d0^2 + d1^2, then a0 t^-1 and -a1 t^-1."""
-    pg = Program("inv")
+def _inverse_head(pg: Program, t_dests=None, d_dests=None) -> tuple:
+    """The rounds of an Fq12 inverse up to one Fq inverse (``csrc/bls_fp.cuh``
+    fp12_inv, fp6_inv, fp2_inv): the halves' squares, t = a0^2 - v a1^2,
+    t's Fq6 inverse down to d = t0 c0 + xi (t1 c2 + t2 c1) in Fq2, then d's
+    norm products. Returns (t's cofactors tt, d, the norm's form)."""
     a0, a1 = fq12_of(X)
     pg.products()
     s0 = pg.fq6_products(a0, a0)
@@ -559,16 +563,22 @@ def build_inverse() -> Program:
     q = [pg.fq2_mul(x, y) for x, y in ((c0, c0), (c1, c2), (c2, c2), (c0, c1), (c1, c1), (c0, c2))]
     pg.close()
     q = _level(pg, [q])[0]
-    tt = _level(pg, [[sub2(q[0], xi2(q[1])), sub2(xi2(q[2]), q[3]), sub2(q[4], q[5])]])[0]
+    tt = _level(pg, [[sub2(q[0], xi2(q[1])), sub2(xi2(q[2]), q[3]), sub2(q[4], q[5])]],
+                t_dests)[0]
     pg.products()
     dd = [pg.fq2_mul(c0, tt[0]), pg.fq2_mul(c2, tt[1]), pg.fq2_mul(c1, tt[2])]
     pg.close()
-    d = _level(pg, [[add2(dd[0], xi2(add2(dd[1], dd[2])))]])[0][0]
+    d = _level(pg, [[add2(dd[0], xi2(add2(dd[1], dd[2])))]], d_dests)[0][0]
     pg.products()
     n0, n1 = pg.mul(d[0], d[0]), pg.mul(d[1], d[1])
     pg.close()
-    pg.table(add(n0, n1))
-    ninv = pg.inverse()
+    return tt, d, add(n0, n1)
+
+
+def _inverse_tail(pg: Program, tt, d, ninv) -> None:
+    """From the Fq inverse ``ninv`` of d's norm: d^-1, t^-1 = tt d^-1, then
+    O = (a0 t^-1, -a1 t^-1)."""
+    a0, a1 = fq12_of(X)
     pg.products()
     dinv = (pg.mul(d[0], ninv), pg.mul(lin((-1, d[1])), ninv))
     pg.close()
@@ -581,7 +591,31 @@ def build_inverse() -> Program:
     pg.close()
     r = _level(pg, [_fq6_combine(x) for x in r])
     pg.adds(flat12((r[0], r[1])), dests=[(O, k) for k in range(12)])
+
+
+def build_inverse() -> Program:
+    """O = X^-1, its Fq inverse the engine's Fermat chain (an inverse round
+    over the table of the norm's powers)."""
+    pg = Program("inv")
+    tt, d, norm = _inverse_head(pg)
+    pg.table(norm)
+    _inverse_tail(pg, tt, d, pg.inverse())
     return pg.finish()
+
+
+def build_inverse_gcd() -> tuple[Program, Program]:
+    """O = X^-1 as two programs around one Fq inverse that the kernel takes
+    between them on one thread (K20's binary GCD): ``inv_a`` writes t's
+    cofactors to Z[INV_T..], d to Z[INV_D..] and d's norm to Z[INV_NORM];
+    ``inv_b`` reads them and the norm's inverse at Z[INV_INV]."""
+    pa = Program("inv_a")
+    _, _, norm = _inverse_head(pa, [(Z, INV_T + k) for k in range(6)],
+                               [(Z, INV_D + k) for k in range(2)])
+    pa.adds([norm], dests=[(Z, INV_NORM)])
+    pb = Program("inv_b")
+    tt = [(F((Z, INV_T + 2 * i)), F((Z, INV_T + 2 * i + 1))) for i in range(3)]
+    _inverse_tail(pb, tt, (F((Z, INV_D)), F((Z, INV_D + 1))), F((Z, INV_INV)))
+    return pa.finish(), pb.finish()
 
 
 # ------------------------------------------------------------ curve points --
@@ -869,11 +903,12 @@ def build_all() -> dict:
              build_mul(conj_b=True), build_sqr(), build_cyclotomic_sqr(), build_line(False),
              build_line(True), build_sqr_line(False), build_sqr_line(True), build_prep(),
              build_frobenius(), build_frobenius2(),
-             build_conj(), build_inverse()]
+             build_conj(), build_inverse(), *build_inverse_gcd()]
     g1 = [build_dbl(G1, 1), build_dbl(G1, 4), *[p for n in G1_ADDS for p in build_add(G1, n)],
           build_g1_phi(), build_curve_scale(G1, "canon", "mont_one", 3)]
     g2 = [build_dbl(G2, 1), build_dbl(G2, 4), *[p for n in G2_ADDS for p in build_add(G2, n)],
-          build_g2_psi(), build_g2_neg(), *build_g2_affine()]
+          build_g2_psi(), build_g2_neg(), *build_g2_affine(),
+          build_curve_scale(G2, "canon", "mont_one", 6)]
     for fam, ps in ((FQ12, progs), (G1, g1), (G2, g2)):
         fam.programs.update({p.name: p for p in ps})
     return {p.name: p for p in progs}
@@ -894,8 +929,9 @@ def mont(a: int, b: int) -> int:
 
 def gcd_inverse(x: int) -> tuple[int, int]:
     """The binary extended GCD inverse of ``x`` (any value below 2^384) mod
-    p, as K14's ``fp_inv_gcd`` (``csrc/h2c.cu``) runs it: (x^-1 mod p, 0
-    for 0; the steps it took, a halving or a subtraction each)."""
+    p, as ``fp_inv_gcd`` (``csrc/fp_gcd.cuh``) runs it for K13, K14 and
+    K20: (x^-1 mod p, 0 for 0; the steps it took, a halving or a
+    subtraction each)."""
     u = x
     while u >= P:
         u -= P
@@ -1001,6 +1037,16 @@ def simulate_g2_affine(mem: dict, bases: dict) -> None:
     simulate(G2.programs["g2_affine_b"], mem, bases)
 
 
+def simulate_inverse_gcd(mem: dict, bases: dict) -> None:
+    """K20's Fq12 inverse as the kernel runs it (``csrc/final_exp_gt.cu``):
+    ``inv_a``; on one thread the binary GCD of the norm's Montgomery words
+    times R^3 (x R -> x^-1 R); ``inv_b``."""
+    simulate(FQ12.programs["inv_a"], mem, bases)
+    norm = mem[bases[Z] + INV_NORM]
+    mem[bases[Z] + INV_INV] = mont(gcd_inverse(norm)[0], R_CARD ** 3 % P)
+    simulate(FQ12.programs["inv_b"], mem, bases)
+
+
 def stats(family: Family = FQ12) -> dict:
     """Per program: rounds by kind, products, the widest sum."""
     out = {}
@@ -1104,6 +1150,10 @@ def _family_text(fam: Family) -> list:
         lines += [f"constexpr int k{up}Elem = {FIELD[fam.name].n};  // slots an element",
                   f"constexpr int k{up}AddWork = {geo['work']};  // work slots an add"]
         lines += [f"constexpr int k{up}Flag_{k} = {geo[k]};" for k in ADD_FLAGS]
+    if fam is FQ12:
+        lines += [f"constexpr int kInvNorm = {INV_NORM}, kInvInv = {INV_INV};"
+                  "  // Z slots of K20's inverse, taken between inv_a and inv_b",
+                  f"constexpr int kInvWork = {INV_INV + 1};  // Z slots inv_a and inv_b use"]
     if fam is G2:
         assert AFFINE_INV < ADD_GEOMETRY["g2"]["work"]  # K14 runs the affine step on an add's work
         lines += [f"constexpr int kG2AffineNorm = {AFFINE_NORM}, kG2AffineInv = {AFFINE_INV};"

@@ -10,7 +10,12 @@ so the plain version here folds only the lanes that feed lane 0 (every
 2^(s+1)-th lane with its partner): the adjacent-pair tree, lower half
 first, the same Jacobian coordinates as JAX's lane 0, at L - 1 adds
 instead of L log2(L). K15 (``csrc/g2_sum.cu``) computes that tree too, so
-its words equal the plain version's.
+its words equal the plain version's: its subtrees are contiguous blocks of
+lanes, so K15 cuts it into passes (:func:`sum_plan`), one launch each:
+lanes passes of one thread an add while a level has many adds over the
+items, then warp passes, a warp an add on the round engine's G2 complete
+add, four warps a block of eight values, so that one item of 512 lanes
+spreads over 64 blocks rather than one.
 
 Lanes cross to the card in the kernels' Montgomery words (x * 2^384 mod
 p), ``int32[I, L, 2, 12]`` for each of X, Y, Z, with Z = 0 for infinity
@@ -23,6 +28,8 @@ slice.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -71,12 +78,54 @@ def g2_sum_many_ref(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.
     return torch.stack([fl.to_card_words(a) for a in sums], dim=1)
 
 
+# K15's plan, here alone: the build renders the pass depths into
+# csrc/g2_sum.cu's generated header (``sum_plan_header``)
+SUM_PASS_LEVELS = 8  # levels a one-thread lanes pass takes at most (a block of 128 threads)
+SUM_FOLD_LEVELS = 3  # levels a warp pass takes at most (a block of 4 warps)
+SUM_THREAD_ADDS = 4096  # a level takes one-thread adds while it has this many over the items
+
+
+def sum_plan_header() -> str:
+    """The text of ``g2_sum_plan.cuh``, which ``_ext`` writes before the
+    build: K15's pass depths as ``csrc/g2_sum.cu`` takes them."""
+    return "\n".join([
+        "// Generated by eth_consensus_specs_tpu_torch/ops/g2_aggregate.py at build time:",
+        "// K15's plan (sum_plan), for csrc/g2_sum.cu.",
+        "#pragma once",
+        f"constexpr int kPassLevels = {SUM_PASS_LEVELS};  // levels a lanes pass takes at most",
+        f"constexpr int kFoldLevels = {SUM_FOLD_LEVELS};  // levels a warp pass takes at most",
+        "",
+    ])
+
+
+def sum_plan(items: int, lanes: int) -> list[tuple[str, int]]:
+    """K15's passes for ``items`` items of ``lanes`` lanes, each (kind,
+    levels) and one launch: ``"thread"`` lanes passes (one thread an add, at
+    most SUM_PASS_LEVELS levels each) while a level has at least
+    SUM_THREAD_ADDS adds over the items, then ``"warp"`` passes (a warp an
+    add) over the other levels, at most SUM_FOLD_LEVELS each, the smaller
+    first; one lane takes one warp pass of no levels (a copy)."""
+    levels = lanes.bit_length() - 1
+    thread = 0
+    while thread < levels - 1 and items * (lanes >> (thread + 1)) >= SUM_THREAD_ADDS:
+        thread += 1
+    plan = []
+    while thread:
+        plan.append(("thread", min(SUM_PASS_LEVELS, thread)))
+        thread -= plan[-1][1]
+    rest = levels - sum(r for _, r in plan)
+    passes = max(1, -(-rest // SUM_FOLD_LEVELS))
+    return plan + [("warp", rest // passes + (k >= passes - rest % passes))
+                   for k in range(passes)]
+
+
 def g2_sum_many(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """Per-item Jacobian sums of ``[I, L, 2, 12]`` lanes (L a power of two)
     -> ``int32[I, 3, 2, 12]``, card Montgomery words in and out.
 
-    CUDA tensors go through kernel K15 (``csrc/g2_sum.cu``, one block per
-    item, one launch); CPU tensors through the plain version."""
+    CUDA tensors go through kernel K15 (``csrc/g2_sum.cu``: the passes of
+    :func:`sum_plan`, one launch each, all counted under ``g2_sum``); CPU
+    tensors through the plain version."""
     if X.dim() != 4 or tuple(X.shape[2:]) != (2, N_WORDS) or X.shape[0] < 1 or X.shape[1] < 1:
         raise ValueError(f"expected int32[I, L, 2, {N_WORDS}] lanes, got {tuple(X.shape)}")
     lanes = X.shape[1]
@@ -88,10 +137,16 @@ def g2_sum_many(X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tens
         return g2_sum_many_ref(X, Y, Z)
     for t in (X, Y, Z):
         _ext.check_cuda(t, torch.int32)
-    out = torch.empty((X.shape[0], 3, 2, N_WORDS), dtype=torch.int32, device=X.device)
-    _ext.launch("g2_sum", "g2_sum_many_launch", X.device, _ext.ptr(X), _ext.ptr(Y), _ext.ptr(Z),
-                _ext.ptr(out), X.shape[0], lanes)
-    return out
+    items, n = X.shape[0], lanes
+    src, ps = [_ext.ptr(t) for t in (X, Y, Z)], 2 * N_WORDS
+    for kind, r in sum_plan(items, lanes):
+        part = torch.empty((items, n >> r, 3, 2, N_WORDS), dtype=torch.int32, device=X.device)
+        _ext.launch("g2_sum", f"g2_sum_{'lanes' if kind == 'thread' else 'fold'}_launch",
+                    X.device, *src, ps, _ext.ptr(part), items, n, r)
+        # the next pass reads this one's partials: X, Y, Z of a point 72 words apart
+        src = [ctypes.c_void_p(part.data_ptr() + 4 * 2 * N_WORDS * k) for k in range(3)]
+        ps, n = 6 * N_WORDS, n >> r
+    return part.reshape(items, 3, 2, N_WORDS)
 
 
 def g2_many_sum_shape(n_items: int, max_lanes: int) -> tuple[int, int]:

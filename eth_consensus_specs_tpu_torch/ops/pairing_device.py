@@ -22,8 +22,8 @@ split of the pairing:
   the 1,268-bit H gives the same element. ``pairing_device`` (JAX :500)
   is K11 on one pair, then K20.
 
-K11 and K12 run on the cooperative Fq12 tower (``csrc/fp12_coop.cuh``, its
-programs from ``ops/fq12_coop.py``): a group of threads keeps its Fq12
+K11, K12 and K20 run on the cooperative Fq12 tower (``csrc/fp12_coop.cuh``,
+its programs from ``ops/fq12_coop.py``): a group of threads keeps its Fq12
 values in shared memory and runs each tower operation as rounds of
 independent Fq products and sums. ``fq12_coop_check`` is that tower's check
 entry.
@@ -314,16 +314,18 @@ def final_exponentiation(f: torch.Tensor) -> torch.Tensor:
     """The exact final exponentiation f^((p^12 - 1)/r) of a canonical
     int32[2, 3, 2, 12] Fq12, the same words out: the GT value of a pairing.
 
-    CUDA tensors go through kernel K20 (``csrc/final_exp.cu``, one thread
-    runs the whole chain); CPU tensors through the plain version."""
+    CUDA tensors go through kernel K20 (``csrc/final_exp_gt.cu``: one block
+    runs the chain on the cooperative tower, four lanes an Fq product,
+    Granger-Scott squarings after the easy part, whose Fq inverse is a
+    binary GCD on one thread between the programs ``inv_a`` and ``inv_b``;
+    counter ``final_exp_gt``); CPU tensors through the plain version."""
     if tuple(f.shape) != (2, 3, 2, N_WORDS):
         raise ValueError(f"expected an int32[2, 3, 2, {N_WORDS}] Fq12, got {tuple(f.shape)}")
     if f.device.type == "cpu":
         return final_exponentiation_ref(f)
     _ext.check_cuda(f, torch.int32)
     out = torch.empty_like(f)
-    _ext.launch("final_exp", "final_exp_launch", f.device, _ext.ptr(f), _ext.ptr(out),
-                counter="final_exp_gt")
+    _ext.launch("final_exp_gt", "final_exp_gt_launch", f.device, _ext.ptr(f), _ext.ptr(out))
     return out
 
 

@@ -5,7 +5,8 @@ Same inputs, made from a seed, go through the port's torch tower
 oracle (``crypto/fields``) and its lazy-limb device arithmetic
 (``ops/lazy_limbs``, ``ops/fq12_tower``, run eagerly on the CPU); results are
 compared as canonical ints, exactly. The constants of the CUDA header
-``csrc/bls_fp.cuh`` and the Miller schedule of ``csrc/miller.cu`` are
+``csrc/bls_fp.cuh``, the cooperative tower's Frobenius constants
+(``ops/fq12_coop.FQ12``) and the Miller schedule of ``csrc/miller.cu`` are
 recomputed here from their definitions, and so are those of
 ``csrc/g2_jac.cuh`` and ``csrc/h2c.cu`` (hash-to-G2, K13 and K14) from the
 JAX package's curve and ciphersuite.
@@ -26,6 +27,7 @@ from eth_consensus_specs_tpu.ops import lazy_limbs as jlz
 from eth_consensus_specs_tpu_torch import convert
 from eth_consensus_specs_tpu_torch.crypto import fields as pf
 from eth_consensus_specs_tpu_torch.ops import field_limbs as fl
+from eth_consensus_specs_tpu_torch.ops import fq12_coop as coop
 from eth_consensus_specs_tpu_torch.ops import fq12_tower as tw
 from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
 
@@ -206,10 +208,13 @@ def test_cuda_header_constants():
     assert np_ * P % (1 << 32) == (1 << 32) - 1  # -p^-1 mod 2^32
     g1 = [jf.XI.pow(i * (P - 1) // 6) for i in range(6)]
     g2 = [jf.XI.pow(i * (P * P - 1) // 6) for i in range(6)]
-    assert _header_array(text, "FROB1") == [w for g in g1 for c in (g.c0, g.c1)
-                                            for w in _words(c.n * r % P)]
+    # the Frobenius constants live in the cooperative tower's family (the
+    # generated header's COOP_CONST_WORDS)
+    consts = dict(coop.FQ12.consts)
+    assert [consts[f"frob1_{i}_{u}"] for i in range(6) for u in range(2)] == [
+        c.n * r % P for g in g1 for c in (g.c0, g.c1)]
     assert all(g.c1.n == 0 for g in g2)
-    assert _header_array(text, "FROB2") == [w for g in g2 for w in _words(g.c0.n * r % P)]
+    assert [consts[f"frob2_{i}"] for i in range(6)] == [g.c0.n * r % P for g in g2]
     miller = (CSRC / "miller.cu").read_text()
     flags = re.search(r"SQR_FLAGS\[kSteps\] = \{(.*?)\};", miller, re.S).group(1)
     assert [int(v) for v in re.findall(r"\d", flags)] == pd._SQR_FLAGS.tolist()

@@ -650,9 +650,59 @@ def test_g2_sum_kernel(cuda, lanes):
     X, Y, Z = (torch.from_numpy(a).to(cuda) for a in ga._points_to_lanes(lists, 8, lanes))
     _ext.reset_launches()
     got = ga.g2_sum_many(X, Y, Z)
-    assert _ext.launches["g2_sum"] == 1
+    assert _ext.launches["g2_sum"] == len(ga.sum_plan(8, lanes))
     assert torch.equal(got, ga.g2_sum_many_ref(X, Y, Z))
     assert ga.sums_to_points(got[: len(lists)]) == [_sum_g2(pts) for pts in lists]
+
+
+# K15's plan: lanes passes of one thread an add while a level has many adds,
+# then warp passes on the round engine; agg_slot's tier shapes and the slot's
+@pytest.mark.parametrize("items, lanes", [(1, 512), (64, 1), (2, 32), (64, 512)])
+def test_g2_sum_kernel_plan_shapes(cuda, items, lanes):
+    from eth_consensus_specs_tpu_torch.crypto.curve import g2_generator
+    from eth_consensus_specs_tpu_torch.inputs import point_multiples
+    from eth_consensus_specs_tpu_torch.ops import g2_aggregate as ga
+
+    g = g2_generator()
+    pts = point_multiples(g, 1, items * lanes)
+    lists = [pts[i * lanes:(i + 1) * lanes] for i in range(items)]
+    X, Y, Z = (torch.from_numpy(a).to(cuda) for a in ga._points_to_lanes(lists, items, lanes))
+    _ext.reset_launches()
+    got = ga.g2_sum_many(X, Y, Z)
+    assert _ext.launches["g2_sum"] == len(ga.sum_plan(items, lanes))
+    assert torch.equal(got, ga.g2_sum_many_ref(X, Y, Z))
+    assert ga.sums_to_points(got) == [g.mul(sum(range(i * lanes + 1, (i + 1) * lanes + 1)))
+                                      for i in range(items)]
+
+
+def test_g2_sum_kernel_corners_across_passes(cuda):
+    """Sums that meet as P + P and P + (-P) within a pass, across the lanes
+    pass's boundary and across the warp passes', lanes at infinity, at a
+    shape whose plan starts with a lanes pass."""
+    from eth_consensus_specs_tpu_torch.crypto.curve import g2_generator, g2_infinity
+    from eth_consensus_specs_tpu_torch.crypto.signature import _sum_g2
+    from eth_consensus_specs_tpu_torch.inputs import point_multiples
+    from eth_consensus_specs_tpu_torch.ops import g2_aggregate as ga
+
+    pts = point_multiples(g2_generator(), 1, 64)
+    p, q, inf = pts[5], pts[6], g2_infinity()
+    lists = [[inf] * 512, [p], [p, p] + pts[10:20], [p, -p] + pts[20:30], pts[:37],
+             [inf, p, inf, pts[9]], [p, q, p, q], [p, q, -p, -q], pts[:8] + pts[:8],
+             pts[16:24] + [-x for x in pts[16:24]], [inf, inf, p, inf] * 8]
+    lists += [[] for _ in range(16 - len(lists))]
+    assert ga.sum_plan(16, 512)[0][0] == "thread"
+    X, Y, Z = (torch.from_numpy(a).to(cuda) for a in ga._points_to_lanes(lists, 16, 512))
+    got = ga.g2_sum_many(X, Y, Z)
+    assert torch.equal(got, ga.g2_sum_many_ref(X, Y, Z))
+    assert ga.sums_to_points(got) == [_sum_g2(pts) for pts in lists]
+
+
+def test_g2_sum_plan_header_is_the_generators_output(cuda):
+    """The build wrote K15's plan header as the generator renders it."""
+    from eth_consensus_specs_tpu_torch.ops import g2_aggregate as ga
+
+    _ext.lib("g2_sum")
+    assert (_ext.BUILD_DIR / "include" / "g2_sum_plan.cuh").read_text() == ga.sum_plan_header()
 
 
 def test_aggregate_slot_on_card(cuda):
@@ -663,21 +713,29 @@ def test_aggregate_slot_on_card(cuda):
 
     from eth_consensus_specs_tpu_torch.ops import g1_msm
 
+    from eth_consensus_specs_tpu_torch.ops import g2_aggregate as ga
+
     atts, bad = slot_committees(256, 8, 16, n_roots=2, invalid=2)
-    lanes, sum_many = [], g1_msm.sum_many
+    lanes, shapes, sum_many, g2_sum_many = [], [], g1_msm.sum_many, ga.g2_sum_many
 
     def recorded(X, Y, Z):
         lanes.append(X.shape[1])
         return sum_many(X, Y, Z)
 
+    def recorded_g2(X, Y, Z):
+        shapes.append(tuple(X.shape[:2]))
+        return g2_sum_many(X, Y, Z)
+
     _ext.reset_launches()
-    g1_msm.sum_many = recorded
+    g1_msm.sum_many, ga.g2_sum_many = recorded, recorded_g2
     try:
         slot, subs = agg_tree.aggregate_slot(atts, device=cuda)
     finally:
-        g1_msm.sum_many = sum_many
-    # 8 + 2 tiers, each K10 call len(sum_plan(L)) + 1 launches
-    assert _ext.launches["g2_sum"] == 8 + 2 and len(lanes) == 8 + 2
+        g1_msm.sum_many, ga.g2_sum_many = sum_many, g2_sum_many
+    # 8 + 2 tiers, each K10 call len(sum_plan(L)) + 1 launches, each K15
+    # call len(sum_plan(I, L))
+    assert len(shapes) == 8 + 2 and len(lanes) == 8 + 2
+    assert _ext.launches["g2_sum"] == sum(len(ga.sum_plan(*sh)) for sh in shapes)
     assert _ext.launches["g1_sum"] == sum(len(g1_msm.sum_plan(n)) + 1 for n in lanes)
     hslot, hsubs = agg_tree.aggregate_slot_host(atts)
     assert [(s.sig, s.pubkey, s.bits.tolist()) for s in slot] == \
@@ -934,3 +992,20 @@ def test_final_exp_gt_kernel(cuda):
         assert pd.fq12_from_words(got) == oracle.final_exponentiation(pd.fq12_from_words(f))
         assert bool(pd.final_exp_is_one(f)) == pd.fq12_from_words(got).is_one()
     assert pd.pairing_device(g.mul(5), q.mul(9), device=cuda) == oracle.pairing(g.mul(5), q.mul(9))
+
+
+def test_final_exp_gt_kernel_on_miller_values(cuda):
+    """K20 on the Miller values of 4 pairs one by one and of their product,
+    word for word against its plain twin and the host oracle, repeated."""
+    from eth_consensus_specs_tpu_torch.crypto import pairing as oracle
+    from eth_consensus_specs_tpu_torch.crypto.curve import g1_generator, g2_generator
+    from eth_consensus_specs_tpu_torch.ops import pairing_device as pd
+
+    g, q = g1_generator(), g2_generator()
+    pairs = [(g.mul(a), q.mul(b)) for a, b in ((3, 5), (7, 2), (11, 13), (1, 17))]
+    for chosen in [[p] for p in pairs] + [pairs]:
+        f = pd.miller_product(*[torch.from_numpy(a).to(cuda) for a in pd.pack_pairs(chosen)])
+        got = pd.final_exponentiation(f)
+        assert torch.equal(got, pd.final_exponentiation_ref(f))
+        assert pd.fq12_from_words(got) == oracle.final_exponentiation(pd.fq12_from_words(f))
+        assert all(torch.equal(pd.final_exponentiation(f), got) for _ in range(5))

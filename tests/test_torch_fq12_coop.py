@@ -149,8 +149,10 @@ def test_round_shapes():
                 ("mul", "sqr", "cyc", "line", "frob", "frob2")}
     assert products == {"mul": 54, "sqr": 36, "cyc": 18, "line": 48, "frob": 18, "frob2": 12}
     assert st["line_conv"]["products"] == 52 and st["inv"]["inverse_rounds"] == 1
+    # K20's inverse: the same rounds around an Fq inverse the kernel takes itself
+    assert st["inv_a"]["inverse_rounds"] == st["inv_b"]["inverse_rounds"] == 0
     assert all(s["product_rounds"] == 1 for n, s in st.items()
-               if n not in ("inv", "prep", "conj", "sqr_line", "sqr_line_conv"))
+               if n not in ("inv", "inv_a", "inv_b", "prep", "conj", "sqr_line", "sqr_line_conv"))
     assert st["sqr_line"]["rounds"] == 4 and st["line"]["rounds"] == 2  # K11's steps
     assert st["cyc"]["rounds"] == 2
     assert coop.SLOTS <= coop.MAX_SLOT

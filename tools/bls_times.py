@@ -6,7 +6,8 @@ gives milliseconds a launch. Kernels: K10 ``sum_many`` at [128, 512],
 [64, 512], [1, 512], [8, 32768], [1, 32] and [128, 32] (the fold alone);
 K13 ``h2c_map`` and K14 ``h2c_finish`` at 128 messages (and K13's square
 root alone on 256 values, its two powers); K11 ``miller_product`` at 129
-pairs; K12 ``final_exp_is_one``; K15 ``g2_sum_many`` at [1, 512]; K17
+pairs; K12 ``final_exp_is_one``; K15 ``g2_sum_many`` at ``agg_slot``'s
+tier shapes [1, 512], [64, 1], [2, 32] and at [64, 512]; K17
 ``msm_many`` at [2, 129]; K20 ``final_exponentiation`` of one Miller
 value. ``--root`` imports the port from another checkout (for example an
 unpacked parent commit), so that two versions can be timed in one call on
@@ -86,9 +87,11 @@ def main() -> int:
     f = pd.miller_product(*a)
     out["k12_final_exp_is_one"] = ms(lambda: pd.final_exp_is_one(f))
     out["k20_final_exponentiation"] = ms(lambda: pd.final_exponentiation(f))
-    g2 = point_multiples(g2_generator(), 1, 512)
-    X, Y, Z = (torch.from_numpy(x).to(dev) for x in ga._points_to_lanes([g2], 1, 512))
-    out["k15_g2_sum_many_1x512"] = ms(lambda: ga.g2_sum_many(X, Y, Z))
+    g2 = point_multiples(g2_generator(), 1, 64 * 512)
+    for items, lanes in ((1, 512), (64, 1), (2, 32), (64, 512)):
+        lists = [g2[i * lanes:(i + 1) * lanes] for i in range(items)]
+        X, Y, Z = (torch.from_numpy(x).to(dev) for x in ga._points_to_lanes(lists, items, lanes))
+        out[f"k15_g2_sum_many_{items}x{lanes}"] = ms(lambda: ga.g2_sum_many(X, Y, Z))
     rnd = random.Random(7)
     lists = [keys[:129], keys[129:258]]
     K, X, Y, Z = (torch.from_numpy(x).to(dev) for x in g1_msm.pack_msm(
