@@ -154,7 +154,8 @@ duplicate, end, already-set, wrapping and empty plans), K19 (block_slot at
 corner of ``inputs.block_slot_corners``: a window that wraps, full and partial
 payloads, repeated rows, unpaid runs, the proposer in the sync committee,
 repeated sync indices, duplicate deposits, values at and above 2^63, an
-all-pad slot) and K20 (final_exp_gt on 4 Miller values, against its plain
+all-pad slot, bits set first in one pay group and carried again after the
+last pay row) and K20 (final_exp_gt on 4 Miller values, against its plain
 version and the host ``final_exponentiation``, over 20 repeated launches;
 K12's verdict against K20 == 1).
 Each path runs with every launch counter at 0 just
@@ -173,6 +174,7 @@ tracker and, the script being their subreaper, their orphans.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import statistics
@@ -1029,6 +1031,9 @@ def check_slice3_kernels(dev):
                                    shuffle.shuffle_rounds_ref(dig, piv, size)))
     b_ms, b_by = bound(32 * msgs + 4 * rounds + 4 * n, other_ops=n * rounds * OPS_SHUFFLE_LANE_ROUND)
     k8_ms = cuda_ms(lambda: shuffle.shuffle_rounds(digests, pivots, n), inner=INNER)
+    # the design's L2 traffic at most: every step writes X (4 B a lane) and
+    # reads the bits at the pairs' upper ends (half the round's table), every
+    # step but the first reads X
     rows.append(dict(
         name="shuffle_rounds", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/shuffle.cu",
         replaces="eth_consensus_specs_tpu/ops/shuffle.py:78", shape=[n, rounds], max_abs_err=err,
@@ -1036,7 +1041,8 @@ def check_slice3_kernels(dev):
         device_ms=device_ms(lambda: shuffle.shuffle_rounds(digests, pivots, n), ("shuffle_rounds",)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, lane_rounds=n * rounds,
         lane_rounds_per_s=n * rounds / (k8_ms / 1e3), l2_table_bytes=32 * msgs,
-        sizes_checked=list(SHUFFLE_SIZES) + [1, 257],
+        design_l2_bytes=rounds * (4 * n + 16 * chunks) + (rounds - 1) * 4 * n,
+        grid_barriers=rounds - 1, sizes_checked=list(SHUFFLE_SIZES) + [1, 257],
     ))
 
     # K9 on the example columns and each corner the example never reaches
@@ -3075,6 +3081,18 @@ def block_slot_bytes(params, n: int, slot, before, after) -> int:
     return reads + writes + 8 * 3
 
 
+def block_slot_sync_steps(slot) -> tuple[int, int]:
+    """K19's sequential sync steps on one slot: the proposer's own positions
+    in the committee, and the longest run of one validator's positions."""
+    import numpy as np
+
+    from eth_consensus_specs_tpu_torch.convert import to_numpy
+
+    sync = to_numpy(slot.sync_idx)
+    runs = np.unique(sync, return_counts=True)[1]
+    return int((sync == int(slot.proposer)).sum()), int(runs.max()) if runs.size else 0
+
+
 def final_exp_gt_fq_products(sqr: int = FQ_PER_CYC_SQR) -> int:
     """The Fq products of K20's chain, without its input conversion: K12's
     easy part (an inverse, two products, a p^2-Frobenius), the power by
@@ -3146,11 +3164,15 @@ def check_block_epoch_kernels(dev):
 
     params, n = block_epoch_params("deneb", "mainnet"), BLOCK_VALIDATORS
     corners = block_slot_corners(params, n, BLOCK_ATTS, BLOCK_SEED, device=dev)
+    scratch = be.SlotScratch(n, dev)  # one for every slot, as a chain keeps one
+    kernel = functools.partial(be.block_slot, scratch=scratch)
     checked, err = list(corners), 0
     for st, slot, static in corners.values():
         outs = [fn(params, n, *(t.clone() for t in (st.balance, st.cur_part, st.prev_part)),
-                   be._scalars(st), slot, static) for fn in (be.block_slot, be.block_slot_ref)]
+                   be._scalars(st), slot, static) for fn in (kernel, be.block_slot_ref)]
         err = max([err] + [max_abs_err(g, w) for g, w in zip(*outs)])
+    if not bool((scratch.words[:2 * n] == -1).all()) or bool(scratch.words[2 * n:].any()):
+        raise RuntimeError("K19 left its scratch unclean")
     del corners, outs
     cols, st0, static = be.synthetic_block_columns(params, n, BLOCK_SEED, BLOCK_ATTS, device=dev)
     slots = [be.slot_columns(cols, s) for s in range(params.slots_per_epoch)]
@@ -3182,23 +3204,31 @@ def check_block_epoch_kernels(dev):
     nbytes = []  # the warm-up epoch counts each slot's bytes
     for slot in slots:
         before = [t.clone() for t in work[:3]]
-        be.block_slot(params, n, *work, slot, static)
+        kernel(params, n, *work, slot, static)
         nbytes.append(block_slot_bytes(params, n, slot, before, work[:3]))
-    ms = slot_ms(be.block_slot, REPEATS)
+    ms = slot_ms(kernel, REPEATS)
     restore()
-    per = per_call_ms(device_profile(lambda: epoch(be.block_slot)), len(slots))
+    per = per_call_ms(device_profile(lambda: epoch(kernel)), len(slots))
     traced = [t for name, t in per.items() if name.startswith("block_slot")]
     if not traced:
         raise RuntimeError("the trace holds no block_slot kernel")
     b_ms, b_by = bound(statistics.mean(nbytes))
     a, c = slot.att_idx.shape
     sy, d = slot.sync_idx.shape[0], slot.dep_idx.shape[0]
+    # the design's chain: two grid barriers, then the proposer's own sync
+    # positions and the longest run of one validator's (the worst slot)
+    steps = [block_slot_sync_steps(s) for s in slots]
+    chain = max(2 + p + longest for p, longest in steps)
     rows = [dict(
         name="block_slot", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/block_epoch.cu",
         replaces="eth_consensus_specs_tpu/ops/block_epoch.py:265", shape=[n, a, c, sy, d],
         max_abs_err=err, ms=ms, device_ms=sum(traced), plain_ms=slot_ms(be.block_slot_ref, 1),
         bound_ms=b_ms, bound_by=b_by, bytes=statistics.mean(nbytes),
-        serial_chain_steps=a + sy, library_ms=None, corners_checked=checked,
+        serial_chain_steps=chain, grid_barriers=2,
+        sync_steps_proposer=max(p for p, _ in steps),
+        sync_steps_longest_run=max(longest for _, longest in steps),
+        grid_blocks=scratch.blocks, threads_per_block=1024,
+        library_ms=None, corners_checked=checked,
     )]
     del work, fresh, cols
 

@@ -82,7 +82,7 @@ SIGNATURES = {
                "g1_msm_fold_launch": [_P, _P, _I64, _I64]},
     "slot_apply": {"slot_apply_launch": [_P, _P, _P, _P, _P, _P, _I64],
                    "slot_apply_scatter_launch": [_P, _P, _P, _P, _P, _I64, _P, _P, _I64]},
-    "block_epoch": {"block_slot_launch": [_P] * 21 + [_I64] * 5 + [_P]},
+    "block_epoch": {"block_slot_launch": [_P] * 22 + [_I64] * 5 + [_P]},
     "fq12_coop": {"fq12_coop_check_launch": [_P, _P, _P, _P, _I64, _I32, _I32]},
 }
 

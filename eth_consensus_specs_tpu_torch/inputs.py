@@ -531,7 +531,7 @@ def slot_schedule(n_validators: int, slots: int = 8, committees: int = 64, commi
 
 BLOCK_SLOT_CORNERS = ("cell", "wrap", "full_payload", "partial_payload", "repeat_rows",
                       "pay_runs", "sync_proposer", "sync_repeats", "dup_deposits",
-                      "high_balances", "all_pad")
+                      "high_balances", "all_pad", "first_setter")
 
 
 def block_slot_corners(params, n_validators: int, atts_per_slot: int = 128, seed: int = 11,
@@ -563,7 +563,14 @@ def block_slot_corners(params, n_validators: int, atts_per_slot: int = 128, seed
       above 2^63 in the withdrawal window, under a sync decrease and a
       deposit of 2^64 - 1 that wraps, and a proposer at 2^64 - 2;
     - ``all_pad``: every row and deposit lane the pad index n, no flags, no
-      sync bit set."""
+      sync bit set;
+    - ``first_setter``: row 0's committee (its members with a base reward)
+      in the current column three more times: row 0 (paid at once) carries
+      bits 0 and 1, row 1 (paid at once) bit 2, and the last two rows, after
+      the last pay row, carry all three again, so their numerator is left
+      over; a third of the members hold bit 0 and a fifth bit 2 already.
+      Crediting any bit to a row other than its first setter moves its
+      reward out of the proposer's pay."""
     from .convert import to_numpy
     from .ops.block_epoch import slot_columns, synthetic_block_columns
 
@@ -651,6 +658,21 @@ def _block_slot_corner(case: str, params, n: int, base, seed: int, dev) -> tuple
         st["balance"][w] = np.uint64(1 << 63) + np.arange(4, dtype=np.uint64)
         s["sync_bits"][0] = False
         st["balance"][s["sync_idx"][0]] = np.uint64((1 << 63) + 5)
+    elif case == "first_setter":
+        members = s["att_idx"][0]
+        real = members < n
+        bits = s["att_bits"][0] & real
+        bits[real] &= sc["base_reward"][members[real]] > 0
+        for r, flags in ((0, 0b011), (1, 0b100), (a_rows - 2, 0b111), (a_rows - 1, 0b111)):
+            s["att_idx"][r], s["att_bits"][r] = members, bits
+            s["att_flags"][r], s["att_is_current"][r] = flags, True
+        s["att_pay"][:2] = True
+        s["att_pay"][a_rows - 3] = True
+        s["att_pay"][a_rows - 2:] = False
+        live = members[bits]
+        st["cur_part"][live] = 0
+        st["cur_part"][live[::3]] |= 0b001
+        st["cur_part"][live[::5]] |= 0b100
     elif case == "all_pad":
         s["att_idx"][:] = n
         s["att_bits"][:] = False

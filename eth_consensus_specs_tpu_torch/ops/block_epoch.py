@@ -51,6 +51,7 @@ never a route.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -78,8 +79,9 @@ from .state_root import (
     validator_subtree,
 )
 
-MAX_WINDOW = 16384  # K19's sweep window: 16 positions for each of 1,024 threads
-MAX_SYNC = 1024  # K19 stages a slot's sync indices in shared memory
+MAX_WINDOW = 16384  # K19's sweep window: 16 positions for each of block 0's 1,024 threads
+MAX_SYNC = 1024  # K19 sorts a slot's sync positions in block 0's shared memory, one a thread
+MAX_ROWS = 1024  # K19 scans the row sums in block 0, one a thread (a row fits a 16-bit minimum)
 
 
 class BlockColumns(NamedTuple):
@@ -318,36 +320,66 @@ def _check_slot(n, balance, cur_part, prev_part, scal, slot: BlockColumns,
         _ext.check_cuda(t, dtype, shape)
     if sy > MAX_SYNC:
         raise ValueError(f"K19 takes at most {MAX_SYNC} sync positions, got {sy}")
+    if a > MAX_ROWS:
+        raise ValueError(f"K19 takes at most {MAX_ROWS} attestation rows, got {a}")
+    if cur_part.data_ptr() % 4 or prev_part.data_ptr() % 4:
+        raise ValueError("K19 ORs flags into 4-byte words: the participation columns must start "
+                         "on a 4-byte boundary")
     return a, c, sy, d
 
 
+class SlotScratch:
+    """K19's scratch for a registry of ``n`` validators on one device:
+    ``words`` holds 2n first-setter words (a (column, validator)'s three
+    16-bit row minima, all ones when clean), then MAX_ROWS row sums (zeros
+    when clean). Every launch leaves it clean, so one scratch serves every
+    slot of a chain, one launch at a time. ``blocks`` is the grid of the
+    last launch that used it."""
+
+    def __init__(self, n: int, device):
+        self.words = torch.zeros(2 * n + MAX_ROWS, dtype=torch.int64, device=device)
+        self.words[:2 * n] = -1
+        self.blocks = 0
+
+
 def block_slot(params: BlockEpochParams, n: int, balance, cur_part, prev_part, scal,
-               slot: BlockColumns, static: BlockEpochStatic, with_withdrawals: bool = True):
+               slot: BlockColumns, static: BlockEpochStatic, with_withdrawals: bool = True,
+               scratch: SlotScratch | None = None):
     """One slot's block against the plane, in place on (balance, cur_part,
     prev_part, scal), which it returns (``block_slot_ref`` says what
     ``scal`` holds). The slot's indices must have passed ``check_indices``.
+    ``scratch`` (made for the call when not given) is K19's.
 
-    CUDA tensors go through kernel K19 (``csrc/block_epoch.cu``, one launch:
-    one block of 1,024 threads runs the withdrawals, the rows in order, the
-    deposits and the sync walk); CPU tensors through the plain version."""
+    CUDA tensors go through kernel K19 (``csrc/block_epoch.cu``, one
+    cooperative launch over the card, two grid barriers: block 0 runs the
+    withdrawal sweep while the other blocks record each flag bit's first
+    setting row; then each lane credits its first-set bits to its row, ORs
+    its flags and the deposits add; then block 0 pays the proposer by a scan
+    over the row sums and runs the sync aggregate one validator's run of
+    positions a thread, while the others clean the first-setter scratch).
+    CPU tensors go through the plain version."""
     if balance.device.type == "cpu":
         return block_slot_ref(params, n, balance, cur_part, prev_part, scal, slot, static,
                               with_withdrawals)
     a, c, sy, d = _check_slot(n, balance, cur_part, prev_part, scal, slot, static)
+    scratch = SlotScratch(n, balance.device) if scratch is None else scratch
+    _ext.check_cuda(scratch.words, torch.int64, (2 * n + MAX_ROWS,))
     if with_withdrawals and _sweep_bound(params, n) > MAX_WINDOW:
         raise ValueError(f"K19's sweep window holds at most {MAX_WINDOW} validators")
-    consts = (ctypes.c_int64 * 8)(*params.weights, proposer_denominator(params),
+    consts = (ctypes.c_int64 * 9)(*params.weights, proposer_denominator(params),
                                   params.max_withdrawals_per_payload,
                                   params.max_validators_per_withdrawals_sweep,
-                                  params.max_effective_balance, int(bool(with_withdrawals)))
+                                  params.max_effective_balance, int(bool(with_withdrawals)), 0)
     p = _ext.ptr
     _ext.launch("block_epoch", "block_slot_launch", balance.device, p(balance), p(cur_part),
-                p(prev_part), p(scal), p(static.base_reward), p(static.eff_balance),
+                p(prev_part), p(scal), p(scratch.words),
+                p(static.base_reward), p(static.eff_balance),
                 p(static.withdrawable_epoch), p(static.has_eth1_cred), p(static.epoch),
                 p(static.part_reward), p(static.prop_reward), p(slot.att_idx), p(slot.att_bits),
                 p(slot.att_flags), p(slot.att_is_current), p(slot.att_pay), p(slot.proposer),
                 p(slot.sync_idx), p(slot.sync_bits), p(slot.dep_idx), p(slot.dep_amt), n, a, c,
                 sy, d, ctypes.cast(consts, ctypes.c_void_p), counter="block_slot")
+    scratch.blocks = consts[8]
     return balance, cur_part, prev_part, scal
 
 
@@ -391,10 +423,12 @@ def block_epoch_chain(params: BlockEpochParams, n: int, st: BlockState, blocks: 
     int32[8] root words (zero without ``root_ctx``). ``st`` is left as it
     is; nothing reads back to the host between slots.
 
-    On a CUDA device every slot runs K19 and its root K1 and K2; on the CPU
-    their plain versions."""
-    return _chain(block_slot, KERNELS, params, n, st, blocks, static, root_ctx,
-                  with_withdrawals, device)
+    On a CUDA device every slot runs K19 (one scratch for the chain) and its
+    root K1 and K2; on the CPU their plain versions."""
+    dev = default_device(device)
+    scratch = SlotScratch(n, dev) if dev.type == "cuda" else None
+    return _chain(functools.partial(block_slot, scratch=scratch), KERNELS, params, n, st, blocks,
+                  static, root_ctx, with_withdrawals, dev)
 
 
 def block_epoch_chain_ref(params: BlockEpochParams, n: int, st: BlockState, blocks: BlockColumns,

@@ -18,7 +18,12 @@ hash of (seed, round byte, little-endian u32 chunk).
   the host (``rounds`` small hashes), the rounds x chunks decision blocks
   are built with tensor ops on the device (``single_block_words``), hashed
   by K7 (``sha256_single_block``), and K8 (``shuffle_rounds``,
-  ``csrc/shuffle.cu``) runs every round of every lane in one launch.
+  ``csrc/shuffle.cu``) runs every round over the whole array in one
+  launch: the rounds in reverse, each step X'[j] = X[g_r(j)] from the
+  identity, where g_r is one round of one lane. g_r swaps the pairs
+  (j, flip) whose decision bit is set, so a step swaps in place, and its
+  reads of X and of the bits are runs of consecutive addresses; one grid
+  barrier separates two steps.
 """
 
 from __future__ import annotations
@@ -124,8 +129,10 @@ def _check_rounds_args(digests: torch.Tensor, pivots: torch.Tensor, n: int) -> N
 def shuffle_rounds(digests: torch.Tensor, pivots: torch.Tensor, n: int) -> torch.Tensor:
     """Every swap-or-not round over lanes 0..n-1 -> int32[n] permutation.
 
-    CUDA tensors go through kernel K8 (one thread per lane runs all rounds
-    in registers, one launch); CPU tensors through the plain version."""
+    CUDA tensors go through kernel K8 (one cooperative launch: the rounds in
+    reverse as whole-array steps from the identity, each step the round's
+    swaps of pairs (j, flip) done in place on the output, a grid barrier
+    between steps); CPU tensors through the plain version."""
     _check_rounds_args(digests, pivots, n)
     if digests.device.type == "cpu":
         return shuffle_rounds_ref(digests, pivots, n)

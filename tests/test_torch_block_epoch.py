@@ -26,6 +26,7 @@ from eth_consensus_specs_tpu_torch.ops import block_epoch as tbe
 from eth_consensus_specs_tpu_torch.ops import block_epoch_host as tbeh
 from eth_consensus_specs_tpu_torch.ops.state_root import synthetic_static
 from tests.test_block_epoch import _build_epoch_blocks, _static_from_state
+from tests.test_torch_block_slot_design import block_slot_twin
 
 N = 1 << 10
 ATTS = 8
@@ -218,6 +219,11 @@ def test_block_slot_ref_corner_equals_jax(case, params, corners, jax_slot_fn):
         assert int(scal[0]) == 1005
     if case == "high_balances":
         assert int(u(want.balance)[int(slot.proposer)]) < 1 << 63  # the proposer wrapped
+    if case == "first_setter":  # crediting the last setter instead pays the proposer less
+        last = block_slot_twin(params, N, st, slot, static, setter="last")[0]
+        prop = int(slot.proposer)
+        assert int(last[prop]) != int(u(want.balance)[prop])
+        assert np.array_equal(np.delete(last, prop), np.delete(u(want.balance), prop))
 
 
 def test_corners_differ_from_the_cell(corners):

@@ -7,6 +7,7 @@ installed, e.g. on the H100:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import functools
 import hashlib
 
 import numpy as np
@@ -925,7 +926,7 @@ def test_slot_world_on_card_equals_the_cpu_world(cuda):
 
 @pytest.mark.parametrize("case", ["cell", "wrap", "full_payload", "partial_payload", "repeat_rows",
                                   "pay_runs", "sync_proposer", "sync_repeats", "dup_deposits",
-                                  "high_balances", "all_pad"])
+                                  "high_balances", "all_pad", "first_setter"])
 def test_block_slot_kernel(cuda, case):
     from eth_consensus_specs_tpu_torch.config import block_epoch_params
     from eth_consensus_specs_tpu_torch.inputs import block_slot_corners
@@ -933,14 +934,18 @@ def test_block_slot_kernel(cuda, case):
 
     params = block_epoch_params("deneb", "mainnet")
     st, slot, static = block_slot_corners(params, 4096, atts_per_slot=16, device=cuda)[case]
+    scratch = be.SlotScratch(4096, cuda)
     outs = []
-    for fn in (be.block_slot, be.block_slot_ref):
+    for fn in (functools.partial(be.block_slot, scratch=scratch), be.block_slot_ref):
         state = [t.clone() for t in (st.balance, st.cur_part, st.prev_part)] + [be._scalars(st)]
         _ext.reset_launches()
         outs.append(fn(params, 4096, *state, slot, static))
-        assert _ext.launches["block_slot"] == (fn is be.block_slot)
+        assert _ext.launches["block_slot"] == (fn is not be.block_slot_ref)
     for got, want in zip(*outs):
         assert torch.equal(got, want)
+    assert scratch.blocks > 1  # the sweep's block and the lanes' blocks
+    words = scratch.words  # left clean for the next slot
+    assert bool((words[:2 * 4096] == -1).all()) and not bool(words[2 * 4096:].any())
 
 
 def test_block_epoch_chain_on_card_equals_the_cpu_chain_and_the_oracle(cuda):

@@ -107,6 +107,45 @@ def test_rounds_ref_is_the_jax_loop(n):
     assert np.array_equal(ts.shuffle_rounds(digests, pivots, n).numpy(), want)
 
 
+def _rounds_array_form(digests: torch.Tensor, pivots: torch.Tensor, n: int) -> np.ndarray:
+    """K8's design on the host: X starts as the identity and the rounds run in
+    reverse as whole-array steps X'[j] = X[g_r(j)], g_r one round of one lane.
+    g_r swaps each pair (j, f = flip(j)), j < f, whose decision bit at f is
+    set: the pairs are j < ceil(p/2) with f = p - j and p < j < (p + n + 1) / 2
+    with f = p + n - j, and the one or two fixed points stay."""
+    rounds = pivots.shape[0]
+    table = digests.numpy().view(np.uint32).reshape(rounds, -1, 8).astype(np.int64)
+    x = np.arange(n, dtype=np.int64)
+    for r in reversed(range(rounds)):
+        p = int(pivots[r])
+        low = (p + 1) // 2
+        m = np.arange(low + (p + n - 1) // 2 - p, dtype=np.int64)
+        j = np.where(m < low, m, p + 1 + (m - low))
+        f = np.where(m < low, p - m, p + n - j)
+        fixed = [v for v, even in ((p // 2, p % 2 == 0), ((p + n) // 2, (p + n) % 2 == 0)) if even]
+        assert sorted(np.concatenate([j, f, fixed]).tolist()) == list(range(n))
+        assert (j < f).all() and ((p - j) % n == f).all()
+        in_chunk = f & 255
+        word = table[r, f >> 8, in_chunk >> 5]
+        byte = (word >> (8 * (3 - ((in_chunk >> 3) & 3)))) & 0xFF
+        swap = (byte >> (in_chunk & 7)) & 1 == 1
+        x[j[swap]], x[f[swap]] = x[f[swap]], x[j[swap]]
+    return x
+
+
+@pytest.mark.parametrize("rounds", [90, 10])
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 1000])
+def test_reverse_array_form_is_the_lane_form(n, rounds):
+    """The whole-array steps in reverse equal the plain twin's lane rounds and
+    the JAX host permutation."""
+    s = SEEDS["sha"]
+    digests = sha256_single_block_ref(ts.single_block_words(s, rounds, (n + 255) // 256, "cpu"))
+    pivots = torch.tensor(ts.pivots(n, s, rounds), dtype=torch.int32)
+    got = _rounds_array_form(digests, pivots, n)
+    assert np.array_equal(got, ts.shuffle_rounds_ref(digests, pivots, n).numpy())
+    assert np.array_equal(got, js.shuffle_permutation(n, s, rounds))
+
+
 def test_flip_wraps_below_zero():
     """A pivot below the index must wrap to pivot + n - idx (floored mod),
     never a negative lane: with every decision bit set, round r maps lane i
