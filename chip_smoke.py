@@ -9,13 +9,17 @@ Phases, each printing one JSON line:
    reports them (also printed alone on its own line);
 2. build: every CUDA kernel of the port compiled from ``csrc/`` (one nvcc
    per source, all at once), with the seconds it took;
-3. kernels: each kernel (K1 sha256_pairs, K2 merkle tree_root, K3
-   validator_leaves and its indexed entry validator_leaves_at, K4
-   altair_epoch, K5 merkle_inc, K6 merkle_levels) called at the paths'
-   shapes and held bit for bit (``torch.equal``) against its plain torch
-   version on the same card and inputs; K1 and K6 also against hashlib.
-   Median times with CUDA events, the plain version's time, and the least
-   time the card could take;
+3. kernels: each kernel (K1 sha256_pairs, K2 merkle tree_root and its
+   list-root entry list_roots, K3 validator_leaves and its indexed entry
+   validator_leaves_at, K4 altair_epoch, K5 merkle_inc, K6 merkle_levels)
+   called at the paths' shapes and held bit for bit (``torch.equal``)
+   against its plain torch version on the same card and inputs; K1, K2 and
+   K6 also against hashlib. K2 at the 2^20 registry tree and at the slot
+   root's batch (the balances as 2^20 u64, both participation lists as 2^20
+   bytes, folded and length-mixed), with its launches a call and its chain
+   of dependent pair hashes (``serial_bound_ms``). Median times with CUDA
+   events, the plain version's time, and the least time the card could
+   take;
 4. main_path: deneb mainnet, 2^20 validators, the example columns and a
    synthetic static tree; a warm-up epoch, then ``run_epochs(..., 8,
    with_root="state")`` with every launch counter at 0 just before it.
@@ -107,7 +111,7 @@ Phases, each printing one JSON line:
    ``ops.block_epoch.block_epoch_chain``, deneb mainnet, 2^20 validators, 32
    slots of 128 attestation rows x 512 lanes, a 512-index sync aggregate, 16
    deposits a slot, the withdrawal sweep and a state root every slot (one K19
-   launch a slot, the root over K1 and K2). The first 4 slots against the
+   launch a slot, the root two K2 launches: the lists, the top). The first 4 slots against the
    plain chain on the card; a warm chain, then 5 timed chains from fresh
    balance columns: ms an epoch against the 1 s limit, ms a slot, host
    enqueue, K19's and the root's event ms a slot, the card's busy time,
@@ -142,8 +146,9 @@ meet across the passes' boundaries, against the host ``_sum_g2``;
 ``agg_slot`` holds K15 and K10 word
 for word against their plain versions again on each tier's own points),
 K16 (fr_fft at the flush's [64, 4096] inverse, the das cell's [16, 8192]
-both ways and n = 2, 4, 16, on dense rows and corner rows, word for word
-and against the host ``fft_field``) and K17 (g1_msm_many at [2, 129],
+both ways and n = 2, 4, 8, 16, on dense rows and corner rows, word for word
+and against the host ``fft_field``; one launch a call, traced time, the Fr
+product's SASS count) and K17 (g1_msm_many at [2, 129],
 [2, 65], [2, 7], [2, 3], [1, 300] and on scalar and point corners, word for word
 and on affine points against the host ``msm_g1``; every shape but [3, 2],
 whose four half-lanes fill one block, spans several blocks and takes the
@@ -162,8 +167,8 @@ Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own paths, the state_inc main path
 for K1-K6, both kzg_flush and das_fft for K16, summed over its kernels where
-an entry launches two, as K10's lanes passes and fold, K11's loop and fold, K16's chunk and global
-stage, K17's lanes and fold and K18's copy and scatter; ``launches_by_path``: each path's; every kernel must have launched on
+an entry launches two, as K2's tree_root and list_roots, K10's lanes passes and fold, K11's loop
+and fold, K17's lanes and fold and K18's copy and scatter; ``launches_by_path``: each path's; every kernel must have launched on
 one of its own paths) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
 without the last line; so does a machine without CUDA, or a directory
@@ -284,10 +289,12 @@ def check_kernels(dev):
     import numpy as np
     import torch
 
+    from eth_consensus_specs_tpu_torch import _ext
     from eth_consensus_specs_tpu_torch.config import epoch_params
     from eth_consensus_specs_tpu_torch.inputs import (
         ALTAIR_CORNERS, altair_corner_inputs, example_altair_inputs)
     from eth_consensus_specs_tpu_torch.ops import altair_epoch, merkle, sha256, state_root
+    from eth_consensus_specs_tpu_torch.ops import block_epoch_host as beh
 
     n = N_VALIDATORS
     gen = torch.Generator().manual_seed(7)
@@ -298,8 +305,8 @@ def check_kernels(dev):
 
     rows = []
 
-    # K1 at the main path's shape: the four list-root fold chains hashed together
-    msgs = words(4, 16)
+    # K1 at the main path's shape: the three checkpoints hashed together
+    msgs = words(3, 16)
     out = sha256.sha256_pairs(msgs)
     torch.cuda.synchronize()
     err = max_abs_err(out, sha256.sha256_pairs_ref(msgs))
@@ -312,34 +319,66 @@ def check_kernels(dev):
             raise RuntimeError(f"sha256_pairs row {i} differs from hashlib")
     bulk = words(n, 16)
     max_abs_err(sha256.sha256_pairs(bulk), sha256.sha256_pairs_ref(bulk))
-    b_ms, b_by = bound(96 * 4, 4)
+    b_ms, b_by = bound(96 * 3, 3)
     bulk_ms = cuda_ms(lambda: sha256.sha256_pairs(bulk), inner=INNER)
     rows.append(dict(
         name="sha256_pairs", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/sha256.cu",
-        replaces="eth_consensus_specs_tpu/ops/sha256.py:153", shape=[4, 16], max_abs_err=err,
+        replaces="eth_consensus_specs_tpu/ops/sha256.py:153", shape=[3, 16], max_abs_err=err,
         ms=cuda_ms(lambda: sha256.sha256_pairs(msgs), inner=INNER),
         plain_ms=cuda_ms(lambda: sha256.sha256_pairs_ref(msgs), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, work_compressions=8,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, work_compressions=6,
         hashlib_checked=int(corner.shape[0]), bulk_rows=n, bulk_ms=bulk_ms,
         bulk_bound_ms=bound(96 * n, n)[0],
         bulk_compressions_per_s=2 * n / (bulk_ms / 1e3),
     ))
 
-    # K2 at the registry tree: 2^20 leaves, depth 20 (the column trees are 2^18 and 2^15)
+    # K2 at the registry tree (2^20 leaves, depth 20) and at the slot root's
+    # batch: the balances (2^20 u64, 2^18 chunks) and both participation
+    # lists (2^20 bytes, 2^15 chunks each), packed, folded and length-mixed
     depth = n.bit_length() - 1
     leaves = words(1 << depth, 8)
-    err = max_abs_err(merkle.tree_root(leaves, depth), merkle.tree_root_ref(leaves, depth))
-    for d in (depth - 2, depth - 5, 5, 1):
+    _ext.reset_launches()
+    got = merkle.tree_root(leaves, depth)
+    tree_launches = dict(_ext.launches)
+    err = max_abs_err(got, merkle.tree_root_ref(leaves, depth))
+    if words_bytes(got) != hashlib_tree_root(leaves.cpu().numpy().view(np.uint32)):
+        raise RuntimeError("merkle tree_root at 2^20 leaves differs from hashlib")
+    for d in (depth - 2, depth - 5, 5, 1, 0):
         max_abs_err(merkle.tree_root(leaves[: 1 << d], d), merkle.tree_root_ref(leaves[: 1 << d], d))
     hashes = merkle.tree_real_hashes(depth)
     b_ms, b_by = bound(32 * (1 << depth) + 32, hashes)
     k_ms = cuda_ms(lambda: merkle.tree_root(leaves, depth), inner=INNER)
+
+    lists, slot_msgs, slot_chain = slot_batch(dev, n, gen)
+    _ext.reset_launches()
+    roots = merkle.list_roots(lists)
+    slot_launches = dict(_ext.launches)
+    if sum(tree_launches.values()) != 1 or sum(slot_launches.values()) != 1:
+        raise RuntimeError(f"K2 launched {tree_launches} for a tree, {slot_launches} for a slot")
+    err = max(err, max_abs_err(roots, merkle.list_roots_ref(lists)))
+    for t, root in zip(lists, roots):
+        raw = t.src.cpu().numpy().tobytes()
+        if words_bytes(root) != beh.list_root_bytes(beh._chunks(raw), t.n, t.limit):
+            raise RuntimeError(f"merkle list_roots: the {t.src.dtype} list differs from hashlib")
+    slot_bytes = sum(t.src.element_size() * t.n for t in lists) + 32 * len(lists)
+    s_ms, s_by = bound(slot_bytes, slot_msgs)
+    slot_ms = cuda_ms(lambda: merkle.list_roots(lists), inner=INNER)
     rows.append(dict(
         name="merkle_tree_root", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/merkle.cu",
         replaces="eth_consensus_specs_tpu/ops/merkle.py:68", shape=[1 << depth, 8], max_abs_err=err,
-        ms=k_ms, plain_ms=cuda_ms(lambda: merkle.tree_root_ref(leaves, depth), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, work_compressions=2 * hashes,
-        compressions_per_s=2 * hashes / (k_ms / 1e3),
+        ms=k_ms, device_ms=device_ms(lambda: merkle.tree_root(leaves, depth), ("merkle_lists",)),
+        plain_ms=cuda_ms(lambda: merkle.tree_root_ref(leaves, depth), 3),
+        bound_ms=b_ms, bound_by=b_by, serial_bound_ms=depth * MESSAGE_SERIAL_S * 1e3,
+        library_ms=None, work_compressions=2 * hashes, compressions_per_s=2 * hashes / (k_ms / 1e3),
+        launches_a_call=sum(tree_launches.values()), hashlib_checked=True,
+        slot_batch=dict(
+            shape=[[str(t.src.dtype).split(".")[-1], t.n, t.limit] for t in lists],
+            ms=slot_ms,
+            device_ms=device_ms(lambda: merkle.list_roots(lists), ("merkle_lists",)),
+            plain_ms=cuda_ms(lambda: merkle.list_roots_ref(lists), 3),
+            bound_ms=s_ms, bound_by=s_by, serial_bound_ms=slot_chain * MESSAGE_SERIAL_S * 1e3,
+            chain_messages=slot_chain, messages=slot_msgs,
+            launches_a_call=sum(slot_launches.values()), hashlib_checked=True),
     ))
 
     # K3 at the full registry
@@ -392,6 +431,38 @@ def check_kernels(dev):
         corners_checked=[f"{fork}:{case}" for fork in ("electra", "deneb") for case in ALTAIR_CORNERS],
     ))
     return rows
+
+
+def words_bytes(root) -> bytes:
+    """int32[8] root words on any device -> the root's 32 bytes."""
+    import numpy as np
+
+    return root.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+
+
+def slot_batch(dev, n: int, gen):
+    """The slot root's three lists at n validators (``ops/block_epoch.slot_root``):
+    random balances as u64, participation flags as u8, each length-mixed
+    and folded to its SSZ limit. Returns the lists, the pair hashes they
+    need (``merkle.live_hashes``, the folds and the mixes) and the longest
+    chain of pair hashes among them (the tree's depth, its fold, its mix)."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch.ops import merkle
+    from eth_consensus_specs_tpu_torch.ops.state_root import (BALANCE_LIMIT_CHUNKS_LOG2,
+                                                              PARTICIPATION_LIMIT_CHUNKS_LOG2)
+
+    bal = torch.randint(0, 1 << 62, (n,), generator=gen, dtype=torch.int64).to(dev)
+    part = [torch.randint(0, 8, (n,), generator=gen, dtype=torch.int64).to(torch.uint8).to(dev)
+            for _ in range(2)]
+    lists = [merkle.ListTree(bal, n, BALANCE_LIMIT_CHUNKS_LOG2, n)] + [
+        merkle.ListTree(p, n, PARTICIPATION_LIMIT_CHUNKS_LOG2, n) for p in part]
+    msgs = chain = 0
+    for t in lists:
+        d = merkle.tree_depth(t)
+        msgs += merkle.live_hashes(merkle.chunk_count(t), d) + t.limit - d + 1
+        chain = max(chain, t.limit + 1)
+    return lists, msgs, chain
 
 
 def hashlib_tree_root(leaves) -> bytes:
@@ -597,12 +668,15 @@ def device_ms(fn, prefixes: tuple) -> float:
     """Device milliseconds of one fn() in the kernels whose names start with
     ``prefixes``, from torch.profiler over INNER calls back to back. Beside
     the CUDA-event time, which reads the host's enqueue rate when the host
-    is slower than the card."""
-    per = per_call_ms(device_profile(lambda: [fn() for _ in range(INNER)]), INNER)
-    mine = [ms for name, ms in per.items() if name.startswith(prefixes)]
-    if not mine:
-        raise RuntimeError(f"the trace holds no kernel named {prefixes}")
-    return sum(mine)
+    is slower than the card. The tracer has been seen to lose a whole
+    window's kernels after many windows in one process: a window that holds
+    none of them is traced again, three times at most."""
+    for _ in range(3):
+        per = per_call_ms(device_profile(lambda: [fn() for _ in range(INNER)]), INNER)
+        mine = [ms for name, ms in per.items() if name.startswith(prefixes)]
+        if mine:
+            return sum(mine)
+    raise RuntimeError(f"the trace holds no kernel named {prefixes}")
 
 
 def run_main_path(dev) -> tuple[dict, dict]:
@@ -991,6 +1065,7 @@ def check_slice3_kernels(dev):
     import numpy as np
     import torch
 
+    from eth_consensus_specs_tpu_torch import _ext
     from eth_consensus_specs_tpu_torch.config import MAX_BATCH, phase0_epoch_params, shuffle_round_count
     from eth_consensus_specs_tpu_torch.inputs import PHASE0_CORNERS, example_inputs, phase0_corner_inputs
     from eth_consensus_specs_tpu_torch.ops import merkle, sha256, shuffle, state_columns
@@ -1083,10 +1158,17 @@ def check_slice3_kernels(dev):
                              for t in ragged_flush(depth, MAX_BATCH, depth)])
         hashes = MAX_BATCH * merkle.tree_real_hashes(depth)
         b_ms, b_by = bound(32 * MAX_BATCH * ((1 << depth) + 1), hashes)
+        _ext.reset_launches()
+        merkle.many_tree_root(words, depth)
+        launches = sum(_ext.launches.values())
+        if launches != 1:
+            raise RuntimeError(f"K2's batched entry took {launches} launches at depth {depth}")
         k_ms = cuda_ms(lambda: merkle.many_tree_root(words, depth), inner=INNER)
         timed[depth] = dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by,
+                            serial_bound_ms=depth * MESSAGE_SERIAL_S * 1e3,
                             device_ms=device_ms(lambda: merkle.many_tree_root(words, depth),
-                                                ("merkle_reduce_kernel",)),
+                                                ("merkle_lists",)),
+                            launches_a_call=launches,
                             compressions_per_s=2 * hashes / (k_ms / 1e3))
     d = FLUSH_DEPTHS[0]
     words = torch.stack([merkle.chunks_to_words(torch.from_numpy(t).to(dev), 1 << d)
@@ -1103,6 +1185,7 @@ def check_slice3_kernels(dev):
         max_abs_err=err, ms=timed[d]["ms"], device_ms=timed[d]["device_ms"],
         plain_ms=cuda_ms(lambda: merkle.many_tree_root_ref(words, d), 2),
         bound_ms=timed[d]["bound_ms"], bound_by=timed[d]["bound_by"],
+        serial_bound_ms=timed[d]["serial_bound_ms"], launches_a_call=timed[d]["launches_a_call"],
         library_ms=None, work_compressions=2 * MAX_BATCH * ((1 << d) - 1),
         compressions_per_s=timed[d]["compressions_per_s"], depth16=timed[FLUSH_DEPTHS[1]],
     ))
@@ -2217,6 +2300,8 @@ DAS_REPEATS = 5
 # 32-bit instructions of one Fr product (8 x 32-bit CIOS Montgomery, fr.cuh):
 # 2 x 64 multiply-adds for a * b and m * r, each an IMAD.WIDE, and about 70
 # carry additions. Fr additions are not counted, so the bounds below are low.
+# The compiled product issues more: the run counts its SASS
+# (tools/fq_mul_sass.py) and reports the bound at that count beside this one.
 FR_MUL_INSTR = 200
 FQ_PER_G1_DBL = 7  # dbl-2009-l: 2 products and 5 squarings
 # product rounds of a curve formula at full formula parallelism, over Fq or
@@ -2250,12 +2335,13 @@ def fr_fft_products(rows: int, n: int, inverse: bool) -> int:
     return rows * (n // 2 * log_n + (n if inverse else 0))
 
 
-def fr_fft_bound(rows: int, n: int, inverse: bool) -> tuple[float, str]:
+def fr_fft_bound(rows: int, n: int, inverse: bool,
+                 per_product: float = FR_MUL_INSTR) -> tuple[float, str]:
     """Least milliseconds of a batch of FFTs: each value read and written
-    once (32 B) and the twiddles read once, against the Fr products on both
-    integer pipes."""
+    once (32 B) and the twiddles read once, against the Fr products at
+    ``per_product`` instructions each on both integer pipes."""
     t_bytes = (2 * rows * n + n - 1) * 32 / HBM_BYTES_PER_S * 1e3
-    t_ops = fr_fft_products(rows, n, inverse) * FR_MUL_INSTR / INT_OPS_PER_S * 1e3
+    t_ops = fr_fft_products(rows, n, inverse) * per_product / INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2355,10 +2441,24 @@ def random_fr_words(gen, shape, dev):
     return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
-def check_kzg_kernels(dev):
+def fr_mul_sass_count() -> float:
+    """SASS instructions of one Fr product as this run's toolkit compiles
+    ``csrc/fr.cuh`` (``tools/fq_mul_sass.py``'s ``fr_mul_sass``)."""
+    import importlib.util
+
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "fq_mul_sass", Path(__file__).resolve().parent / "tools" / "fq_mul_sass.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.fr_mul_sass()
+
+
+def check_kzg_kernels(dev, fr_sass: float):
     """Phase 3, continued: K16 at the flush's [64, 4096] inverse (rows in
     stored order, as the flush runs it), at the das cell's [16, 8192]
-    forward and inverse, and at n = 2, 4 and 16, on dense random rows and
+    forward and inverse, and at n = 2, 4, 8 and 16, on dense random rows and
     rows of corners (0, 1, r - 1, 2^254), word for word against its plain
     version on the card and against the host ``fft_field`` on sampled rows;
     K17 at a 64-blob flush's [2, 129] (its items A and B: 64 and 129
@@ -2367,7 +2467,9 @@ def check_kzg_kernels(dev):
     partials), [3, 2] (one block an item, no fold) and corner items (scalars 0, 1, r - 1, 2^256 - 1, r, r + 2; an
     infinity lane; P and -P; P and P, whose halves' tree doubles; one lane),
     word for word against its plain version and on affine points against
-    the host ``msm_g1``. K17's bound is its chain of product rounds at full
+    the host ``msm_g1``. K16's bound counts an Fr product at FR_MUL_INSTR,
+    its ``sass_bound_ms`` at ``fr_sass``, the SASS count of this run's build.
+    K17's bound is its chain of product rounds at full
     formula parallelism, a round at the 4-lane split's FQ_ROUND_INSTR
     (``round_bound``); beside it the same chain at a one-lane product as
     ``one_lane_bound_ms`` and the one-thread product chain as
@@ -2376,6 +2478,7 @@ def check_kzg_kernels(dev):
 
     import torch
 
+    from eth_consensus_specs_tpu_torch import _ext
     from eth_consensus_specs_tpu_torch.crypto import das, kzg
     from eth_consensus_specs_tpu_torch.crypto.curve import g1_infinity
     from eth_consensus_specs_tpu_torch.crypto.fields import R
@@ -2407,7 +2510,7 @@ def check_kzg_kernels(dev):
         return vals, tw, scale, err
 
     errs, shapes = [], {}
-    for n in (2, 4, 16):
+    for n in (2, 4, 8, 16):
         for inverse in (False, True):
             errs.append(fft_case(3, n, inverse, True)[3])
     flush = fft_case(KZG_BLOBS, kzg.FIELD_ELEMENTS_PER_BLOB, True, False)
@@ -2415,20 +2518,36 @@ def check_kzg_kernels(dev):
     for (b, n), inverse in ((DAS_FFT, False), (DAS_FFT, True)):
         vals, tw, scale, err = fft_case(b, n, inverse, True)
         errs.append(err)
+        _ext.reset_launches()
+        fr_fft.fft_rows(vals, tw, scale, True)
+        launches = sum(_ext.launches.values())
+        if launches != 1:
+            raise RuntimeError(f"fr_fft [{b}, {n}] took {launches} launches")
         shapes["inverse" if inverse else "forward"] = dict(
-            shape=[b, n], ms=cuda_ms(lambda: fr_fft.fft_rows(vals, tw, scale, True), repeats=10),
-            bound_ms=fr_fft_bound(b, n, inverse)[0], max_abs_err=err)
+            shape=[b, n], ms=cuda_ms(lambda: fr_fft.fft_rows(vals, tw, scale, True), inner=INNER),
+            device_ms=device_ms(lambda: fr_fft.fft_rows(vals, tw, scale, True), ("fr_fft_kernel",)),
+            bound_ms=fr_fft_bound(b, n, inverse)[0],
+            sass_bound_ms=fr_fft_bound(b, n, inverse, fr_sass)[0], max_abs_err=err,
+            launches_a_call=launches, passes=list(fr_fft.fft_passes(n.bit_length() - 1)))
     vals, tw, scale, _ = flush
     b_ms, b_by = fr_fft_bound(KZG_BLOBS, kzg.FIELD_ELEMENTS_PER_BLOB, True)
+    _ext.reset_launches()
+    fr_fft.fft_rows(vals, tw, scale, False)
+    launches = sum(_ext.launches.values())
+    if launches != 1:
+        raise RuntimeError(f"fr_fft at the flush took {launches} launches")
     rows.append(dict(
         name="fr_fft", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/fr_fft.cu",
         replaces="eth_consensus_specs_tpu/ops/fr_fft.py:61", shape=list(vals.shape[:2]),
         max_abs_err=max(errs), ms=cuda_ms(lambda: fr_fft.fft_rows(vals, tw, scale, False),
-                                          repeats=10),
+                                          inner=INNER),
+        device_ms=device_ms(lambda: fr_fft.fft_rows(vals, tw, scale, False), ("fr_fft_kernel",)),
         plain_ms=cuda_ms(lambda: fr_fft.fft_rows_ref(vals, tw, scale, False), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, launches_a_call=launches,
+        sass_bound_ms=fr_fft_bound(KZG_BLOBS, kzg.FIELD_ELEMENTS_PER_BLOB, True, fr_sass)[0],
+        passes=list(fr_fft.fft_passes(kzg.FIELD_ELEMENTS_PER_BLOB.bit_length() - 1)),
         fr_products=fr_fft_products(KZG_BLOBS, kzg.FIELD_ELEMENTS_PER_BLOB, True),
-        das=shapes, small_sizes_checked=[2, 4, 16],
+        fr_mul_instr=FR_MUL_INSTR, fr_mul_sass=fr_sass, das=shapes, small_sizes_checked=[2, 4, 8, 16],
     ))
 
     # K17: random 255-bit scalars on multiples of G, as an RLC fold's lanes
@@ -3395,6 +3514,10 @@ def run_block_epoch(dev) -> tuple[dict, dict]:
 
     epoch_ms = statistics.median(times)
     slots = int(cols.proposer.shape[0])
+    hashing = sum(launches.get(k, 0) for k in ("sha256", "merkle", "merkle_lists")) / (
+        BLOCK_TIMED * slots)
+    if hashing > 2:
+        raise RuntimeError(f"a slot root took {hashing} hashing launches, more than 2")
     k19_ms = events.get("block_slot", 0.0)
     summary = dict(
         phase="block_epoch", fork="deneb", preset="mainnet", n=n, slots=slots,
@@ -3408,6 +3531,7 @@ def run_block_epoch(dev) -> tuple[dict, dict]:
         event_ms_by_kernel=events, device_busy_ms=prof["device_busy_ms"],
         idle_share=1 - prof["device_busy_ms"] / epoch_ms, device_top=prof["top"][:6],
         launches_per_epoch={k: v / BLOCK_TIMED for k, v in launches.items()},
+        hashing_launches_per_slot=hashing,
         root_hashes_per_slot=slot_root_real_hashes(n, meta.top_depth),
         limit_ms=BLOCK_LIMIT_MS, under_limit=epoch_ms < BLOCK_LIMIT_MS,
         next_wd_index=int(st.next_wd_index), next_wd_validator=int(st.next_wd_validator),
@@ -3563,13 +3687,20 @@ def _run() -> int:
     emit(dict(phase="device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
               torch=torch.__version__, cuda=torch.version.cuda))
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    report = _ext.build()
-    emit(dict(phase="build", seconds=time.perf_counter() - t0, kernels=report))
+    _ext.write_generated()  # before the thread below, which reads the headers too
+    with ThreadPoolExecutor(1) as pool:  # K16's product counted beside the kernels' build
+        fr_sass = pool.submit(fr_mul_sass_count)
+        report = _ext.build()
+        fr_sass = fr_sass.result()
+    emit(dict(phase="build", seconds=time.perf_counter() - t0, kernels=report,
+              fr_mul_sass=fr_sass))
 
     t0 = time.perf_counter()
     rows = (check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
-            + check_bls_kernels(dev) + check_g2_kernels(dev) + check_kzg_kernels(dev)
+            + check_bls_kernels(dev) + check_g2_kernels(dev) + check_kzg_kernels(dev, fr_sass)
             + check_slot_kernels(dev) + check_block_epoch_kernels(dev))
     emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,
               phase_s=time.perf_counter() - t0))
@@ -3609,7 +3740,7 @@ def _run() -> int:
     return 0
 
 
-_KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
+_KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": ("merkle", "merkle_lists"),
               "validator_leaves": "validator_leaves", "altair_epoch": "altair_epoch",
               "merkle_levels": "merkle_levels", "merkle_inc": "merkle_inc",
               "validator_leaves_at": "validator_leaves_at",
@@ -3618,7 +3749,7 @@ _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": "merkle",
               "g1_sum_many": "g1_sum", "miller_product": ("miller", "miller_fold"),
               "final_exp_is_one": "final_exp", "h2c_map": "h2c_map",
               "h2c_finish": "h2c_finish", "g2_sum_many": "g2_sum",
-              "fr_fft": ("fr_fft", "fr_fft_stage"), "g1_msm_many": ("g1_msm", "g1_msm_fold"),
+              "fr_fft": "fr_fft", "g1_msm_many": ("g1_msm", "g1_msm_fold"),
               "slot_apply": ("slot_apply", "slot_apply_scatter"), "block_slot": "block_slot",
               "final_exp_gt": "final_exp_gt"}
 # the paths whose counts a kernel's row reports, where it is not state_inc

@@ -51,7 +51,7 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # C entry points: argument types before the trailing stream pointer
 SIGNATURES = {
     "sha256": {"sha256_pairs_launch": [_P, _P, _I64], "sha256_single_block_launch": [_P, _P, _I64]},
-    "merkle": {"merkle_reduce_launch": [_P, _P, _I64, _I64, _I32]},
+    "merkle": {"merkle_lists_launch": [_P, _I32, _P, _P, _P, _I64]},
     "validator_leaves": {
         "validator_leaves_launch": [_P, _P, _P, _P, _P, _I64, _P, _I32],
         "validator_leaves_at_launch": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
@@ -76,8 +76,7 @@ SIGNATURES = {
             "fq2_sqrt_launch": [_P, _P, _P, _I64]},
     "g2_sum": {"g2_sum_lanes_launch": [_P, _P, _P, _I64, _P, _I64, _I64, _I32],
                "g2_sum_fold_launch": [_P, _P, _P, _I64, _P, _I64, _I64, _I32]},
-    "fr_fft": {"fr_fft_chunk_launch": [_P, _P, _P, _P, _I64, _I32, _I32, _I32],
-               "fr_fft_stage_launch": [_P, _P, _P, _I64, _I32, _I32]},
+    "fr_fft": {"fr_fft_launch": [_P, _P, _P, _P, _I64, _I32, _I32, _P, _I32]},
     "g1_msm": {"g1_msm_many_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64],
                "g1_msm_fold_launch": [_P, _P, _I64, _I64]},
     "slot_apply": {"slot_apply_launch": [_P, _P, _P, _P, _P, _P, _I64],

@@ -30,7 +30,7 @@
 // the product as a call, for code that would inline many (K10's one-thread
 // G1 adds, K13's map).
 #pragma once
-#include "common.cuh"
+#include "carry.cuh"
 
 struct fp {
   uint32_t v[12];
@@ -124,66 +124,6 @@ __device__ __forceinline__ void fp_neg(fp& r, const fp& a) {
   fp z;
   fp_zero(z);
   fp_sub(r, z, a);
-}
-
-// The Fq product as PTX carry chains. Each helper is one instruction; the
-// carry flag lives between them, so a chain is a run of asm volatile
-// statements back to back (volatile keeps their order, and nothing the
-// compiler emits in between touches the flag).
-__device__ __forceinline__ uint32_t ptx_mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_madc_hi(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_add_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_addc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_addc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_sub_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_subc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t ptx_subc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
 }
 
 // t[0..12] += m * p (two chains: the low halves at j, the high halves at

@@ -24,12 +24,14 @@ its plain version ``block_slot_ref``), ``BlockEpochStatic`` (:323),
 The chain clones the caller's state once and K19 updates the clone in
 place, slot after slot, with no read back to the host between slots: the
 withdrawal pointers, the epoch and the sync rewards are 0-dim device
-tensors. Each slot's root re-reduces the three dirty columns (K2 over the
-packed chunks, K1 for the folds to the SSZ limits, the length mix-ins and
-the top container) over top chunks whose slow-moving roots (the validator
-registry, the inactivity scores, the checkpoints) ``make_root_ctx`` fills
-once an epoch (K3 and K2); the port, as the JAX package, keeps no
-incremental forest in this plane.
+tensors. Each slot's root takes the three dirty columns' list roots in one
+K2 launch (each column packed as it loads, reduced, folded to its SSZ limit
+and length-mixed, with the slot number's chunk beside them), written
+straight into top chunks whose slow-moving roots (the validator registry,
+the inactivity scores, the checkpoints) ``make_root_ctx`` fills once an
+epoch (K3, K2 and K1), then reduces the top container (a second K2
+launch); the port, as the JAX package, keeps no incremental forest in
+this plane.
 
 Lane types: u64 in int64 lanes (compares and divisions through
 ``lanes``), validator indices in int32 lanes, flags in uint8, bits in
@@ -61,22 +63,16 @@ from .. import _ext
 from ..config import BlockEpochParams, state_fields
 from ..device import default_device
 from ..lanes import ule64, ult64, umax64, udiv64, umod64
+from .merkle import ListTree
 from .state_columns import isqrt_u64
 from .state_root import (
     BALANCE_LIMIT_CHUNKS_LOG2,
     KERNELS,
     PARTICIPATION_LIMIT_CHUNKS_LOG2,
     PLAIN,
-    VALIDATOR_REGISTRY_LIMIT_LOG2,
     Hashers,
-    fold_many,
-    list_roots,
-    mix_length,
     small_dynamic_roots,
-    u8_subtree,
-    u64_chunk_words,
-    u64_subtree,
-    validator_subtree,
+    validator_list,
 )
 
 MAX_WINDOW = 16384  # K19's sweep window: 16 positions for each of block 0's 1,024 threads
@@ -131,8 +127,6 @@ class SlotRootCtx(NamedTuple):
     epoch."""
 
     top_chunks: torch.Tensor  # int32[2^top_depth, 8]
-    zerohashes: torch.Tensor  # int32[42, 8]
-    len_chunk: torch.Tensor  # int32[8], the u64 chunk of n
     top_depth: int
     n: int
     slot_field_index: int
@@ -424,7 +418,8 @@ def block_epoch_chain(params: BlockEpochParams, n: int, st: BlockState, blocks: 
     is; nothing reads back to the host between slots.
 
     On a CUDA device every slot runs K19 (one scratch for the chain) and its
-    root K1 and K2; on the CPU their plain versions."""
+    root two K2 launches (the list roots, the top container); on the CPU
+    their plain versions."""
     dev = default_device(device)
     scratch = SlotScratch(n, dev) if dev.type == "cuda" else None
     return _chain(functools.partial(block_slot, scratch=scratch), KERNELS, params, n, st, blocks,
@@ -450,19 +445,16 @@ def make_root_ctx(fork: str, arrays, meta, static: BlockEpochStatic, scores, jus
     inactivity scores, the justification bits and the checkpoints."""
     n = meta.n_validators
     slot_of = {name: i for i, name in meta.dynamic_slots}
-    lists = [(*validator_subtree(arrays, n, static.eff_balance, h), VALIDATOR_REGISTRY_LIMIT_LOG2)]
+    lists = {"validators": validator_list(arrays, n, static.eff_balance, h)}
     if "inactivity_scores" in slot_of:
-        lists.append((*u64_subtree(scores, n, h), BALANCE_LIMIT_CHUNKS_LOG2))
-    roots = list_roots(lists, arrays, h)
+        lists["inactivity_scores"] = ListTree(scores, n, BALANCE_LIMIT_CHUNKS_LOG2, n)
     chunks = arrays.top_chunks.clone()
-    chunks[slot_of["validators"]] = roots[0]
-    if "inactivity_scores" in slot_of:
-        chunks[slot_of["inactivity_scores"]] = roots[1]
+    h.list_roots(list(lists.values()), chunks, [slot_of[name] for name in lists])
     for slot, root in small_dynamic_roots(slot_of, just, h).items():
         chunks[slot] = root
     return SlotRootCtx(
-        top_chunks=chunks, zerohashes=arrays.zerohashes, len_chunk=arrays.len_chunk,
-        top_depth=meta.top_depth, n=n, slot_field_index=state_fields(fork).index("slot"),
+        top_chunks=chunks, top_depth=meta.top_depth, n=n,
+        slot_field_index=state_fields(fork).index("slot"),
         balances_slot=slot_of["balances"],
         cur_part_slot=slot_of["current_epoch_participation"],
         prev_part_slot=slot_of["previous_epoch_participation"],
@@ -472,21 +464,22 @@ def make_root_ctx(fork: str, arrays, meta, static: BlockEpochStatic, scores, jus
 def slot_root(ctx: SlotRootCtx, balance, cur_part, prev_part, slot_no,
               h: Hashers = KERNELS) -> torch.Tensor:
     """The state root after a slot, int32[8]: the balance and both
-    participation list roots (each folded to its limit, one hash launch a
-    level for the three, then the length mixed in) and the slot number
-    written over the epoch's top chunks, then the top container."""
-    n = ctx.n
-    roots, depths = zip(u64_subtree(balance, n, h), u8_subtree(cur_part, n, h),
-                        u8_subtree(prev_part, n, h))
-    limits = (BALANCE_LIMIT_CHUNKS_LOG2, PARTICIPATION_LIMIT_CHUNKS_LOG2,
-              PARTICIPATION_LIMIT_CHUNKS_LOG2)
-    lists = mix_length(torch.stack(fold_many(roots, depths, limits, ctx.zerohashes, h)),
-                       ctx.len_chunk, h)
+    participation list roots (each packed, reduced, folded to its limit and
+    length-mixed) and the slot number's chunk (a one-item u64 list of depth
+    and limit 0: its chunk) written over the epoch's top chunks in one
+    list-root call, then the top container."""
+    n, dev = ctx.n, balance.device
+    if isinstance(slot_no, torch.Tensor):
+        slot = slot_no.to(device=dev, dtype=torch.int64).reshape(1)
+    else:  # made on the card: no copy from the host
+        slot = torch.full((1,), int(slot_no), dtype=torch.int64, device=dev)
     chunks = ctx.top_chunks.clone()
-    chunks[ctx.slot_field_index] = u64_chunk_words(torch.as_tensor(slot_no).reshape(1))[0]
-    chunks[ctx.balances_slot] = lists[0]
-    chunks[ctx.cur_part_slot] = lists[1]
-    chunks[ctx.prev_part_slot] = lists[2]
+    h.list_roots([ListTree(balance, n, BALANCE_LIMIT_CHUNKS_LOG2, n),
+                  ListTree(cur_part, n, PARTICIPATION_LIMIT_CHUNKS_LOG2, n),
+                  ListTree(prev_part, n, PARTICIPATION_LIMIT_CHUNKS_LOG2, n),
+                  ListTree(slot, 1, 0)],
+                 chunks, [ctx.balances_slot, ctx.cur_part_slot, ctx.prev_part_slot,
+                          ctx.slot_field_index])
     return h.tree_root(chunks, ctx.top_depth)
 
 

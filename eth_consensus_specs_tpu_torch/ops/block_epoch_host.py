@@ -22,11 +22,11 @@ import numpy as np
 
 from ..config import BlockEpochParams, state_fields
 from ..convert import to_numpy
+from .merkle import zerohashes
 from .state_root import (
     BALANCE_LIMIT_CHUNKS_LOG2,
     PARTICIPATION_LIMIT_CHUNKS_LOG2,
     VALIDATOR_REGISTRY_LIMIT_LOG2,
-    zerohashes,
 )
 
 

@@ -29,6 +29,7 @@ ported yet: the ``mesh=`` path (``_sharded_fft`` :126) and ``pad_batch``
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -40,7 +41,7 @@ from . import limb_field as lf
 
 BLS_MODULUS = lf.R_MOD
 N_WORDS = lf.N_WORDS
-CHUNK_LOG = 12  # csrc/fr_fft.cu's kChunkLog: rows of up to 4,096 run in shared memory
+MAX_PASS = 7  # csrc/fr_fft.cu's kMaxPass: stages a pass, a tile of 128 elements
 
 
 @lru_cache(maxsize=None)
@@ -127,6 +128,17 @@ def fft_rows_ref(vals: torch.Tensor, tw: torch.Tensor, scale: torch.Tensor | Non
     return lf.to_words(x)
 
 
+def fft_passes(log_n: int) -> tuple:
+    """K16's cut of the log_n stages into passes of consecutive stages, as
+    even as the cap of ``MAX_PASS`` stages a pass allows (the four-step
+    split: 12 stages as 6 + 6, 13 as 7 + 6); none below 4 points, where a
+    thread takes a row."""
+    if log_n < 2:
+        return ()
+    count = -(-log_n // MAX_PASS)
+    return tuple(log_n // count + (p < log_n % count) for p in range(count))
+
+
 def fft_rows(vals: torch.Tensor, tw: torch.Tensor, scale: torch.Tensor | None = None,
              bitrev: bool = True) -> torch.Tensor:
     """The DIT over every row of ``int32[B, n, 8]`` canonical values (below
@@ -135,25 +147,21 @@ def fft_rows(vals: torch.Tensor, tw: torch.Tensor, scale: torch.Tensor | None = 
     ``bitrev`` gathers natural-order rows into the DIT's order first.
     Returns new ``int32[B, n, 8]`` canonical words.
 
-    CUDA tensors go through kernel K16 (``csrc/fr_fft.cu``): one launch
-    of the shared-memory chunk kernel (counted as ``fr_fft``) for every
-    stage up to n = 2^CHUNK_LOG, then one launch of the global stage kernel
-    (counted as ``fr_fft_stage``) for each stage above; CPU tensors go
-    through the plain version."""
+    CUDA tensors go through kernel K16 (``csrc/fr_fft.cu``), one
+    cooperative launch a call (counted as ``fr_fft``) whose passes
+    (``fft_passes``) are split by grid barriers; CPU tensors go through the
+    plain version."""
     log_n = _check_fft_args(vals, tw, scale)
     if vals.device.type == "cpu":
         return fft_rows_ref(vals, tw, scale, bitrev)
     for t in (vals, tw) + (() if scale is None else (scale,)):
         _ext.check_cuda(t, torch.int32)
     out = torch.empty_like(vals)
-    rows, log_c = vals.shape[0], min(log_n, CHUNK_LOG)
-    _ext.launch("fr_fft", "fr_fft_chunk_launch", vals.device, _ext.ptr(vals), _ext.ptr(out),
-                _ext.ptr(tw), _ext.ptr(scale if log_c == log_n else None), rows, log_n, log_c,
-                int(bool(bitrev)))
-    for ls in range(log_c, log_n):
-        _ext.launch("fr_fft", "fr_fft_stage_launch", vals.device, _ext.ptr(out), _ext.ptr(tw),
-                    _ext.ptr(scale if ls == log_n - 1 else None), rows, log_n, ls,
-                    counter="fr_fft_stage")
+    passes = fft_passes(log_n)
+    stages = (ctypes.c_int * max(len(passes), 1))(*passes)
+    _ext.launch("fr_fft", "fr_fft_launch", vals.device, _ext.ptr(vals), _ext.ptr(out),
+                _ext.ptr(tw), _ext.ptr(scale), vals.shape[0], log_n, int(bool(bitrev)),
+                ctypes.cast(stages, ctypes.c_void_p), len(passes))
     return out
 
 

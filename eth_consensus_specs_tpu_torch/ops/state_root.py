@@ -6,11 +6,12 @@ Validator's tree only the effective-balance path changes in the
 accounting epoch, so the static nodes A = H(pubkey_root,
 withdrawal_credentials) and F = H(H(aee, ae), H(exit, withdrawable)) are
 inputs, and each epoch recomputes three hashes per validator (kernel K3,
-``csrc/validator_leaves.cu``), reduces the registry and the big columns
-with kernel K2 (``ops/merkle.py``), folds each to its SSZ limit with
-zero-hash siblings and mixes in the length (kernel K1, ``ops/sha256.py``),
-and combines the top container. Every other field's root is a static
-chunk. Packing and the combine are torch glue.
+``csrc/validator_leaves.cu``), then takes the list roots of the registry
+and the big columns in one launch of kernel K2 (``ops/merkle.py``: each
+column packed as it loads, its tree reduced, folded to its SSZ limit with
+zero-hash siblings and length-mixed), hashes the checkpoints (kernel K1,
+``ops/sha256.py``) and reduces the top container (K2). Every other
+field's root is a static chunk.
 
 The incremental path (``build_state_forest`` :731, ``post_epoch_state_root_inc``
 :805 and ``state_root_from_forest`` :894 there) keeps the three big subtrees
@@ -30,7 +31,7 @@ reference path (``post_epoch_state_root_ref``) uses on any device.
 from __future__ import annotations
 
 import hashlib
-from functools import lru_cache, partial
+from functools import partial
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -38,9 +39,11 @@ import torch
 
 from .. import _ext
 from ..config import inc_dense_count, inc_dirty_bucket, state_fields, top_depth as fork_top_depth
-from ..lanes import MASK32, bswap32, to_i32, to_u32_lanes
+from ..lanes import to_i32
 from . import merkle_inc
-from .merkle import tree_real_hashes, tree_root, tree_root_ref
+from .merkle import (ListTree, _words_of, list_roots, list_roots_ref, packed_u64_leaves, pad_pow2,
+                     tree_real_hashes, tree_root, tree_root_ref, u64_chunk_words, zerohash_words,
+                     zerohashes)
 from .sha256 import hash_rows, sha256_pairs, sha256_pairs_ref
 
 VALIDATOR_REGISTRY_LIMIT_LOG2 = 40  # List[Validator, 2**40]
@@ -56,9 +59,10 @@ DYNAMIC_FIELDS = frozenset({
 
 
 class Hashers(NamedTuple):
-    """One implementation of every kernel the state roots use. The last five
-    serve the incremental forest (K3's in-place and indexed entries, and
-    ``merkle_inc.py``)."""
+    """One implementation of every kernel the state roots use. Five serve
+    the incremental forest (K3's in-place and indexed entries, and
+    ``merkle_inc.py``); ``list_roots`` is K2's list-root entry
+    (``merkle.list_roots``, ``list_roots(trees, out, rows)``)."""
 
     sha256_pairs: Callable
     tree_root: Callable
@@ -68,6 +72,7 @@ class Hashers(NamedTuple):
     dirty_leaves: Callable
     apply_update: Callable
     merkle_levels: Callable
+    list_roots: Callable
 
 
 class StateRootArrays(NamedTuple):
@@ -79,10 +84,9 @@ class StateRootArrays(NamedTuple):
     prev_part_flags: torch.Tensor  # uint8[N] participation rotated into prev
     top_chunks: torch.Tensor  # int32[2^top_depth, 8] field roots, static slots filled
     zerohashes: torch.Tensor  # int32[42, 8]
-    # constants of the registry size, made once on the host so the epoch
-    # loop never copies from the host: the u64 chunk of the list length N,
-    # and the root of the all-zero current participation list of length N
-    len_chunk: torch.Tensor  # int32[8]
+    # the root of the all-zero current participation list of length N, a
+    # constant of the registry size made once on the host, so the epoch
+    # loop never copies from the host
     cur_part_root: torch.Tensor  # int32[8]
 
 
@@ -90,25 +94,6 @@ class StateRootMeta(NamedTuple):
     dynamic_slots: tuple  # ((field index, field name), ...)
     n_validators: int
     top_depth: int
-
-
-def _words_of(b: bytes) -> np.ndarray:
-    """Bytes -> big-endian u32 words carried as int32."""
-    return np.frombuffer(b, dtype=">u4").astype(np.uint32).view(np.int32)
-
-
-@lru_cache(maxsize=None)
-def zerohashes(max_depth: int = ZEROHASH_DEPTH) -> tuple:
-    """zerohashes[d]: root of a depth-d tree of zero chunks, as bytes."""
-    z = [b"\x00" * 32]
-    for _ in range(max_depth):
-        z.append(hashlib.sha256(z[-1] + z[-1]).digest())
-    return tuple(z)
-
-
-def zerohash_words(max_depth: int) -> np.ndarray:
-    """int32[max_depth+1, 8]: zerohashes[d] as big-endian words."""
-    return np.stack([_words_of(z) for z in zerohashes(max_depth)])
 
 
 def zero_u8_list_root_words(n: int) -> np.ndarray:
@@ -122,32 +107,6 @@ def zero_u8_list_root_words(n: int) -> np.ndarray:
         root = hashlib.sha256(root + z[d]).digest()
     root = hashlib.sha256(root + int(n).to_bytes(8, "little") + b"\x00" * 24).digest()
     return _words_of(root)
-
-
-def u64_chunk_words(vals: torch.Tensor) -> torch.Tensor:
-    """int64[N] (u64) -> SSZ chunks int32[N, 8]: the value little-endian in
-    the chunk's first 8 bytes."""
-    lo = bswap32(vals & MASK32)
-    hi = bswap32((vals >> 32) & MASK32)
-    z = torch.zeros_like(lo)
-    return to_i32(torch.stack([lo, hi, z, z, z, z, z, z], dim=-1))
-
-
-def length_chunk(n: int, device) -> torch.Tensor:
-    """The u64 chunk of a list length, int32[8]."""
-    return u64_chunk_words(torch.tensor([n], dtype=torch.int64, device=device))[0]
-
-
-def packed_u64_leaves(vals: torch.Tensor, n: int) -> torch.Tensor:
-    """int64[n] (n % 4 == 0) -> int32[n//4, 8] packed SSZ chunk words."""
-    w = to_u32_lanes(vals.contiguous().view(torch.int32)).reshape(n // 4, 8)
-    return to_i32(bswap32(w))
-
-
-def packed_u8_leaves(vals: torch.Tensor, n: int) -> torch.Tensor:
-    """uint8[n] (n % 32 == 0) -> int32[n//32, 8] packed SSZ chunk words."""
-    w = vals.reshape(n // 32, 8, 4).to(torch.int64)
-    return to_i32((w[..., 0] << 24) | (w[..., 1] << 16) | (w[..., 2] << 8) | w[..., 3])
 
 
 def _validator_chain_ref(eff, slashed_chunk, node_a, node_f) -> torch.Tensor:
@@ -259,75 +218,20 @@ def validator_leaves_at(eff, slashed_chunk, node_a, node_f, idx, count=None,
 
 KERNELS = Hashers(sha256_pairs, tree_root, validator_leaves, validator_leaves_into,
                   validator_leaves_at, merkle_inc.dirty_leaves, merkle_inc.apply_update,
-                  merkle_inc.merkle_levels)
+                  merkle_inc.merkle_levels, list_roots)
 PLAIN = Hashers(sha256_pairs_ref, tree_root_ref, validator_leaves_ref, validator_leaves_into_ref,
                 validator_leaves_at_ref, merkle_inc.dirty_leaves_ref,
-                partial(merkle_inc.apply_update, plain=True), merkle_inc.merkle_levels_ref)
+                partial(merkle_inc.apply_update, plain=True), merkle_inc.merkle_levels_ref,
+                list_roots_ref)
 
 
-def pad_pow2(leaves: torch.Tensor, depth: int) -> torch.Tensor:
-    pad = (1 << depth) - leaves.shape[0]
-    if pad:
-        leaves = torch.cat([leaves, leaves.new_zeros((pad, 8))])
-    return leaves
-
-
-def fold_many(roots, depths, limits, zh, h: Hashers = KERNELS) -> list:
-    """Chain each subtree root ``roots[i]`` (of depth ``depths[i]``) up to
-    its SSZ limit depth ``limits[i]``, the right sibling at level d being
-    zerohashes[d]. The chains advance together: one hash launch per level
-    for all chains still below their limit."""
-    roots = list(roots)
-    steps = max((lim - d for d, lim in zip(depths, limits)), default=0)
-    for s in range(steps):
-        live = [i for i, (d, lim) in enumerate(zip(depths, limits)) if d + s < lim]
-        out = hash_rows(torch.stack([roots[i] for i in live]),
-                        torch.stack([zh[depths[i] + s] for i in live]), h.sha256_pairs)
-        for j, i in enumerate(live):
-            roots[i] = out[j]
-    return roots
-
-
-def mix_length(roots, len_chunk, h: Hashers = KERNELS):
-    """H(root, length chunk) for each row of int32[B, 8] roots, one launch."""
-    return hash_rows(roots, len_chunk.expand(roots.shape[0], 8), h.sha256_pairs)
-
-
-def list_roots(subtrees, arrays: StateRootArrays, h: Hashers = KERNELS) -> torch.Tensor:
-    """int32[B, 8] list roots from (subtree root, depth, limit depth)
-    triples: every chain folded to its limit, then the length (the
-    registry size, ``arrays.len_chunk``) mixed into each."""
-    roots, depths, limits = zip(*subtrees)
-    folded = fold_many(roots, depths, limits, arrays.zerohashes, h)
-    return mix_length(torch.stack(folded), arrays.len_chunk, h)
-
-
-def validator_subtree(arrays: StateRootArrays, n: int, eff, h: Hashers = KERNELS):
-    """(root, depth) of the validator leaf tree: 3 hashes per validator,
-    then the reduction of the 2^depth leaf level."""
+def validator_list(arrays: StateRootArrays, n: int, eff, h: Hashers = KERNELS) -> ListTree:
+    """The validator registry as a list of K3's n validator roots (3 hashes
+    each), folded to its limit and mixed with n."""
     depth = max(n - 1, 0).bit_length()
     leaves = h.validator_leaves(eff, arrays.slashed_chunk, arrays.val_node_a,
                                 arrays.val_node_f, depth)
-    return h.tree_root(leaves, depth), depth
-
-
-def _subtree(leaves, chunks: int, h: Hashers):
-    depth = max(chunks - 1, 0).bit_length()
-    return h.tree_root(pad_pow2(leaves, depth), depth), depth
-
-
-def u64_subtree(vals, n: int, h: Hashers = KERNELS):
-    """(root, depth) of the packed chunk tree of n >= 1 u64 values."""
-    if n % 4:
-        vals = torch.cat([vals, vals.new_zeros(4 - n % 4)])
-    return _subtree(packed_u64_leaves(vals, vals.shape[0]), (n + 3) // 4, h)
-
-
-def u8_subtree(vals, n: int, h: Hashers = KERNELS):
-    """(root, depth) of the packed chunk tree of n >= 1 bytes."""
-    if n % 32:
-        vals = torch.cat([vals, vals.new_zeros(32 - n % 32)])
-    return _subtree(packed_u8_leaves(vals, vals.shape[0]), (n + 31) // 32, h)
+    return ListTree(leaves, n, VALIDATOR_REGISTRY_LIMIT_LOG2, n)
 
 
 def checkpoint_roots(checkpoints, h: Hashers = KERNELS) -> torch.Tensor:
@@ -345,14 +249,14 @@ def bitvector4_chunk(bits) -> torch.Tensor:
     return to_i32(torch.cat([(byte << 24).reshape(1), byte.new_zeros(7)]))
 
 
-def combine_state_root(arrays: StateRootArrays, meta: StateRootMeta, dynamic_roots: dict,
+def combine_state_root(chunks: torch.Tensor, top_depth: int, dynamic_roots: dict,
                        h: Hashers = KERNELS):
-    """Write the dynamic roots into their top-level slots and reduce the
-    container tree."""
-    chunks = arrays.top_chunks.clone()
+    """Write the dynamic roots into their top-level slots of ``chunks`` (a
+    copy of the static top chunks, the list roots already in place) and
+    reduce the container tree."""
     for slot, root in dynamic_roots.items():
         chunks[slot] = root
-    return h.tree_root(chunks, meta.top_depth)
+    return h.tree_root(chunks, top_depth)
 
 
 def small_dynamic_roots(slot_of: dict, just, h: Hashers = KERNELS) -> dict:
@@ -374,28 +278,27 @@ def _post_epoch_state_root(h: Hashers, arrays, meta, balances, effective_balance
                            inactivity_scores, just):
     n = meta.n_validators
     slot_of = {name: i for i, name in meta.dynamic_slots}
-    lists = {"validators": (*validator_subtree(arrays, n, effective_balance, h),
-                            VALIDATOR_REGISTRY_LIMIT_LOG2),
-             "balances": (*u64_subtree(balances, n, h), BALANCE_LIMIT_CHUNKS_LOG2)}
+    lists = {"validators": validator_list(arrays, n, effective_balance, h),
+             "balances": ListTree(balances, n, BALANCE_LIMIT_CHUNKS_LOG2, n)}
     if "inactivity_scores" in slot_of:
-        lists["inactivity_scores"] = (*u64_subtree(inactivity_scores, n, h),
-                                      BALANCE_LIMIT_CHUNKS_LOG2)
+        lists["inactivity_scores"] = ListTree(inactivity_scores, n, BALANCE_LIMIT_CHUNKS_LOG2, n)
     if "previous_epoch_participation" in slot_of:
-        lists["previous_epoch_participation"] = (*u8_subtree(arrays.prev_part_flags, n, h),
-                                                 PARTICIPATION_LIMIT_CHUNKS_LOG2)
-    roots = list_roots(list(lists.values()), arrays, h)
-    dyn = {slot_of[name]: roots[i] for i, name in enumerate(lists)}
+        lists["previous_epoch_participation"] = ListTree(arrays.prev_part_flags, n,
+                                                         PARTICIPATION_LIMIT_CHUNKS_LOG2, n)
+    chunks = arrays.top_chunks.clone()
+    h.list_roots(list(lists.values()), chunks, [slot_of[name] for name in lists])
+    dyn = small_dynamic_roots(slot_of, just, h)
     if "current_epoch_participation" in slot_of:
         # the rotated-in current participation is all zero: a constant of n
         dyn[slot_of["current_epoch_participation"]] = arrays.cur_part_root
-    dyn.update(small_dynamic_roots(slot_of, just, h))
-    return combine_state_root(arrays, meta, dyn, h)
+    return combine_state_root(chunks, meta.top_depth, dyn, h)
 
 
 def post_epoch_state_root(arrays: StateRootArrays, meta: StateRootMeta, balances,
                           effective_balance, inactivity_scores, just) -> torch.Tensor:
     """hash_tree_root of the post-accounting BeaconState as int32[8] words;
-    kernels K1-K3 on a CUDA device, their plain versions on the CPU."""
+    kernels K1-K3 on a CUDA device (K2's list roots in one launch), their
+    plain versions on the CPU."""
     return _post_epoch_state_root(KERNELS, arrays, meta, balances, effective_balance,
                                   inactivity_scores, just)
 
@@ -410,7 +313,9 @@ def post_epoch_state_root_ref(arrays: StateRootArrays, meta: StateRootMeta, bala
 def state_root_real_hashes(meta: StateRootMeta) -> int:
     """64-byte messages hashed by one ``post_epoch_state_root`` (two SHA-256
     compressions each): validator chains, every tree, fold, mix-in,
-    checkpoint and the top container, exactly as this module runs them."""
+    checkpoint and the top container, exactly as the plain path runs them.
+    K2 hashes no node wholly past a list's chunks, so where a list does not
+    fill its tree it runs fewer (``merkle.live_hashes``)."""
     n = meta.n_validators
     names = {name for _, name in meta.dynamic_slots}
     hashes = 3 * n + _list_hashes(n, VALIDATOR_REGISTRY_LIMIT_LOG2)
@@ -460,7 +365,6 @@ def arrays_from_host(val_node_a, val_node_f, slashed_chunk, prev_part_flags, top
         prev_part_flags=put(prev_part_flags),
         top_chunks=put(top_chunks),
         zerohashes=put(zerohash_words(ZEROHASH_DEPTH)),
-        len_chunk=length_chunk(n, dev),
         cur_part_root=put(zero_u8_list_root_words(n)),
     )
 
@@ -572,8 +476,7 @@ def build_state_forest(arrays: StateRootArrays, meta: StateRootMeta, plan: Fores
     h.validator_leaves_into(val_nodes[0], effective_balance, arrays.slashed_chunk,
                             arrays.val_node_a, arrays.val_node_f)
     h.merkle_levels(val_nodes)
-    part = list_roots([(*u8_subtree(arrays.prev_part_flags, n, h), PARTICIPATION_LIMIT_CHUNKS_LOG2)],
-                      arrays, h)
+    part = h.list_roots([ListTree(arrays.prev_part_flags, n, PARTICIPATION_LIMIT_CHUNKS_LOG2, n)])
     return StateForest(
         val_nodes=val_nodes,
         bal_nodes=_u64_forest(balances, n, plan.depth_bal, h),
@@ -647,23 +550,25 @@ def state_root_from_forest(arrays: StateRootArrays, meta: StateRootMeta, plan: F
     work: the tree roots folded to their limits and length-mixed, the
     participation roots, the small roots and the top combine. The root a
     checkpoint manifest carries and a restore re-verifies."""
+    n = meta.n_validators
     slot_of = {name: i for i, name in meta.dynamic_slots}
-    lists = {
-        "validators": (merkle_inc.forest_root(forest.val_nodes), plan.depth_val,
-                       VALIDATOR_REGISTRY_LIMIT_LOG2),
-        "balances": (merkle_inc.forest_root(forest.bal_nodes), plan.depth_bal,
-                     BALANCE_LIMIT_CHUNKS_LOG2),
-    }
+
+    def folded(nodes, depth: int, limit: int) -> ListTree:  # a root reduced in the forest
+        return ListTree(merkle_inc.forest_root(nodes).reshape(1, 8), 1, limit, mix=n, depth=0,
+                        base=depth)
+
+    lists = {"validators": folded(forest.val_nodes, plan.depth_val, VALIDATOR_REGISTRY_LIMIT_LOG2),
+             "balances": folded(forest.bal_nodes, plan.depth_bal, BALANCE_LIMIT_CHUNKS_LOG2)}
     if plan.has_inact and "inactivity_scores" in slot_of:
-        lists["inactivity_scores"] = (merkle_inc.forest_root(forest.inact_nodes), plan.depth_bal,
-                                      BALANCE_LIMIT_CHUNKS_LOG2)
-    roots = list_roots(list(lists.values()), arrays, h)
-    dyn = {slot_of[name]: roots[i] for i, name in enumerate(lists)}
+        lists["inactivity_scores"] = folded(forest.inact_nodes, plan.depth_bal,
+                                            BALANCE_LIMIT_CHUNKS_LOG2)
+    chunks = arrays.top_chunks.clone()
+    h.list_roots(list(lists.values()), chunks, [slot_of[name] for name in lists])
+    dyn = small_dynamic_roots(slot_of, just, h)
     if "previous_epoch_participation" in slot_of:
         dyn[slot_of["previous_epoch_participation"]] = forest.part_root
         dyn[slot_of["current_epoch_participation"]] = arrays.cur_part_root
-    dyn.update(small_dynamic_roots(slot_of, just, h))
-    return combine_state_root(arrays, meta, dyn, h)
+    return combine_state_root(chunks, meta.top_depth, dyn, h)
 
 
 def post_epoch_state_root_inc(arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan,

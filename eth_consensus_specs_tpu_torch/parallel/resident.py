@@ -27,6 +27,7 @@ from ..ops.altair_epoch import (
     altair_epoch_accounting,
     altair_epoch_accounting_ref,
 )
+from ..ops.merkle import packed_u64_leaves
 from ..ops.state_columns import JustificationState
 from ..ops.state_root import (
     KERNELS,
@@ -36,7 +37,6 @@ from ..ops.state_root import (
     _update_forest,
     build_state_forest,
     forest_plan,
-    packed_u64_leaves,
     state_root_from_forest,
 )
 

@@ -124,8 +124,9 @@ def test_run_epochs_card_matches_cpu_and_counts_launches(cuda):
     want = resident.run_epochs(params, cols, just, 2, with_root="state", static=static, device="cpu")
     assert torch.equal(got.root_acc.cpu(), want.root_acc)
     assert torch.equal(got.cols.balance.cpu(), want.cols.balance)
-    assert set(counts) == {"sha256", "merkle", "validator_leaves", "altair_epoch"}
+    assert set(counts) == {"sha256", "merkle", "merkle_lists", "validator_leaves", "altair_epoch"}
     assert counts["altair_epoch"] == 4 and counts["validator_leaves"] == 2
+    assert counts["merkle_lists"] == 2 and counts["merkle"] == 2  # an epoch: the lists, the top
 
 
 # ------------------------------------------------ incremental forest (K5, K6) --
@@ -351,10 +352,81 @@ def test_many_tree_root_kernel(cuda, trees, depth):
     leaves = _words(trees << depth, 8, depth).reshape(trees, 1 << depth, 8)
     _ext.reset_launches()
     got = merkle.many_tree_root(leaves.to(cuda), depth).cpu()
-    assert _ext.launches["merkle_many"] == -(-depth // merkle.MAX_LEVELS_PER_LAUNCH)
+    assert dict(_ext.launches) == {"merkle_many": 1}
     assert torch.equal(got, merkle.many_tree_root_ref(leaves, depth))
     for b in {0, trees - 1}:
         assert torch.equal(got[b], merkle.tree_root(leaves[b].to(cuda), depth).cpu())
+
+
+def test_tree_roots_climb_in_waves(cuda):
+    """Grids of more leaf blocks than the card holds at once (2,048 of 256
+    threads): one 2^20 tree and four 2^18 trees, against the plain reduction
+    on the card; their counters left clean."""
+    leaves = _words(1 << 20, 8, 20).to(cuda)
+    _ext.reset_launches()
+    got = merkle.tree_root(leaves, 20)
+    many = merkle.many_tree_root(leaves.reshape(4, 1 << 18, 8), 18)
+    assert dict(_ext.launches) == {"merkle": 1, "merkle_many": 1}
+    assert torch.equal(got, merkle.tree_root_ref(leaves, 20))
+    assert torch.equal(many, merkle.many_tree_root_ref(leaves.reshape(4, 1 << 18, 8), 18))
+    scratch = merkle._scratch[(str(leaves.device), torch.cuda.current_stream(cuda).cuda_stream)]
+    assert not scratch.counters.any()
+
+
+def _ragged_lists(dev):
+    """Lists of every kind in one table: u64 and u8 columns whose counts
+    leave the last chunk part full and fill no tree, one item, an empty
+    list, chunk words reduced to their own depth, a root folded from level
+    20 to 63, a tree of several rounds (2^20 u64 chunks' worth)."""
+    rng = np.random.default_rng(14)
+    u64 = torch.from_numpy(rng.integers(0, 2**63, 100_003, dtype=np.int64)).to(dev)
+    u8 = torch.from_numpy(rng.integers(0, 256, 70_001, dtype=np.uint8)).to(dev)
+    words = _words(5000, 8, 3).to(dev)
+    return [merkle.ListTree(u64, 100_003, 38, 100_003), merkle.ListTree(u8, 70_001, 35, 70_001),
+            merkle.ListTree(u64, 1, 38, 1), merkle.ListTree(u8, 0, 35, 0),
+            merkle.ListTree(words, 4096, 12), merkle.ListTree(words, 5000, 40, 2**40),
+            merkle.ListTree(words[7:8], 1, 63, 2**64 - 1, depth=0, base=20),
+            merkle.ListTree(u8, 32 * 1000, 12)]
+
+
+def test_list_roots_kernel(cuda):
+    lists = _ragged_lists(cuda)
+    _ext.reset_launches()
+    got = merkle.list_roots(lists)
+    assert dict(_ext.launches) == {"merkle_lists": 1}
+    cpu = [merkle.ListTree(t.src.cpu(), *t[1:]) for t in lists]
+    assert torch.equal(got.cpu(), merkle.list_roots_ref(cpu))
+    scratch = merkle._scratch[(str(got.device), torch.cuda.current_stream(cuda).cuda_stream)]
+    assert not scratch.counters.any()  # left clean for the next launch
+    # the same roots into rows of a buffer; every one again after a second launch
+    out = torch.zeros((20, 8), dtype=torch.int32, device=cuda)
+    rows = [19, 3, 5, 7, 0, 11, 13, 2]
+    merkle.list_roots(lists, out, rows)
+    assert torch.equal(out[rows], got) and not out[[1, 4, 6]].any()
+    # one list against hashlib: the u8 column, packed, folded and mixed
+    zh = merkle.zerohashes()
+    raw = lists[1].src.cpu().numpy().tobytes()
+    level = [raw[i:i + 32].ljust(32, b"\0") for i in range(0, len(raw), 32)]
+    depth = (len(level) - 1).bit_length()
+    level += [zh[0]] * ((1 << depth) - len(level))
+    while len(level) > 1:
+        level = [hashlib.sha256(level[i] + level[i + 1]).digest() for i in range(0, len(level), 2)]
+    root = level[0]
+    for d in range(depth, 35):
+        root = hashlib.sha256(root + zh[d]).digest()
+    root = hashlib.sha256(root + (70_001).to_bytes(8, "little") + bytes(24)).digest()
+    assert got[1].cpu().numpy().view(np.uint32).astype(">u4").tobytes() == root
+
+
+def test_list_roots_rejects_what_the_kernel_does_not_take(cuda):
+    vals = torch.zeros(64, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        merkle.list_roots([merkle.ListTree(vals[1:], 63, 38)])  # not 16-byte aligned
+    with pytest.raises(ValueError):
+        merkle.list_roots([merkle.ListTree(vals, 64, 38)] * (merkle.MAX_TREES + 1))
+    with pytest.raises(ValueError):
+        merkle.list_roots([merkle.ListTree(vals, 64, 38)], torch.zeros((2, 8), dtype=torch.int32,
+                                                                    device=cuda), [2])
 
 
 def test_merkleize_many_device_on_card(cuda):
@@ -783,7 +855,8 @@ def _fr_rows(b: int, n: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(vals)
 
 
-@pytest.mark.parametrize("b,n", [(1, 1), (3, 2), (3, 16), (5, 1024), (4, 4096), (2, 8192)])
+@pytest.mark.parametrize("b,n", [(1, 1), (3, 2), (3, 4), (3, 8), (3, 16), (2, 512), (5, 1024),
+                                 (4, 4096), (2, 8192), (1, 1 << 15)])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("bitrev", [True, False])
 def test_fr_fft_kernel(cuda, b, n, inverse, bitrev):
@@ -797,8 +870,7 @@ def test_fr_fft_kernel(cuda, b, n, inverse, bitrev):
     scale = fr_fft._device_scale(n, "cuda") if inverse else None
     _ext.reset_launches()
     got = fr_fft.fft_rows(vals, tw, scale, bitrev)
-    assert _ext.launches["fr_fft"] == 1
-    assert _ext.launches["fr_fft_stage"] == max(0, n.bit_length() - 1 - fr_fft.CHUNK_LOG)
+    assert dict(_ext.launches) == {"fr_fft": 1}
     assert torch.equal(got, fr_fft.fft_rows_ref(vals, tw, scale, bitrev))
     row = lf.words_to_ints(vals[0])
     want = das.fft_field(row if bitrev else kzg.bit_reversal_permutation(row), roots, inv=inverse)
@@ -963,6 +1035,8 @@ def test_block_epoch_chain_on_card_equals_the_cpu_chain_and_the_oracle(cuda):
     _ext.reset_launches()
     st, acc = be.block_epoch_chain(params, n, st0, cols, static, root_ctx=ctx)
     assert _ext.launches["block_slot"] == 32
+    assert _ext.launches["merkle_lists"] == 32 and _ext.launches["merkle"] == 32  # 2 roots a slot
+    assert _ext.launches["sha256"] == 0
     root_fn = beh.slot_root_fn_np("deneb", arrays, meta, static, ecols.inactivity_scores, just)
     bal, cur, prev, wdi, wdv, want_acc = beh.replay_block_epoch_np(
         params, n, st0, cols, static.eff_balance, static.withdrawable_epoch,

@@ -43,7 +43,7 @@ def test_tree_root_rejects_wrong_leaf_count(leaves):
 
 
 def test_zerohash_table_matches_jax():
-    assert np.array_equal(tsr.zerohash_words(41).view(np.uint32), jsr.zerohash_words(41))
+    assert np.array_equal(merkle.zerohash_words(41).view(np.uint32), jsr.zerohash_words(41))
 
 
 @pytest.mark.parametrize("n", [4, 64, 1000])
@@ -52,20 +52,20 @@ def test_packed_u64_leaves(n):
     vals = rng.integers(0, 2**64, size=n, dtype=np.uint64)
     vals[0] = np.iinfo(np.uint64).max
     want = np.asarray(jsr.packed_u64_leaves(jnp.asarray(vals), n))
-    assert np.array_equal(to_numpy(tsr.packed_u64_leaves(_t(vals), n)), want)
+    assert np.array_equal(to_numpy(merkle.packed_u64_leaves(_t(vals), n)), want)
 
 
 @pytest.mark.parametrize("n", [32, 1024])
 def test_packed_u8_leaves(n):
     vals = np.random.default_rng(n).integers(0, 256, size=n, dtype=np.uint8)
     want = np.asarray(jsr.packed_u8_leaves(jnp.asarray(vals), n))
-    assert np.array_equal(to_numpy(tsr.packed_u8_leaves(_t(vals), n)), want)
+    assert np.array_equal(to_numpy(merkle.packed_u8_leaves(_t(vals), n)), want)
 
 
 def test_u64_chunk_words():
     vals = np.array([0, 1, 2**32 - 1, 2**32, 2**63, 2**64 - 1, 32_000_000_000], np.uint64)
     want = np.asarray(jsr._u64_chunk_words(jnp.asarray(vals)))
-    assert np.array_equal(to_numpy(tsr.u64_chunk_words(_t(vals))), want)
+    assert np.array_equal(to_numpy(merkle.u64_chunk_words(_t(vals))), want)
 
 
 @pytest.mark.parametrize("depth,limit", [(0, 3), (5, 35), (18, 38), (20, 40), (7, 7)])
@@ -74,7 +74,7 @@ def test_fold_to_limit(leaves, depth, limit):
     root = leaves[depth % 8]
     want = np.asarray(jax.jit(partial(jsr.fold_to_limit, depth=depth, limit_log2=limit))(
         jnp.asarray(root), zh=jnp.asarray(zh)))
-    got = tsr.fold_many([_t(root)], [depth], [limit], _t(zh))[0]
+    got = merkle.fold_many([_t(root)], [depth], [limit], _t(zh))[0]
     assert np.array_equal(to_numpy(got), want)
 
 
@@ -82,15 +82,15 @@ def test_fold_many_matches_single_chains(leaves):
     zh = _t(jsr.zerohash_words(41))
     depths, limits = [3, 10, 0], [40, 38, 2]
     roots = [_t(leaves[i]) for i in range(3)]
-    many = tsr.fold_many(roots, depths, limits, zh)
+    many = merkle.fold_many(roots, depths, limits, zh)
     for r, d, lim, got in zip(roots, depths, limits, many):
-        assert torch.equal(got, tsr.fold_many([r], [d], [lim], zh)[0])
+        assert torch.equal(got, merkle.fold_many([r], [d], [lim], zh)[0])
 
 
 @pytest.mark.parametrize("length", [0, 1, 64, 1000, 2**40])
 def test_mix_length(leaves, length):
     want = np.asarray(jsr.mix_length(jnp.asarray(leaves[1]), length))
-    got = tsr.mix_length(_t(leaves[1:2]), tsr.length_chunk(length, "cpu"))[0]
+    got = merkle.mix_length(_t(leaves[1:2]), merkle.length_chunk(length, "cpu"))[0]
     assert np.array_equal(to_numpy(got), want)
 
 

@@ -2,6 +2,8 @@
 (eth_consensus_specs_tpu_torch/ops/state_root.py) against the JAX package on the same
 inputs, with JAX's synthetic_static carried across by convert.py, bit for bit."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -89,7 +91,10 @@ def test_real_hashes_count_what_runs(specs, n):
         count[0] += 3 * eff.shape[0]
         return tsr.PLAIN.validator_leaves(eff, *rest)
 
-    h = tsr.PLAIN._replace(sha256_pairs=sha, tree_root=tree, validator_leaves=leaves)
+    # the list roots are one K2 call; its plain twin hashes through the same hooks
+    lists = functools.partial(tsr.PLAIN.list_roots, sha=sha, tree=tree)
+    h = tsr.PLAIN._replace(sha256_pairs=sha, tree_root=tree, validator_leaves=leaves,
+                           list_roots=lists)
     tsr._post_epoch_state_root(h, pa, pm, pc.balance, pc.effective_balance, pc.inactivity_scores,
                                pj)
     assert count[0] == tsr.state_root_real_hashes(pm)

@@ -1,5 +1,5 @@
-"""Count the SASS instructions of one Fq product on 1, 2 and 4 lanes, and of
-one Fq squaring.
+"""Count the SASS instructions of one Fq product on 1, 2 and 4 lanes, of
+one Fq squaring, and of one Fr product.
 
 Compiles, for ``sm_90a`` at the kernels' optimisation level, small kernels
 that each run K chained Montgomery products ``a = a * b`` through
@@ -8,9 +8,12 @@ one lane), and K chained squarings ``a = a^2`` through ``fp_sqr``,
 disassembles them with ``cuobjdump -sass`` and prints one JSON line: per L,
 the instructions one lane issues for one product, (count at K = 3 - count
 at K = 1) / 2, so that the kernels' loads, stores and set-up cancel, and
-the L lanes' sum; the same for the squaring under ``"sqr"``. NOPs are not
-counted. ``chip_smoke.py``'s one-lane bounds take the one-lane product's
-count (``FQ_MUL_SASS``).
+the L lanes' sum; the same for the squaring under ``"sqr"`` and for K16's
+Fr product (``csrc/fr.cuh``'s ``fr_mul``, chained ``a = a * b``) under
+``"fr_mul"``. NOPs are not counted. ``chip_smoke.py``'s one-lane bounds take
+the one-lane product's count (``FQ_MUL_SASS``); ``chip_smoke.py`` calls
+``fr_mul_sass()`` in its run for K16's ``fr_mul_sass`` and
+``sass_bound_ms``.
 
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``) and no card:
 
@@ -34,6 +37,7 @@ LANES = (1, 2, 4)
 CHAINS = (1, 3)
 
 SOURCE = """#include "fp12_coop.cuh"
+#include "fr.cuh"
 template <int L, int K>
 __device__ __forceinline__ void chain(const uint32_t* in, uint32_t* out) {
   fp a, b;
@@ -60,6 +64,22 @@ __device__ __forceinline__ void sqr_chain(const uint32_t* in, uint32_t* out) {
   for (int k = 0; k < 12; ++k) out[threadIdx.x * 12 + k] = a.v[k];
 }
 """
+FR_SOURCE = """template <int K>
+__device__ __forceinline__ void fr_chain(const uint32_t* in, uint32_t* out) {
+  fr a, b;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    a.v[k] = in[k];
+    b.v[k] = in[8 + k];
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) fr_mul(a, a, b);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[threadIdx.x * 8 + k] = a.v[k];
+}
+"""
+FR_KERNEL = ('extern "C" __global__ void fr_k{K}(const uint32_t* in, uint32_t* out) '
+             "{{ fr_chain<{K}>(in, out); }}\n")
 KERNEL = ('extern "C" __global__ void chain_l{L}_k{K}(const uint32_t* in, uint32_t* out) '
           "{{ chain<{L}, {K}>(in, out); }}\n")
 SQR_KERNEL = ('extern "C" __global__ void sqr_k{K}(const uint32_t* in, uint32_t* out) '
@@ -83,20 +103,36 @@ def count(sass: str) -> dict[str, int]:
     return out
 
 
-def main() -> int:
+def sass_counts(name: str, source: str) -> dict[str, int]:
+    """Compile ``source`` to a cubin for ``sm_90a`` (in ``_build/sass``, as
+    ``name``) and count each function's SASS instructions."""
     inc = _ext.write_generated()
     work = _ext.BUILD_DIR / "sass"
     work.mkdir(parents=True, exist_ok=True)
-    src = work / "fq_mul_sass.cu"
-    src.write_text(SOURCE + "".join(KERNEL.format(L=L, K=K) for L in LANES for K in CHAINS)
-                   + "".join(SQR_KERNEL.format(K=K) for K in CHAINS))
-    cubin = work / "fq_mul_sass.cubin"
+    src, cubin = work / f"{name}.cu", work / f"{name}.cubin"
+    src.write_text(source)
     nvcc = _ext._nvcc()
     subprocess.run([nvcc, "-O3", "-arch=sm_90a", "-std=c++17", "-cubin", "-I", str(_ext.CSRC),
                     "-I", str(inc), "-o", str(cubin), str(src)], check=True)
     sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)], check=True,
                           capture_output=True, text=True).stdout
-    n = count(sass)
+    return count(sass)
+
+
+def fr_mul_sass() -> float:
+    """SASS instructions of one Fr product (``csrc/fr.cuh``'s ``fr_mul``):
+    the chain of three products less the chain of one, over two."""
+    n = sass_counts("fr_mul_sass", '#include <cstdint>\n#include "fr.cuh"\n' + FR_SOURCE
+                    + "".join(FR_KERNEL.format(K=K) for K in CHAINS))
+    return (n["fr_k3"] - n["fr_k1"]) / 2
+
+
+def main() -> int:
+    nvcc = _ext._nvcc()
+    n = sass_counts("fq_mul_sass", SOURCE
+                    + "".join(KERNEL.format(L=L, K=K) for L in LANES for K in CHAINS)
+                    + "".join(SQR_KERNEL.format(K=K) for K in CHAINS) + FR_SOURCE
+                    + "".join(FR_KERNEL.format(K=K) for K in CHAINS))
     lanes = {}
     for L in LANES:
         one, three = n[f"chain_l{L}_k1"], n[f"chain_l{L}_k3"]
@@ -104,8 +140,11 @@ def main() -> int:
         lanes[L] = {"per_lane": per_lane, "all_lanes": per_lane * L, "k1": one, "k3": three}
     one, three = n["sqr_k1"], n["sqr_k3"]
     sqr = {"per_lane": (three - one) / 2, "k1": one, "k3": three}
+    one, three = n["fr_k1"], n["fr_k3"]
+    fr = {"per_product": (three - one) / 2, "k1": one, "k3": three}
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
-    print(json.dumps({"nvcc": version.strip().splitlines()[-1], "lanes": lanes, "sqr": sqr}))
+    print(json.dumps({"nvcc": version.strip().splitlines()[-1], "lanes": lanes, "sqr": sqr,
+                      "fr_mul": fr}))
     return 0
 
 
