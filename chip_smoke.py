@@ -11,10 +11,15 @@ Phases, each printing one JSON line:
    per source, all at once), with the seconds it took;
 3. kernels: each kernel (K1 sha256_pairs, K2 merkle tree_root and its
    list-root entry list_roots, K3 validator_leaves and its indexed entry
-   validator_leaves_at, K4 altair_epoch, K5 merkle_inc, K6 merkle_levels)
-   called at the paths' shapes and held bit for bit (``torch.equal``)
-   against its plain torch version on the same card and inputs; K1, K2 and
-   K6 also against hashlib. K2 at the 2^20 registry tree and at the slot
+   validator_leaves_at, K4 altair_epoch, the forest update forest_update
+   and its mark pass forest_mark, K5's compaction merkle_inc) called at the
+   paths' shapes and held bit for bit (``torch.equal``) against its plain
+   torch version on the same card and inputs; K1, K2 and the forest update
+   also against hashlib. The forest update at a ``state_inc`` epoch's three
+   trees, at ``dirty_registry``'s 4,096 crossings and on all-dirty trees of
+   2^18 and 2^20 leaves (one launch a call, its dirty parents, bytes and
+   chain), and as the path update of 4,072 paths at depth 20; K5's
+   compaction beside ``torch.nonzero_static`` on the same mask. K2 at the 2^20 registry tree and at the slot
    root's batch (the balances as 2^20 u64, both participation lists as 2^20
    bytes, folded and length-mixed), with its launches a call and its chain
    of dependent pair hashes (``serial_bound_ms``). Median times with CUDA
@@ -40,7 +45,8 @@ Phases, each printing one JSON line:
 6. dirty_registry: the example columns with every 256th validator's balance
    lowered by 2 ETH, so 4,096 effective balances cross in the first epoch:
    the validator tree's sparse path at the plan's full capacity. Held
-   against ``with_root="state"``; epoch times and K5's share of the card;
+   against ``with_root="state"``; epoch times and the forest update's
+   share of the card;
 7. durability: ``run_epochs_checkpointed`` for 8 epochs with a checkpoint
    every 4 into a temporary directory; ``restore(verify="device")`` equal
    to the carry and the manifest; a clean ``scrub_forest(k=8)``; a flipped
@@ -166,10 +172,12 @@ K12's verdict against K20 == 1).
 Each path runs with every launch counter at 0 just
 before it and read just after. Then the ``{"kernels": [...]}`` line
 (``launches``: the counts of the kernel's own paths, the state_inc main path
-for K1-K6, both kzg_flush and das_fft for K16, summed over its kernels where
+for K1-K6 and the forest update, both kzg_flush and das_fft for K16, summed over its kernels where
 an entry launches two, as K2's tree_root and list_roots, K10's lanes passes and fold, K11's loop
 and fold, K17's lanes and fold and K18's copy and scatter; ``launches_by_path``: each path's; every kernel must have launched on
-one of its own paths) and, last, ``{"ok": true,
+one of its own paths, but those that no path runs since the forest update,
+K5's compaction, K3's indexed entry and the mark pass, each held by its own
+check and marked ``launched_by`` with the reason) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
 without the last line; so does a machine without CUDA, or a directory
 without the package. On every exit the script stops what it started and
@@ -229,8 +237,8 @@ OPS_EPOCH_PER_VALIDATOR = 2 * 120
 OPS_SHUFFLE_LANE_ROUND = 16
 # A warp dispatches at most one instruction per clock, so a message hashed
 # by one thread takes at least its 2,288 instructions' worth of clocks; at
-# the boost clock above, that is the floor of each level of K5's path update
-# and of K6, whose levels run one after another.
+# the boost clock above, that is the floor of each level of a tree's climb
+# (K2, the forest update), whose levels run one after another.
 CLOCK_HZ = 1.98e9
 MESSAGE_SERIAL_S = (LOGIC_PER_MESSAGE + ADDS_PER_MESSAGE) / CLOCK_HZ
 
@@ -473,84 +481,266 @@ def hashlib_tree_root(leaves) -> bytes:
     return level[0]
 
 
+def dirty_parents(leaves, depth: int) -> int:
+    """Internal nodes above a set of dirty leaf indices (int64, any device):
+    the pair hashes the forest kernel runs for them."""
+    import torch
+
+    total, level = 0, leaves
+    for _ in range(depth):
+        level = torch.unique(level >> 1)
+        total += level.numel()
+    return total
+
+
+def forest_work(trees) -> dict:
+    """The need of one forest_update call over ``trees`` (kinds u64,
+    registry, all): the dirty leaves and parents of each tree, the bytes
+    (each value read once, each written row once, a dirty validator's
+    static rows), the messages (the dirty parents and three a dirty
+    validator) and the longest chain of dependent pair hashes (a tree's
+    depth, three more for a registry leaf)."""
+    import torch
+
+    from eth_consensus_specs_tpu_torch.ops import merkle_inc
+
+    work = dict(dirty=[], parents=[], nbytes=0, messages=0, chain=0)
+    for t in trees:
+        depth = merkle_inc.forest_depth(t)
+        batch = t.nodes.shape[0] if t.nodes.dim() == 3 else 1
+        if t.kind == "all":
+            leaves = torch.arange(1 << depth, device=t.nodes.device)
+            work["nbytes"] += batch * 32 * (1 << depth)  # the leaf rows read
+        else:
+            diff = t.old != t.new
+            if t.kind == "u64":
+                live = merkle_inc.live_leaves(t)
+                diff = torch.cat([diff, diff.new_zeros(live * t.per - diff.shape[0])])
+                diff = diff.reshape(live, t.per).any(1)
+            leaves = torch.nonzero(diff).reshape(-1)
+            work["nbytes"] += 16 * t.old.shape[0] + 32 * leaves.numel()
+        parents = dirty_parents(leaves, depth)
+        dirty = leaves.numel()
+        work["nbytes"] += batch * 32 * parents
+        work["messages"] += batch * parents
+        if t.kind == "registry":
+            work["nbytes"] += 96 * dirty
+            work["messages"] += 3 * dirty
+        if dirty:
+            work["chain"] = max(work["chain"], depth + 3 * (t.kind == "registry"))
+        work["dirty"].append(dirty)
+        work["parents"].append(batch * parents)
+    return work
+
+
 def check_forest_kernels(dev):
-    """Phase 3, continued: K6, K5 and K3's indexed entry at the incremental
-    paths' shapes, each against its plain version."""
+    """Phase 3, continued: the forest update (one launch for every tree of
+    the forest), its mark pass, K5's compaction and K3's indexed entry at
+    the incremental paths' shapes, each against its plain version."""
     import numpy as np
     import torch
 
     from eth_consensus_specs_tpu_torch import _ext
-    from eth_consensus_specs_tpu_torch.inputs import example_altair_inputs
-    from eth_consensus_specs_tpu_torch.ops import merkle, merkle_inc, state_root
+    from eth_consensus_specs_tpu_torch.config import epoch_params
+    from eth_consensus_specs_tpu_torch.inputs import example_altair_inputs, lower_balances
+    from eth_consensus_specs_tpu_torch.ops import altair_epoch, merkle, merkle_inc, state_root
+    from eth_consensus_specs_tpu_torch.parallel.resident import build_state_forest_device
 
     n = N_VALIDATORS
     depth = n.bit_length() - 1
     gen = torch.Generator().manual_seed(11)
+    params = epoch_params("deneb", "mainnet")
+    static = state_root.synthetic_static(n, seed=0, device=dev)
+    arrays = static[0]
 
     def words(*shape):
         w = torch.randint(-(1 << 31), 1 << 31, shape, generator=gen, dtype=torch.int64)
         return w.to(torch.int32).to(dev)
 
-    def plain_levels(leaves):
-        nodes = leaves.new_zeros((*leaves.shape[:-2], 2 * leaves.shape[-2] - 1, 8))
-        nodes[..., :leaves.shape[-2], :] = leaves
-        return merkle_inc.merkle_levels_ref(nodes)
+    def clone(trees):
+        return [t._replace(nodes=t.nodes.clone()) for t in trees]
+
+    def root_bytes(nodes) -> bytes:
+        return nodes.reshape(-1, 8)[-1].cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+
+    def timed(trees, label):
+        """One forest_update call over ``trees`` against the plain twin on
+        clones, its launches, times and bounds."""
+        want = clone(trees)
+        _ext.reset_launches()
+        got_counts = merkle_inc.forest_update(trees)
+        torch.cuda.synchronize()
+        calls = dict(_ext.launches)
+        if calls != {"forest_update": 1}:
+            raise RuntimeError(f"forest_update {label}: launches {calls}, expected one")
+        want_counts = merkle_inc.forest_update_ref(want)
+        for g, w in zip(got_counts, want_counts):
+            if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+                raise RuntimeError(f"forest_update {label}: dirty counts {g} against {w}")
+        err = max(max_abs_err(t.nodes, w.nodes) for t, w in zip(trees, want))
+        work = forest_work(trees)
+        if [int(c) for c in got_counts if c is not None] != [
+                d for t, d in zip(trees, work["dirty"]) if t.kind != "all"]:
+            raise RuntimeError(f"forest_update {label}: counts disagree with the diff")
+        b_ms, b_by = bound(work["nbytes"], work["messages"])
+        call = lambda: merkle_inc.forest_update(trees)  # noqa: E731
+        plain = lambda: merkle_inc.forest_update_ref(want)  # noqa: E731
+        return dict(max_abs_err=err, launches_a_call=1, ms=cuda_ms(call, inner=INNER),
+                    plain_ms=cuda_ms(plain, 2), bound_ms=b_ms, bound_by=b_by,
+                    serial_bound_ms=work["chain"] * MESSAGE_SERIAL_S * 1e3,
+                    chain_pair_hashes=work["chain"], dirty=work["dirty"],
+                    parents_hashed=work["parents"], messages=work["messages"],
+                    bytes=work["nbytes"], kinds=[t.kind for t in trees])
+
+    def epoch_trees(cols, forest, plan):
+        """One accounting epoch's registry, balance and score trees, as
+        ``state_root._update_forest`` hands them to the kernel."""
+        just = example_altair_inputs(n, device=dev)[1]
+        new = altair_epoch.altair_epoch_accounting(params, cols, just)
+        p = merkle_inc.ForestTree
+        return [p(forest.val_nodes[0], "registry", cols.effective_balance, new.effective_balance,
+                  static=(arrays.slashed_chunk, arrays.val_node_a, arrays.val_node_f),
+                  cap=plan.cap_val, dense=plan.dense_val),
+                p(forest.bal_nodes[0], "u64", cols.balance, new.balance, cap=plan.cap_bal,
+                  dense=plan.dense_bal),
+                p(forest.inact_nodes[0], "u64", cols.inactivity_scores, new.inactivity_scores,
+                  cap=plan.cap_bal, dense=plan.dense_bal)]
 
     rows = []
 
-    # K6: every level of the registry tree (2^20 leaves) and of a column tree
-    # (2^18); the root against K2's; a small tree against hashlib; the
-    # scrub's batch of 8 subtrees of 2^5 leaves; the dense-branch gate
-    k6, trees = {}, {}
-    for d in (depth, depth - 2):
+    # the forest update: a state_inc epoch's three trees (the example
+    # columns), dirty_registry's (4,096 crossings), and every level of an
+    # all-dirty tree at 2^18 and 2^20 leaves; buffers against the plain
+    # twin, roots against K2's tree root and hashlib. Timed by events only:
+    # the tracer loses later phases' kernels after many windows in one
+    # process (tools/forest_times.py traces these shapes)
+    cols, _ = example_altair_inputs(n, device=dev)
+    shapes = {}
+    for label, c in (("state_inc_epoch", cols), ("dirty_registry_epoch",
+                                                 lower_balances(cols, every=256))):
+        forest, plan = build_state_forest_device(static, c, device=dev)
+        trees = epoch_trees(c, forest, plan)
+        shapes[label] = timed(trees, label)
+        leaves = merkle_inc._u64_chunks(trees[1].new, 4, 1 << plan.depth_bal)
+        if root_bytes(trees[1].nodes) != hashlib_tree_root(leaves.cpu().numpy().view(np.uint32)):
+            raise RuntimeError(f"forest_update {label}: balance root differs from hashlib")
+        del forest, trees
+    if shapes["dirty_registry_epoch"]["dirty"][0] != n // 256:
+        raise RuntimeError(f"dirty_registry crossings {shapes['dirty_registry_epoch']['dirty']}")
+    for d in (depth - 2, depth):
         leaves = words(1 << d, 8)
-        nodes = merkle_inc.build_levels(leaves)
-        plain = plain_levels(leaves)
-        torch.cuda.synchronize()
-        err = max_abs_err(nodes, plain)
+        nodes = leaves.new_zeros((merkle_inc.tree_nodes(d), 8))
+        nodes[:1 << d] = leaves
+        shapes[f"all_dirty_2^{d}"] = timed([merkle_inc.ForestTree(nodes, "all")], f"2^{d}")
         if not torch.equal(nodes[-1], merkle.tree_root(leaves, d)):
-            raise RuntimeError(f"merkle_levels root at depth {d} differs from merkle tree_root")
-        b_ms, b_by = bound(32 * (1 << d) + 32 * ((1 << d) - 1), (1 << d) - 1, serial_messages=d)
-        _ext.reset_launches()
-        merkle_inc.merkle_levels(nodes)
-        k6[d] = dict(err=err, launches=_ext.launches["merkle_levels"],
-                     ms=cuda_ms(lambda: merkle_inc.merkle_levels(nodes), inner=INNER),
-                     plain_ms=cuda_ms(lambda: merkle_inc.merkle_levels_ref(plain), 2),
-                     bound_ms=b_ms, bound_by=b_by)
-        trees[d] = (leaves, nodes)
-    small = words(32, 8)
-    got = merkle_inc.build_levels(small)[-1].cpu().numpy().view(np.uint32).astype(">u4").tobytes()
-    if got != hashlib_tree_root(small.cpu().numpy().view(np.uint32)):
-        raise RuntimeError("merkle_levels root differs from hashlib")
+            raise RuntimeError(f"forest_update root at depth {d} differs from merkle tree_root")
+        if d == depth - 2 and root_bytes(nodes) != hashlib_tree_root(
+                leaves.cpu().numpy().view(np.uint32)):
+            raise RuntimeError("forest_update root differs from hashlib")
+    # the batched rebuild (the scrub's 8 subtrees of 2^5 leaves) and the gate
     batch = words(8, 32, 8)
-    max_abs_err(merkle_inc.build_levels(batch), plain_levels(batch))
-    stale = trees[depth - 2][1].clone()
-    stale[1 << (depth - 2):] = 0
+    built = merkle_inc.build_levels(batch)
+    max_abs_err(built, merkle_inc.merkle_levels_ref(
+        built.clone().index_fill_(1, torch.arange(32, 63, device=dev), 0)))
+    full = merkle_inc.build_levels(words(64, 8))
+    stale = full.clone()
+    stale[64:] = 0
     five = torch.tensor([5], dtype=torch.int32, device=dev)
-    max_abs_err(merkle_inc.merkle_levels(stale.clone(), five, 5), stale)  # 5 <= 5: not its branch
-    max_abs_err(merkle_inc.merkle_levels(stale.clone(), five, 4), trees[depth - 2][1])
+    max_abs_err(merkle_inc.merkle_levels(stale.clone(), five, 5), stale)  # 5 <= 5: closed
+    max_abs_err(merkle_inc.merkle_levels(stale.clone(), five, 4), full)
+
+    # the path update at depth 20: 4,000 distinct leaves, 48 of their
+    # siblings, 24 repeats, then padding the count leaves out: the mark pass
+    # and the forest kernel over the marked leaves
+    cap = 4096
+    nodes = merkle_inc.build_levels(words(1 << depth, 8))
+    new_leaves = words(1 << depth, 8)
+    uniq = torch.randperm(1 << depth, generator=gen)[:4000]
+    idx = torch.cat([uniq, uniq[:48] ^ 1, uniq[:24], torch.zeros(24, dtype=torch.int64)])
+    idx = idx.to(torch.int32).to(dev)
+    vals = new_leaves[idx.to(torch.int64)]
+    live = 4000 + 48 + 24
+    count = torch.tensor([live], dtype=torch.int32, device=dev)
+    tree_k, tree_p = nodes.clone(), nodes.clone()
+    _ext.reset_launches()
+    merkle_inc.path_update(tree_k, idx, vals, count, cap)
+    path_calls = dict(_ext.launches)
+    merkle_inc.path_update_ref(tree_p, idx, vals, count, cap)
+    path_err = max_abs_err(tree_k, tree_p)
+    max_abs_err(tree_k, merkle_inc.build_levels(tree_k[:1 << depth].clone()))
+    gated = nodes.clone()
+    max_abs_err(merkle_inc.path_update(gated, idx, vals, count, live - 1), nodes)  # count > dense
+    if merkle_inc._stream_scratch(tree_k.device).mask.any():
+        raise RuntimeError("path_update left its scratch mask set")
+    marked = idx[:live].to(torch.int64).unique()
+    p_parents = dirty_parents(marked, depth)
+    # the need: the indices and values read, the leaf rows and the dirty
+    # parents written (no mask: JAX's path update scatters at the indices)
+    p_ms, p_by = bound(live * 4 + 2 * 32 * marked.numel() + 32 * p_parents, p_parents)
+    path = dict(
+        ms=cuda_ms(lambda: merkle_inc.path_update(tree_k, idx, vals, count, cap), inner=INNER),
+        plain_ms=cuda_ms(lambda: merkle_inc.path_update_ref(tree_p, idx, vals, count, cap), 3),
+        bound_ms=p_ms, bound_by=p_by, serial_bound_ms=depth * MESSAGE_SERIAL_S * 1e3,
+        launches_a_call=path_calls, live_paths=live, parents_hashed=p_parents,
+        max_abs_err=path_err)
+    main = shapes["state_inc_epoch"]
     rows.append(dict(
-        name="merkle_levels", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/merkle_levels.cu",
-        replaces="eth_consensus_specs_tpu/ops/merkle_inc.py:109", shape=[1 << depth, 8],
-        max_abs_err=k6[depth]["err"], ms=k6[depth]["ms"], plain_ms=k6[depth]["plain_ms"],
-        bound_ms=k6[depth]["bound_ms"], bound_by=k6[depth]["bound_by"], library_ms=None,
-        launches_per_tree=k6[depth]["launches"], work_compressions=2 * ((1 << depth) - 1),
-        depth18=dict(ms=k6[depth - 2]["ms"], plain_ms=k6[depth - 2]["plain_ms"],
-                     bound_ms=k6[depth - 2]["bound_ms"], launches=k6[depth - 2]["launches"]),
-        hashlib_checked=True, batch_checked=[8, 63, 8],
+        name="forest_update", route="cuda",
+        source="eth_consensus_specs_tpu_torch/csrc/forest_update.cu",
+        replaces="eth_consensus_specs_tpu/ops/merkle_inc.py:170",
+        also_replaces=["eth_consensus_specs_tpu/ops/merkle_inc.py:109",
+                       "eth_consensus_specs_tpu/ops/merkle_inc.py:140",
+                       "eth_consensus_specs_tpu/ops/merkle_inc.py:219",
+                       "eth_consensus_specs_tpu/ops/state_root.py:721",
+                       "eth_consensus_specs_tpu/ops/state_root.py:805"],
+        shape=[n, 3], max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        serial_bound_ms=main["serial_bound_ms"], library_ms=None,
+        launches_a_call=1, shapes=shapes, path_update=path,
+        hashlib_checked=True, batch_checked=[8, 63, 8], gate_checked=True,
     ))
 
-    # K5 compaction: the registry's effective-balance diff at the plan's
-    # capacity (4,096 crossings); a mask over capacity (5,000 dirty, the
-    # first 4,096 kept); a balance column's chunk diff writing its leaf rows
-    cap = 4096
-    cols, _ = example_altair_inputs(n, device=dev)
+    # path_update's mark pass alone, into a mask zeroed beforehand (as
+    # path_update's scratch mask is: the forest kernel resets it); the bound
+    # is the scatter's need, the indices and values read, the rows written
+    # and a byte marked for each
+    mark_k, mark_p = nodes.clone(), nodes.clone()
+    out = torch.zeros(1 << depth, dtype=torch.uint8, device=dev)
+    err = max(max_abs_err(merkle_inc.mark_leaves(mark_k, idx, vals, count, cap, out=out),
+                          merkle_inc.mark_leaves_ref(mark_p, idx, vals, count, cap)),
+              max_abs_err(mark_k, mark_p))
+    if merkle_inc.mark_leaves(nodes.clone(), idx, vals, count, live - 1).any():
+        raise RuntimeError("mark_leaves ran past its sparse gate")
+    m_ms, m_by = bound(live * 4 + 2 * 32 * live + live)
+    rows.append(dict(
+        name="forest_mark", route="cuda",
+        source="eth_consensus_specs_tpu_torch/csrc/forest_update.cu",
+        replaces="eth_consensus_specs_tpu/ops/merkle_inc.py:163", shape=[1 << depth, cap],
+        max_abs_err=err,
+        ms=cuda_ms(lambda: merkle_inc.mark_leaves(mark_k, idx, vals, count, cap, out=out),
+                   inner=INNER),
+        plain_ms=cuda_ms(lambda: merkle_inc.mark_leaves_ref(mark_p, idx, vals, count, cap), 3),
+        bound_ms=m_ms, bound_by=m_by, library_ms=None, live=live,
+    ))
+
+    # K5's compaction: a mask of 4,096 dirty leaves of 2^20 at the plan's
+    # capacity, against torch.nonzero_static on the same mask (the library
+    # call, timed here, used nowhere in the port); the registry's
+    # effective-balance diff (4,096 crossings); a mask over capacity; a
+    # balance column's chunk diff writing its leaf rows
     ids = torch.arange(n, device=dev)
     old_eff = cols.effective_balance
     new_eff = torch.where(ids % 256 == 0, old_eff - 10**9, old_eff)
+    mask = old_eff != new_eff
+    got = merkle_inc.dirty_indices(mask, cap)
+    err = max(max_abs_err(g, w) for g, w in zip(got, merkle_inc.dirty_indices_ref(mask, cap)))
+    library = lambda: torch.nonzero_static(mask, size=cap, fill_value=0)  # noqa: E731
+    if not torch.equal(library().reshape(-1).to(torch.int32), got[0]):
+        raise RuntimeError("torch.nonzero_static disagrees with K5's compaction")
     got = merkle_inc.dirty_leaves(old_eff, new_eff, 1, n, cap)
-    want = merkle_inc.dirty_leaves_ref(old_eff, new_eff, 1, n, cap)
-    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    err = max(err, *(max_abs_err(g, w) for g, w in zip(
+        got, merkle_inc.dirty_leaves_ref(old_eff, new_eff, 1, n, cap))))
     if int(got[1]) != n // 256:
         raise RuntimeError(f"dirty count {int(got[1])}, expected {n // 256}")
     over = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -565,46 +755,25 @@ def check_forest_kernels(dev):
     want = merkle_inc.dirty_leaves_ref(cols.balance, bal_new, 4, 1 << d_bal, 1024, rows_p)
     for g, w in zip((*got, rows_k), (*want, rows_p)):
         max_abs_err(g, w)
-    compact_ms = cuda_ms(lambda: merkle_inc.dirty_leaves(old_eff, new_eff, 1, n, cap), inner=INNER)
-    compact_plain = cuda_ms(lambda: merkle_inc.dirty_leaves_ref(old_eff, new_eff, 1, n, cap), 3)
-
-    # K5 path update at depth 20: 4,000 distinct leaves, 48 of their
-    # siblings, 24 repeats, then padding zeros the count leaves out
-    leaves, nodes = trees[depth]
-    new_leaves = words(1 << depth, 8)
-    uniq = torch.randperm(1 << depth, generator=gen)[:4000]
-    idx = torch.cat([uniq, uniq[:48] ^ 1, uniq[:24], torch.zeros(24, dtype=torch.int64)])
-    idx = idx.to(torch.int32).to(dev)
-    vals = new_leaves[idx.to(torch.int64)]
-    live = 4000 + 48 + 24
-    count = torch.tensor([live], dtype=torch.int32, device=dev)
-    tree_k, tree_p = nodes.clone(), nodes.clone()
-    merkle_inc.path_update(tree_k, idx, vals, count, cap)
-    merkle_inc.path_update_ref(tree_p, idx, vals, count, cap)
-    err = max(err, max_abs_err(tree_k, tree_p))
-    max_abs_err(tree_k, merkle_inc.build_levels(tree_k[:1 << depth].clone()))
-    gated = nodes.clone()
-    max_abs_err(merkle_inc.path_update(gated, idx, vals, count, live - 1), nodes)  # count > dense
-    path_ms = cuda_ms(lambda: merkle_inc.path_update(tree_k, idx, vals, count, cap), inner=INNER)
-    path_plain = cuda_ms(lambda: merkle_inc.path_update_ref(tree_p, idx, vals, count, cap), 3)
-    c_ms, _ = bound(2 * 8 * n + 4 * cap + 4)
-    p_ms, p_by = bound(live * 32 + live * depth * 96, live * depth, serial_messages=depth)
+    c_ms, c_by = bound(n + 4 * cap + 4)
+    d_ms, _ = bound(2 * 8 * n + 4 * cap + 4)
     rows.append(dict(
         name="merkle_inc", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/merkle_inc.cu",
-        replaces="eth_consensus_specs_tpu/ops/merkle_inc.py:140", shape=[1 << depth, cap],
-        max_abs_err=err, ms=compact_ms + path_ms, plain_ms=compact_plain + path_plain,
-        bound_ms=c_ms + p_ms, bound_by=p_by, library_ms=None,
-        compaction=dict(ms=compact_ms, plain_ms=compact_plain, bound_ms=c_ms, bound_by="bytes",
-                        replaces="eth_consensus_specs_tpu/ops/merkle_inc.py:125"),
-        path_update=dict(ms=path_ms, plain_ms=path_plain, bound_ms=p_ms, bound_by=p_by,
-                         live_paths=live, depth=depth, work_compressions=2 * live * depth,
-                         dependency_floor_ms=depth * MESSAGE_SERIAL_S * 1e3),
-        checked=["registry diff at capacity", "mask over capacity", "chunk diff with leaf rows",
-                 "siblings, repeats and padding", "sparse gate"],
+        replaces="eth_consensus_specs_tpu/ops/merkle_inc.py:125", shape=[n, cap], max_abs_err=err,
+        ms=cuda_ms(lambda: merkle_inc.dirty_indices(mask, cap), inner=INNER),
+        plain_ms=cuda_ms(lambda: merkle_inc.dirty_indices_ref(mask, cap), 3),
+        bound_ms=c_ms, bound_by=c_by, library_ms=cuda_ms(library, inner=INNER),
+        library_call="torch.nonzero_static(mask, size=4096, fill_value=0)",
+        diff=dict(ms=cuda_ms(lambda: merkle_inc.dirty_leaves(old_eff, new_eff, 1, n, cap),
+                             inner=INNER),
+                  plain_ms=cuda_ms(lambda: merkle_inc.dirty_leaves_ref(old_eff, new_eff, 1, n,
+                                                                        cap), 3),
+                  bound_ms=d_ms, bound_by="bytes"),
+        checked=["mask at capacity against nonzero_static", "registry diff at capacity",
+                 "mask over capacity", "chunk diff with leaf rows"],
     ))
 
     # K3's indexed entry: 4,096 gathered rows, some past the registry
-    arrays, _ = state_root.synthetic_static(n, seed=5, device=dev)
     vargs = (cols.effective_balance, arrays.slashed_chunk, arrays.val_node_a, arrays.val_node_f)
     idx = torch.cat([torch.randint(0, n, (cap - 64,), generator=gen),
                      torch.randint(n, n + 1000, (32,), generator=gen),
@@ -626,7 +795,12 @@ def check_forest_kernels(dev):
         plain_ms=cuda_ms(lambda: state_root.validator_leaves_at_ref(*vargs, valid), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, work_compressions=6 * cap,
     ))
+    torch.cuda.empty_cache()  # the plain twins' 2^20 temporaries
     return rows
+
+
+OPEN_KERNELS = 256  # spin kernels that open a trace window
+OPEN_KERNEL_NAME = "::spin_kernel("  # torch.cuda._sleep's kernel, in the trace's key
 
 
 def device_profile(fn) -> dict:
@@ -637,9 +811,12 @@ def device_profile(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the tracer can miss the first kernels of its window: open it with
-        # one small kernel and a pause before the measured work
-        torch.ones(1, device="cuda").add_(1)
+        # the tracer misses the first kernels of its window, more of them the
+        # longer the process has run (none at the start, a dozen and more
+        # three minutes into the kernel checks): open it with spin kernels
+        # that take the loss, left out of the sums, and a pause
+        for _ in range(OPEN_KERNELS):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
         time.sleep(0.1)
         fn()
@@ -648,6 +825,7 @@ def device_profile(fn) -> dict:
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        and OPEN_KERNEL_NAME not in e.key
     ]
     rows.sort(key=lambda r: -r[1])
     return dict(device_busy_ms=sum(r[1] for r in rows),
@@ -670,13 +848,21 @@ def device_ms(fn, prefixes: tuple) -> float:
     the CUDA-event time, which reads the host's enqueue rate when the host
     is slower than the card. The tracer has been seen to lose a whole
     window's kernels after many windows in one process: a window that holds
-    none of them is traced again, three times at most."""
-    for _ in range(3):
+    none of them is traced again, five times at most, each after the
+    allocator's cached blocks are released and a pause."""
+    import torch
+
+    for attempt in range(5):
+        if attempt:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            time.sleep(1.0)
         per = per_call_ms(device_profile(lambda: [fn() for _ in range(INNER)]), INNER)
         mine = [ms for name, ms in per.items() if name.startswith(prefixes)]
         if mine:
             return sum(mine)
-    raise RuntimeError(f"the trace holds no kernel named {prefixes}")
+    raise RuntimeError(f"the trace holds no kernel named {prefixes} (it holds {sorted(per)[:8]}; "
+                       f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved)")
 
 
 def run_main_path(dev) -> tuple[dict, dict]:
@@ -941,20 +1127,19 @@ def run_dirty_registry(dev) -> tuple[dict, dict]:
     f = _clone_forest(forest0)
     torch.cuda.synchronize()
     prof = device_profile(lambda: run(1, f))
-    k5 = sum(ms for k, ms in prof["by_name"].items()
-             if "dirty_compact_kernel" in k or "path_update_kernel" in k)
+    forest_ms = sum(ms for k, ms in prof["by_name"].items() if "forest_update_kernel" in k)
     traced = {k.split("(")[0]: c for k, c in prof["counts"].items()}
     summary = dict(
         phase="dirty_registry", n_validators=N_VALIDATORS, lowered_every=256, epochs=EPOCHS,
         dirty_per_epoch=dirty, branches=_branches(dirty, plan), launches=launches,
         ms_per_epoch=statistics.median(runs8), ms_per_epoch_runs=runs8,
         first_epoch_ms=statistics.median(runs1), first_epoch_ms_runs=runs1,
-        first_epoch_device_busy_ms=prof["device_busy_ms"], first_epoch_k5_ms=k5,
-        first_epoch_k5_share=k5 / prof["device_busy_ms"] if prof["device_busy_ms"] else None,
+        first_epoch_device_busy_ms=prof["device_busy_ms"], first_epoch_forest_ms=forest_ms,
+        first_epoch_forest_share=(forest_ms / prof["device_busy_ms"] if prof["device_busy_ms"]
+                                  else None),
         # the trace is whole when it holds every launch of the epoch
         first_epoch_traced_launches={k: traced.get(k, 0) for k in (
-            "epoch_sums_kernel", "epoch_apply_kernel", "dirty_compact_kernel",
-            "validator_leaves_at_kernel", "path_update_kernel", "merkle_levels_kernel")},
+            "epoch_sums_kernel", "epoch_apply_kernel", "forest_update_kernel")},
         device_top_kernels=prof["top"], root_acc_equal_state=True,
     )
     return summary, launches
@@ -3728,6 +3913,9 @@ def _run() -> int:
         r["launches_by_path"] = {path: sum(counts.get(k, 0) for k in keys)
                                  for path, counts in by_path.items()}
         r["launches"] = sum(r["launches_by_path"][path] for path in paths)
+        if r["name"] in _OWN_CHECK_ONLY:
+            r["launched_by"] = f"its own check alone: {_OWN_CHECK_ONLY[r['name']]}"
+            continue
         # a kernel of a later path must launch on one of its own paths; K1-K6 on any
         own = paths if r["name"] in _PATH_OF else tuple(by_path)
         missing += [f"{r['name']} ({k})" for k in keys
@@ -3742,8 +3930,8 @@ def _run() -> int:
 
 _KERNEL_OF = {"sha256_pairs": "sha256", "merkle_tree_root": ("merkle", "merkle_lists"),
               "validator_leaves": "validator_leaves", "altair_epoch": "altair_epoch",
-              "merkle_levels": "merkle_levels", "merkle_inc": "merkle_inc",
-              "validator_leaves_at": "validator_leaves_at",
+              "forest_update": "forest_update", "forest_mark": "forest_mark",
+              "merkle_inc": "merkle_inc", "validator_leaves_at": "validator_leaves_at",
               "sha256_single_block": "sha256_single_block", "shuffle_rounds": "shuffle",
               "phase0_epoch": "state_columns", "merkle_many_tree_root": "merkle_many",
               "g1_sum_many": "g1_sum", "miller_product": ("miller", "miller_fold"),
@@ -3760,6 +3948,15 @@ _PATH_OF = {"sha256_single_block": "shuffle", "shuffle_rounds": "shuffle",
             "g2_sum_many": "agg_slot", "fr_fft": ("kzg_flush", "das_fft"),
             "g1_msm_many": "kzg_flush", "slot_apply": "slot", "block_slot": "block_epoch",
             "final_exp_gt": "gt_export"}
+# kernels no path launches, each held against its plain version by its own
+# check in phase 3, and why
+_OWN_CHECK_ONLY = {
+    "merkle_inc": "K5's compaction, the counterpart of JAX's dirty_indices behind the public "
+                  "dirty_indices and dirty_leaves; the forest update diffs the columns itself",
+    "validator_leaves_at": "K3's indexed entry, the counterpart of JAX's _validator_leaf_fn; "
+                           "the forest update computes the registry's dirty leaves itself",
+    "forest_mark": "path_update's mark pass; no path updates by an explicit index list",
+}
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 GENERATED = {"fp12_coop_ops.cuh": "eth_consensus_specs_tpu_torch.ops.fq12_coop:header_text",
              "g1_sum_plan.cuh": "eth_consensus_specs_tpu_torch.ops.g1_msm:sum_plan_header",
              "g2_sum_plan.cuh": "eth_consensus_specs_tpu_torch.ops.g2_aggregate:sum_plan_header"}
-KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "merkle_levels", "merkle_inc",
+KERNELS = ("sha256", "merkle", "validator_leaves", "altair_epoch", "forest_update", "merkle_inc",
            "shuffle", "state_columns", "g1_sum", "miller", "final_exp", "final_exp_gt", "h2c",
            "g2_sum", "fr_fft", "g1_msm", "slot_apply", "block_epoch", "fq12_coop")
 NVCC_FLAGS = (
@@ -57,11 +57,9 @@ SIGNATURES = {
         "validator_leaves_at_launch": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
     },
     "altair_epoch": {"epoch_sums_launch": [_P], "epoch_apply_launch": [_P]},
-    "merkle_levels": {"merkle_levels_launch": [_P, _I64, _I32, _I32, _I32, _P, _I32]},
-    "merkle_inc": {
-        "merkle_dirty_launch": [_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P, _I32],
-        "merkle_path_update_launch": [_P, _I32, _P, _I32, _P, _P, _I32],
-    },
+    "forest_update": {"forest_update_launch": [_P, _I32, _P, _P, _I64],
+                      "forest_mark_launch": [_P, _I64, _P, _I32, _P, _P, _I32, _P]},
+    "merkle_inc": {"merkle_dirty_launch": [_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P, _I32]},
     "shuffle": {"shuffle_rounds_launch": [_P, _P, _P, _I64, _I32, _I64]},
     "state_columns": {
         "phase0_sums_launch": [_P], "phase0_proposer_launch": [_P], "phase0_apply_launch": [_P],

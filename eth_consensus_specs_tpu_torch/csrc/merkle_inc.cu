@@ -1,49 +1,33 @@
-// K5: the sparse update of a flat merkle tree: dirty-leaf compaction and
-// the dirty-path re-hash.
+// K5: the dirty-leaf compaction of a flat merkle tree's update.
 //
-// Replaces eth_consensus_specs_tpu/ops/merkle_inc.py dirty_indices (:125),
-// path_update (:140) and the sparse branch of apply_dirty (:170) behind
-// _apply_kernel (:310), which XLA fuses into the resident epoch program.
-// The flat layout is the JAX package's (see merkle_levels.cu).
+// Replaces eth_consensus_specs_tpu/ops/merkle_inc.py dirty_indices (:125):
+// the compacted dirty set JAX's sparse branch (apply_dirty :170) feeds its
+// path update. Since the forest update (forest_update.cu) hashes every tree
+// of the forest in one launch from the column diffs themselves, no path of
+// the port compacts; this entry stays behind the public dirty_indices and
+// dirty_leaves, their counterparts.
 //
 // Compaction (merkle_dirty_launch). A leaf is dirty where a bool mask says
 // so, or where its u64 values differ between the old and the new column
 // (`per` values per leaf: 1 for the validator registry's effective
 // balances, 4 for a packed balance or score chunk). The dirty leaf indices
 // are written in ascending order into idx[cap], padded with 0, and the live
-// count into *count; entries past cap are dropped, as JAX drops them (the
-// caller's dense branch takes such updates). For a chunk tree the kernel
-// also writes each dirty leaf's new chunk into its leaf row: the leaf rows
-// always equal the old column's chunks, so after the pass they equal the
-// new one's on either branch. The order needs a prefix sum over the whole
-// leaf level, so the kernel is one cooperative launch: pass 1 counts the
-// dirty leaves of each block's segment, grid.sync(), then every block sums
-// the counts before its own and pass 2 writes its indices in order, a
-// warp ballot and a block scan per round of 256 leaves. Bound by bytes:
-// each value is read twice (once per pass).
-//
-// Path update (merkle_path_update_launch). Writes the K new leaves (when
-// given), then for each level k hashes each dirty path's parent at level
-// k+1 from its two children at level k. Reads come from level k and writes
-// go to level k+1, so a level never overlaps itself; one grid.sync()
-// separates the levels, all in one cooperative launch. Duplicate parents,
-// from two dirty siblings, write the same value. Bound by the dependency
-// chain of depth levels, each one SHA-256 pair hash long, and by
-// count x depth hashes of integer work.
-//
-// Gate: with count set and dense >= 0, the path update returns at once when
-// *count > dense: both branches of an update are launched every epoch and
-// the live count on the device picks one (merkle_levels.cu runs the other).
+// count into *count; entries past cap are dropped, as JAX drops them. For a
+// chunk tree the kernel also writes each dirty leaf's new chunk into its
+// leaf row. The order needs a prefix sum over the whole leaf level, so the
+// kernel is one cooperative launch: pass 1 counts the dirty leaves of each
+// block's segment, grid.sync(), then every block sums the counts before its
+// own and pass 2 writes its indices in order, a warp ballot and a block scan
+// per round of 256 leaves. Bound by bytes: each value is read twice (once
+// per pass).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
-#include "sha256.cuh"
 
 namespace cg = cooperative_groups;
 
 constexpr int kCompactThreads = 256;
 constexpr int kCompactWarps = kCompactThreads / 32;
-constexpr int kPathThreads = 128;
 
 __device__ __forceinline__ uint32_t bswap32(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
 
@@ -147,70 +131,20 @@ dirty_compact_kernel(LeafSource s, int64_t n_leaves, int cap, int* __restrict__ 
     idx[p] = 0;
 }
 
-__global__ void __launch_bounds__(kPathThreads)
-path_update_kernel(uint32_t* __restrict__ nodes, int depth, const int* __restrict__ idx, int cap,
-                   const uint32_t* __restrict__ vals, const int* __restrict__ count, int dense) {
-  cg::grid_group grid = cg::this_grid();
-  int live = cap;
-  if (count != nullptr) {
-    live = *count;
-    if (dense >= 0 && live > dense) return;  // the dense branch's turn
-    live = min(live, cap);
-  }
-  if (live <= 0) return;  // uniform across the grid: no thread reaches a sync
-  const int64_t n_leaves = 1LL << depth;
-  const int64_t cap2 = 2 * n_leaves;
-  const int64_t stride = (int64_t)gridDim.x * kPathThreads;
-  const int64_t tid = (int64_t)blockIdx.x * kPathThreads + threadIdx.x;
-  uint4* rows = reinterpret_cast<uint4*>(nodes);
-  if (vals != nullptr) {
-    for (int64_t j = tid; j < live; j += stride) {
-      const int64_t leaf = idx[j];
-      if (leaf < 0 || leaf >= n_leaves) continue;
-      const uint4* v = reinterpret_cast<const uint4*>(vals + j * 8);
-      rows[2 * leaf] = v[0];
-      rows[2 * leaf + 1] = v[1];
-    }
-    grid.sync();
-  }
-  for (int k = 0; k < depth; ++k) {
-    const int64_t off_c = cap2 - (cap2 >> k);
-    const int64_t off_p = cap2 - (cap2 >> (k + 1));
-    for (int64_t j = tid; j < live; j += stride) {
-      const int64_t leaf = idx[j];
-      if (leaf < 0 || leaf >= n_leaves) continue;
-      const int64_t parent = leaf >> (k + 1);
-      // children written by other blocks before the last grid.sync():
-      // read past L1, from L2
-      const uint4* child = rows + 2 * (off_c + 2 * parent);
-      uint32_t w[16], h[8];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint4 v = __ldcg(child + q);
-        w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
-      }
-      sha256_pair(w, h);
-      rows[2 * (off_p + parent)] = make_uint4(h[0], h[1], h[2], h[3]);
-      rows[2 * (off_p + parent) + 1] = make_uint4(h[4], h[5], h[6], h[7]);
-    }
-    if (k + 1 < depth) grid.sync();
-  }
-}
-
 // Most blocks of `kernel` that fit on the card at once: the bound of a
 // cooperative launch. Queried once per device.
-static int coresident_blocks(const void* kernel, int threads, int slot) {
-  static int cache[2][64];
+static int coresident_blocks(const void* kernel, int threads) {
+  static int cache[64];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
-  if (cache[slot][dev] == 0) {
+  if (cache[dev] == 0) {
     int sms = 0, per_sm = 0;
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess)
       return 0;
-    cache[slot][dev] = sms * per_sm;
+    cache[dev] = sms * per_sm;
   }
-  return cache[slot][dev];
+  return cache[dev];
 }
 
 static int no_fit() {
@@ -230,7 +164,7 @@ extern "C" int merkle_dirty_launch(const void* mask, const void* old_v, const vo
   if (n_leaves < 1 || n_leaves > (1LL << 31) - 1 || cap < 1 || per < 1 || per > 4 ||
       (mask == nullptr && (old_v == nullptr || new_v == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int fit = coresident_blocks((const void*)dirty_compact_kernel, kCompactThreads, 0);
+  const int fit = coresident_blocks((const void*)dirty_compact_kernel, kCompactThreads);
   if (fit <= 0) return no_fit();
   int64_t blocks = (n_leaves + kCompactThreads - 1) / kCompactThreads;
   blocks = blocks < fit ? blocks : fit;
@@ -244,30 +178,6 @@ extern "C" int merkle_dirty_launch(const void* mask, const void* old_v, const vo
   void* args[] = {&s, &n_leaves, &cap, &idx_p, &count_p, &counts_p};
   const cudaError_t err = cudaLaunchCooperativeKernel((const void*)dirty_compact_kernel,
                                                       dim3((unsigned)blocks), dim3(kCompactThreads),
-                                                      args, 0, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Re-hash the ancestor paths of idx[0 .. min(*count, cap)) (all cap entries
-// when count is null) in a depth-`depth` flat tree, after writing vals[j]
-// (cap x 8 words, may be null) to leaf idx[j]. With count set and
-// dense >= 0, does nothing when *count > dense.
-extern "C" int merkle_path_update_launch(void* nodes, int depth, const void* idx, int cap,
-                                         const void* vals, const void* count, int dense,
-                                         cudaStream_t stream) {
-  if (depth < 0 || depth > 30 || cap < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int fit = coresident_blocks((const void*)path_update_kernel, kPathThreads, 1);
-  if (fit <= 0) return no_fit();
-  int blocks = (cap + kPathThreads - 1) / kPathThreads;
-  blocks = blocks < fit ? blocks : fit;
-  uint32_t* nodes_p = static_cast<uint32_t*>(nodes);
-  const int* idx_p = static_cast<const int*>(idx);
-  const uint32_t* vals_p = static_cast<const uint32_t*>(vals);
-  const int* count_p = static_cast<const int*>(count);
-  void* args[] = {&nodes_p, &depth, &idx_p, &cap, &vals_p, &count_p, &dense};
-  const cudaError_t err = cudaLaunchCooperativeKernel((const void*)path_update_kernel,
-                                                      dim3((unsigned)blocks), dim3(kPathThreads),
                                                       args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

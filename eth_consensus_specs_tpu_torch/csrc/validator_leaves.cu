@@ -7,57 +7,25 @@
 //   eb_chunk = SSZ chunk of effective_balance (u64 little-endian in bytes 0..7)
 //   B = H(eb_chunk, slashed_chunk);  E = H(node_a, B);  root = H(E, node_f)
 // One thread per validator, three pair hashes (six compressions) with
-// every intermediate in registers; reads 104 B and writes the 32-byte leaf
-// that K2 then reduces. Integer-ALU bound.
+// every intermediate in registers (the chain in validator_root.cuh, which
+// the forest update shares); reads 104 B and writes the 32-byte leaf that
+// K2 then reduces. Integer-ALU bound.
 //
 // Two entries:
 // - validator_leaves_launch: every validator, rows 0..n-1 of `out` (the
 //   full registry, or the leaf rows of the incremental forest's validator
-//   tree). With gate_count set it returns at once unless
-//   *gate_count > gate_dense: the dense branch of the incremental update.
+//   tree when it is built). With gate_count set it returns at once unless
+//   *gate_count > gate_dense: JAX's dense branch of the incremental update.
 // - validator_leaves_at_launch: the chain at a gathered index list, as the
 //   incremental path's _validator_leaf_fn (state_root.py:721) runs it on the
 //   dirty rows; an index outside [0, n) gives the SSZ zero chunk (the
 //   padding of the leaf level). With count set, only rows j < *count are
-//   written, and with dense >= 0 nothing when *count > dense: the sparse
+//   written, and with dense >= 0 nothing when *count > dense: JAX's sparse
 //   branch of the incremental update.
+// Since the forest update (forest_update.cu) computes the registry's dirty
+// leaves itself, no path gates the first entry or calls the second.
 #include "common.cuh"
-#include "sha256.cuh"
-
-__device__ __forceinline__ uint32_t bswap32(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
-
-__device__ __forceinline__ void load8(const uint32_t* p, uint32_t v[8]) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  const uint4 x = q[0], y = q[1];
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
-}
-
-__device__ __forceinline__ void store8(uint32_t* p, const uint32_t v[8]) {
-  uint4* dst = reinterpret_cast<uint4*>(p);
-  dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
-  dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
-}
-
-// node = H(H(A_i, H(eb_chunk(eff_i), slashed_i)), F_i)
-__device__ __forceinline__ void validator_root(const uint64_t* __restrict__ eff,
-                                               const uint32_t* __restrict__ slashed,
-                                               const uint32_t* __restrict__ node_a,
-                                               const uint32_t* __restrict__ node_f, int64_t i,
-                                               uint32_t node[8]) {
-  const uint64_t e = eff[i];
-  uint32_t w[16], other[8];
-  w[0] = bswap32(static_cast<uint32_t>(e));
-  w[1] = bswap32(static_cast<uint32_t>(e >> 32));
-#pragma unroll
-  for (int k = 2; k < 8; ++k) w[k] = 0u;
-  load8(slashed + i * 8, w + 8);
-  sha256_pair(w, node);  // B
-  load8(node_a + i * 8, other);
-  sha256_hash_pair(other, node, node);  // E = H(A, B)
-  load8(node_f + i * 8, other);
-  sha256_hash_pair(node, other, node);  // root = H(E, F)
-}
+#include "validator_root.cuh"
 
 __global__ void validator_leaves_kernel(const uint64_t* __restrict__ eff,
                                         const uint32_t* __restrict__ slashed,

@@ -1,5 +1,6 @@
-"""Incremental dirty-path merkleization of a resident flat tree (kernels K5
-``csrc/merkle_inc.cu`` and K6 ``csrc/merkle_levels.cu``).
+"""The incremental forest: resident flat merkle trees updated in place
+(the forest update, ``csrc/forest_update.cu``, in place of kernel K5's
+path update and of K6; K5's compaction, ``csrc/merkle_inc.cu``).
 
 Counterpart of ``eth_consensus_specs_tpu/ops/merkle_inc.py``. Every tree
 keeps all its levels resident as one flat buffer, leaves first, root last::
@@ -7,37 +8,58 @@ keeps all its levels resident as one flat buffer, leaves first, root last::
     nodes: int32[S, 2^(d+1)-1, 8]      level k at row 2^(d+1) - 2^(d-k+1)
 
 (S = 1: the port has no mesh yet), the JAX package's layout exactly, so
-checkpoints and forests cross between the packages. An update re-hashes
-only the ancestor paths of the dirty leaves (K5), or, past the crossover
-where that loses to one rebuild, every level (K6). Both give identical
-buffers for the same leaf content.
+checkpoints and forests cross between the packages. JAX donates the node
+buffer; the port updates it in place.
 
-JAX donates the node buffer; the port updates it in place. The wrappers
-dispatch by device: CUDA tensors launch the kernels, CPU tensors run the
-plain torch versions (``*_ref``).
+The update. JAX re-hashes the ancestor paths of the dirty leaves (the
+sparse branch) or, past the crossover where that loses to one rebuild,
+every level (the dense branch), picked by a ``lax.cond`` on the live dirty
+count. Both give the same buffer for the same leaf content. On the card
+one kernel covers both with one rule, hashing a node when one of its
+children is dirty: ``forest_update`` takes a table of trees (``ForestTree``:
+a u64 column diff, the registry's effective-balance diff with K3's leaf
+chain in the kernel, a mask with new leaf rows, or every leaf of a batch)
+and updates all of them in one launch, writing each tree's dirty count on
+the device. ``merkle_levels``/``build_levels`` (every leaf dirty) and
+``apply_dirty`` are one launch a call; ``path_update`` two (a mark pass,
+then the update). Nothing waits for the card: no branch is decided on the
+host or launched only to return at its gate.
 
-Branching without the host. JAX picks the sparse or dense branch with a
-``lax.cond`` on the live dirty count. Here the compaction (K5) writes that
-count to the device; every update (``apply_update``) then launches both
-branches, and each kernel reads the count and returns at once when the
-branch is not its own: the sparse side (``path_update``, and
-``validator_leaves_at`` in ``state_root.py``) runs when ``count <= dense``,
-the dense side (``merkle_levels`` and ``validator_leaves_into``) when
-``count > dense``. The epoch loop thus never waits for the card. The plain
-versions read the count on the host.
+The plain twin keeps JAX's branches: ``forest_update_ref`` compacts each
+tree's dirty set (``dirty_leaves_ref``/``dirty_indices_ref``) and takes
+the sparse path update or the dense rebuild by the forest plan's capacity
+and dense count (``apply_update_ref``). The wrappers dispatch by device:
+CUDA tensors launch the kernels, CPU tensors run the plain versions.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .. import _ext
 from ..config import inc_dense_count, inc_dirty_bucket
 from ..lanes import bswap32, to_i32, to_u32_lanes
-from .sha256 import sha256_pairs_ref
+from .merkle import GROUP_LOG, climb_plan, u64_chunk_words
+from .sha256 import hash_rows, sha256_pairs_ref
 
-MAX_LEVELS_PER_LAUNCH = 9  # K6: 512 nodes of 32 bytes in one block's shared memory
+MAX_TREES = 8  # entries of one forest_update table (csrc/forest_update.cu kMaxTrees)
+KINDS = {"u64": 0, "registry": 1, "mask": 2, "all": 3}
 _COMPACT_SCRATCH = 4096  # K5 compaction: one int per cooperative block, at most
+
+# csrc/forest_update.cu's ForestTree, field for field
+FOREST_TREE_DTYPE = np.dtype([
+    ("nodes", "<u8"), ("old_v", "<u8"), ("new_v", "<u8"), ("mask", "<u8"), ("rows", "<u8"),
+    ("slashed", "<u8"), ("node_a", "<u8"), ("node_f", "<u8"), ("count", "<u8"), ("gate", "<u8"),
+    ("n", "<i8"), ("live", "<i8"), ("block0", "<i8"), ("blocks", "<i8"), ("nodes_stride", "<i8"),
+    ("cnt0", "<i8"), ("cnt_stride", "<i8"), ("flag0", "<i8"), ("flag_stride", "<i8"),
+    ("trees", "<i4"), ("kind", "<i4"), ("depth", "<i4"), ("per", "<i4"), ("gate_dense", "<i4"),
+    ("clear", "<i4"),
+])
+assert FOREST_TREE_DTYPE.itemsize == 176
 
 
 def tree_nodes(depth: int) -> int:
@@ -58,7 +80,7 @@ def level_offset(depth: int, k: int) -> int:
 def inc_update_hashes(depth: int, cap: int, leaf_hashes: int = 0) -> int:
     """Compressions one sparse update at capacity ``cap`` is charged in the
     JAX package's capacity model: cap rows per level plus ``leaf_hashes``
-    per dirty leaf. (K5 hashes only the live rows.)"""
+    per dirty leaf. (The forest kernel hashes only the dirty parents.)"""
     return cap * (depth + leaf_hashes)
 
 
@@ -70,16 +92,269 @@ def _gate_open(count, dense: int, sparse: bool) -> bool:
     return live <= dense if sparse else live > dense
 
 
+# ------------------------------------------------------ the forest update --
+
+
+class ForestTree(NamedTuple):
+    """One tree of a ``forest_update`` call: its flat node buffer ``nodes``
+    (int32[2^(d+1)-1, 8]; kind ``"all"`` also int32[B, 2^(d+1)-1, 8], B like
+    trees) and its leaf source, by ``kind``:
+
+    * ``"u64"``: a column diff, ``old`` and ``new`` int64 (u64) values,
+      ``per`` a leaf (4: a packed balance or score chunk); a leaf is dirty
+      where a value differs, and its new chunk is written to its row;
+    * ``"registry"``: the effective balances ``old`` and ``new``, one a
+      leaf, with ``static`` = (slashed chunks, node A, node F), int32[n, 8]
+      each; a dirty leaf's row is K3's validator chain of the new balance;
+    * ``"mask"``: ``mask`` bool or uint8[L] (L <= 2^d), the new rows in
+      ``rows`` (int32[>= L, 8]) or, when None, already in the leaf rows;
+      with ``clear``, the kernel resets each set entry as it reads it (the
+      plain twin leaves the mask as it is);
+    * ``"all"``: every leaf dirty, rows in place; with ``gate`` (int32[1])
+      only when ``gate > dense``.
+
+    Leaves outside the dirty set must hold their stored rows (as JAX's
+    sparse branch assumes). ``cap`` and ``dense`` are the forest plan's
+    capacity and dense count, which the plain twin's branches read; the
+    kernel does not."""
+
+    nodes: torch.Tensor
+    kind: str
+    old: torch.Tensor | None = None
+    new: torch.Tensor | None = None
+    per: int = 4
+    static: tuple | None = None
+    mask: torch.Tensor | None = None
+    rows: torch.Tensor | None = None
+    gate: torch.Tensor | None = None
+    dense: int = 0
+    cap: int = 1
+    clear: bool = False
+
+
 def _trees(nodes: torch.Tensor) -> torch.Tensor:
     """A [B, M, 8] view of one tree ([M, 8]) or a batch of trees."""
     return nodes if nodes.dim() == 3 else nodes.unsqueeze(0)
 
 
-# ----------------------------------------------------------------- K6 --
+def forest_depth(t: ForestTree) -> int:
+    return tree_depth(t.nodes.shape[-2])
+
+
+def live_leaves(t: ForestTree) -> int:
+    """Leaves of a tree that hold a value: the rest are never dirty."""
+    if t.kind == "u64":
+        return -(-t.old.shape[0] // t.per)
+    if t.kind == "registry":
+        return t.old.shape[0]
+    if t.kind == "mask":
+        return t.mask.shape[0]
+    return 1 << forest_depth(t)
+
+
+def _check_tree(t: ForestTree) -> None:
+    if t.kind not in KINDS:
+        raise ValueError(f"unknown forest tree kind {t.kind!r}")
+    nodes = t.nodes
+    if (nodes.dim() not in ((2, 3) if t.kind == "all" else (2,)) or nodes.shape[-1] != 8
+            or tree_nodes(tree_depth(nodes.shape[-2])) != nodes.shape[-2]
+            or nodes.dtype != torch.int32):
+        raise ValueError(f"expected int32 [2^(d+1)-1, 8] nodes, got {tuple(nodes.shape)}")
+    n_leaves = 1 << forest_depth(t)
+    if t.kind in ("u64", "registry"):
+        if t.old is None or t.new is None or t.old.shape != t.new.shape or t.old.dim() != 1:
+            raise ValueError("a column diff needs old and new values of one shape")
+        per = t.per if t.kind == "u64" else 1
+        if not 1 <= per <= 4 or t.old.shape[0] > n_leaves * per:
+            raise ValueError(f"{t.old.shape[0]} values at {per} a leaf exceed {n_leaves} leaves")
+        if t.kind == "registry" and (t.static is None or len(t.static) != 3):
+            raise ValueError("a registry diff needs (slashed, node_a, node_f)")
+    elif t.kind == "mask":
+        if t.mask is None or t.mask.dim() != 1 or t.mask.shape[0] > n_leaves:
+            raise ValueError(f"a mask over at most {n_leaves} leaves is needed")
+        if t.rows is not None and (t.rows.dim() != 2 or t.rows.shape[0] < t.mask.shape[0]
+                                   or t.rows.shape[1] != 8):
+            raise ValueError(f"leaf rows {tuple(t.rows.shape)} do not cover the mask")
+
+
+def validator_chain_ref(eff, slashed_chunk, node_a, node_f) -> torch.Tensor:
+    """Plain torch version of K3's chain: H(H(A, H(eb_chunk, slashed)), F)
+    a validator."""
+    h = sha256_pairs_ref
+    node_b = hash_rows(u64_chunk_words(eff), slashed_chunk, h)
+    node_e = hash_rows(node_a, node_b, h)
+    return hash_rows(node_e, node_f, h)
+
+
+def forest_update_ref(trees) -> list:
+    """Plain torch version of the forest update, JAX's composition: each
+    tree's dirty set compacted at its capacity (``dirty_leaves_ref``,
+    ``dirty_indices_ref``), then the sparse path update or the dense rebuild
+    by its dense count (``apply_update_ref``), K3's plain chain for the
+    registry's leaves. Returns each tree's live dirty count (int32[1]; None
+    for kind ``"all"``)."""
+    from .state_root import validator_leaves_at_ref, validator_leaves_into_ref
+
+    counts = []
+    for t in trees:
+        _check_tree(t)
+        nodes, n_leaves = t.nodes, 1 << forest_depth(t)
+        if t.kind == "all":
+            merkle_levels_ref(nodes, t.gate, t.dense)
+            counts.append(None)
+            continue
+        if t.kind == "u64":
+            idx, count = dirty_leaves_ref(t.old, t.new, t.per, n_leaves, t.cap, nodes)
+            apply_update_ref(nodes, idx, count, t.dense)
+        elif t.kind == "registry":
+            inputs = (t.new, *t.static)
+            idx, count = dirty_leaves_ref(t.old, t.new, 1, n_leaves, t.cap)
+            apply_update_ref(
+                nodes, idx, count, t.dense,
+                leaves_at=lambda idx, count, dense: validator_leaves_at_ref(*inputs, idx, count,
+                                                                            dense),
+                leaves_into=lambda rows, count, dense: validator_leaves_into_ref(rows, *inputs,
+                                                                                 count, dense))
+        else:
+            mask = t.mask.to(torch.bool)
+            idx, count = dirty_indices_ref(mask, t.cap)
+            rows = t.rows
+
+            def leaves_into(dst, count, dense, rows=rows, live=mask.shape[0]):
+                if _gate_open(count, dense, sparse=False):
+                    dst[:live] = rows[:live]
+
+            apply_update_ref(nodes, idx, count, t.dense,
+                             leaves_at=None if rows is None else
+                             lambda idx, count, dense, rows=rows: rows[idx.to(torch.int64)],
+                             leaves_into=None if rows is None else leaves_into)
+        counts.append(count)
+    return counts
+
+
+def forest_table(trees, group_log: int = GROUP_LOG) -> tuple:
+    """The forest kernel's table of ``trees`` (``FOREST_TREE_DTYPE``, the
+    tensors' addresses in it), the grid's leaf blocks and the scratch
+    counters and flags the launch uses: each tree cut as K2 cuts it
+    (``merkle.climb_plan`` over its live leaves), its counters the climb's
+    groups and one accumulator."""
+    if not 1 <= len(trees) <= MAX_TREES:
+        raise ValueError(f"one launch takes 1 to {MAX_TREES} trees, got {len(trees)}")
+    table = np.zeros(len(trees), FOREST_TREE_DTYPE)
+    addr = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
+    block0 = cnt0 = flag0 = 0
+    for e, t in zip(table, trees):
+        depth, live = forest_depth(t), live_leaves(t)
+        plan = climb_plan(live, depth, group_log)
+        batch = t.nodes.shape[0] if t.nodes.dim() == 3 else 1
+        slashed, node_a, node_f = t.static if t.kind == "registry" else (None, None, None)
+        e["nodes"], e["old_v"], e["new_v"] = addr(t.nodes), addr(t.old), addr(t.new)
+        e["mask"], e["rows"], e["gate"] = addr(t.mask), addr(t.rows), addr(t.gate)
+        e["slashed"], e["node_a"], e["node_f"] = addr(slashed), addr(node_a), addr(node_f)
+        e["n"] = t.old.shape[0] if t.kind in ("u64", "registry") else live
+        e["live"], e["kind"], e["depth"] = live, KINDS[t.kind], depth
+        e["per"] = t.per if t.kind == "u64" else 1
+        e["gate_dense"] = t.dense
+        e["clear"] = int(t.kind == "mask" and t.clear)
+        e["trees"], e["blocks"], e["block0"] = batch, plan.blocks, block0
+        e["nodes_stride"] = t.nodes.shape[-2]
+        e["cnt0"], e["cnt_stride"] = cnt0, plan.counters + 1
+        e["flag0"], e["flag_stride"] = flag0, plan.nodes
+        block0 += batch * plan.blocks
+        cnt0 += batch * (plan.counters + 1)
+        flag0 += batch * plan.nodes
+    return table, block0, cnt0, flag0
+
+
+class _Scratch:
+    """The forest kernel's scratch on one stream of one card: the climb's
+    group counters and accumulators, zero between launches (each launch's
+    finishers reset what they complete), its child flags, written before
+    they are read, and ``path_update``'s leaf mask, zero between calls (the
+    mark pass sets it, the forest kernel resets what it reads). Launches on
+    two streams would overlap, so each stream has a scratch of its own."""
+
+    def __init__(self):
+        self.counters = None
+        self.flags = None
+        self.mask = None
+
+    def leaf_mask(self, n_leaves: int, dev: torch.device) -> torch.Tensor:
+        if self.mask is None or self.mask.shape[0] < n_leaves:
+            self.mask = torch.zeros(n_leaves, dtype=torch.uint8, device=dev)
+        return self.mask[:n_leaves]
+
+    def get(self, counters: int, flags: int, dev: torch.device):
+        if self.counters is None or self.counters.shape[0] < counters:
+            self.counters = torch.zeros(max(counters, 1 << 10), dtype=torch.int32, device=dev)
+        if self.flags is None or self.flags.shape[0] < flags:
+            self.flags = torch.empty(max(flags, 1 << 12), dtype=torch.int32, device=dev)
+        return self.counters, self.flags
+
+
+_scratch: dict[tuple, _Scratch] = {}  # by (device, stream)
+
+
+def _stream_scratch(dev: torch.device) -> _Scratch:
+    key = (str(dev), torch.cuda.current_stream(dev).cuda_stream)
+    return _scratch.setdefault(key, _Scratch())
+
+
+def _check_cuda_tree(t: ForestTree) -> None:
+    _ext.check_cuda(t.nodes, torch.int32)
+    if t.nodes.data_ptr() % 16:
+        raise ValueError("the forest kernel reads node rows 16 bytes at a time: align them")
+    if t.kind in ("u64", "registry"):
+        for v in (t.old, t.new):
+            _ext.check_cuda(v, torch.int64)
+    if t.kind == "registry":
+        n = t.old.shape[0]
+        for a in t.static:
+            _ext.check_cuda(a, torch.int32, (n, 8))
+    if t.kind == "mask":
+        _ext.check_cuda(t.mask, t.mask.dtype)
+        if t.mask.dtype not in (torch.bool, torch.uint8):
+            raise ValueError(f"expected a bool or uint8 mask, got {t.mask.dtype}")
+        if t.rows is not None:
+            _ext.check_cuda(t.rows, torch.int32)
+            if t.rows.data_ptr() % 16:
+                raise ValueError("the forest kernel reads leaf rows 16 bytes at a time: align them")
+    if t.gate is not None:
+        _ext.check_cuda(t.gate, torch.int32, (1,))
+
+
+def forest_update(trees) -> list:
+    """Update up to ``MAX_TREES`` flat trees (``ForestTree``) in place and
+    return each tree's live dirty count (int32[1] on its device; None for
+    kind ``"all"``). The trees must not share a buffer.
+
+    CUDA tensors go through the forest kernel, one launch for every tree
+    (counted as ``forest_update``); CPU tensors through the plain version."""
+    if not trees:
+        raise ValueError("no trees")
+    if trees[0].nodes.device.type == "cpu":
+        return forest_update_ref(trees)
+    dev = trees[0].nodes.device
+    for t in trees:
+        _check_tree(t)
+        _check_cuda_tree(t)
+    counted = [i for i, t in enumerate(trees) if t.kind != "all"]
+    out = torch.empty(len(counted), dtype=torch.int32, device=dev) if counted else None
+    counts = [None] * len(trees)
+    for j, i in enumerate(counted):
+        counts[i] = out[j:j + 1]
+    table, blocks, n_cnt, n_flags = forest_table(trees)
+    for e, c in zip(table, counts):
+        e["count"] = 0 if c is None else c.data_ptr()
+    cnt, flags = _stream_scratch(dev).get(n_cnt, n_flags, dev)
+    _ext.launch("forest_update", "forest_update_launch", dev, ctypes.c_void_p(table.ctypes.data),
+                len(trees), _ext.ptr(cnt), _ext.ptr(flags), blocks)
+    return counts
 
 
 def merkle_levels_ref(nodes: torch.Tensor, count=None, dense: int = 0) -> torch.Tensor:
-    """Plain torch version of K6: level by level with the plain SHA."""
+    """Plain torch version of the rebuild: level by level with the plain
+    SHA."""
     trees = _trees(nodes)
     if not _gate_open(count, dense, sparse=False):
         return nodes
@@ -97,22 +372,16 @@ def merkle_levels(nodes: torch.Tensor, count=None, dense: int = 0) -> torch.Tens
     ``count`` (int32[1] on the device), only when ``count > dense``: the
     dense branch of an incremental update.
 
-    CUDA tensors go through kernel K6, one launch per up to nine levels;
-    CPU tensors through the plain version."""
+    CUDA tensors go through the forest kernel, one launch at any depth
+    (every leaf dirty); CPU tensors through the plain version."""
     if nodes.device.type == "cpu":
         return merkle_levels_ref(nodes, count, dense)
-    _ext.check_cuda(nodes, torch.int32)
     trees = _trees(nodes)
     if trees.shape[-1] != 8 or tree_nodes(tree_depth(trees.shape[1])) != trees.shape[1]:
         raise ValueError(f"expected [B, 2^(d+1)-1, 8] nodes, got {tuple(nodes.shape)}")
-    if count is not None:
-        _ext.check_cuda(count, torch.int32, (1,))
-    depth, k = tree_depth(trees.shape[1]), 0
-    while k < depth:
-        levels = min(MAX_LEVELS_PER_LAUNCH, depth - k)
-        _ext.launch("merkle_levels", "merkle_levels_launch", nodes.device, _ext.ptr(nodes),
-                    trees.shape[0], depth, k, levels, _ext.ptr(count), int(dense))
-        k += levels
+    if trees.shape[0] > 0x7FFFFFFF:
+        raise ValueError(f"{trees.shape[0]} trees do not fit one launch")
+    forest_update([ForestTree(trees, "all", gate=count, dense=int(dense))])
     return nodes
 
 
@@ -128,7 +397,7 @@ def build_levels(leaves: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# ----------------------------------------------------------------- K5 --
+# -------------------------------------------------------- K5 compaction --
 
 
 def dirty_indices_ref(mask: torch.Tensor, cap: int):
@@ -176,8 +445,8 @@ def dirty_indices(mask: torch.Tensor, cap: int):
     caller's dense branch must take such masks.
 
     CUDA tensors go through kernel K5's compaction; CPU tensors through the
-    plain version. (JAX's ``dirty_indices`` returns the indices alone; the
-    count is what the port's branch gates read.)"""
+    plain version. (JAX's ``dirty_indices`` returns the indices alone.) No
+    path of the port compacts since the forest update."""
     if mask.device.type == "cpu":
         return dirty_indices_ref(mask, cap)
     _ext.check_cuda(mask, torch.bool)
@@ -209,8 +478,12 @@ def dirty_leaves(old: torch.Tensor, new: torch.Tensor, per: int, n_leaves: int, 
     return _compact(old.device, None, old, new, old.shape[0], per, leaf_rows, n_leaves, cap)
 
 
+# ------------------------------------------------------------ path update --
+
+
 def path_update_ref(nodes, idx, vals=None, count=None, dense: int = -1):
-    """Plain torch version of K5's path update."""
+    """Plain torch version of the path update: level by level, a hash a
+    dirty path."""
     if not _gate_open(count, dense, sparse=True):
         return nodes
     live = idx.shape[0] if count is None else min(int(count.reshape(-1)[0]), idx.shape[0])
@@ -228,6 +501,58 @@ def path_update_ref(nodes, idx, vals=None, count=None, dense: int = -1):
     return nodes
 
 
+def mark_leaves_ref(nodes, idx, vals=None, count=None, dense: int = -1,
+                    out=None) -> torch.Tensor:
+    """Plain torch version of path_update's mark pass."""
+    n_leaves = (nodes.shape[0] + 1) // 2
+    mask = torch.zeros(n_leaves, dtype=torch.uint8, device=nodes.device) if out is None else out
+    if not _gate_open(count, dense, sparse=True):
+        return mask
+    live = idx.shape[0] if count is None else min(int(count.reshape(-1)[0]), idx.shape[0])
+    leaf = idx[:live].to(torch.int64)
+    keep = (leaf >= 0) & (leaf < n_leaves)
+    if vals is not None:
+        nodes[leaf[keep]] = vals[:live][keep]
+    mask[leaf[keep]] = 1
+    return mask
+
+
+def mark_leaves(nodes: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor | None = None,
+                count: torch.Tensor | None = None, dense: int = -1,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """The first pass of ``path_update``: ``vals[j]`` (when given) written to
+    leaf ``idx[j]`` of a flat tree and the leaf marked, for the entries
+    ``path_update`` takes (an index outside [0, 2^d) is skipped). Returns
+    the uint8[2^d] mask: ``out`` when given (its other entries left as they
+    are), else a new zero one.
+
+    CUDA tensors go through the mark kernel of ``csrc/forest_update.cu``
+    (counted as ``forest_mark``); CPU tensors through the plain version."""
+    if nodes.device.type == "cpu":
+        return mark_leaves_ref(nodes, idx, vals, count, dense, out)
+    _ext.check_cuda(nodes, torch.int32)
+    if nodes.dim() != 2 or tree_nodes(tree_depth(nodes.shape[0])) != nodes.shape[0]:
+        raise ValueError(f"expected [2^(d+1)-1, 8] nodes, got {tuple(nodes.shape)}")
+    _ext.check_cuda(idx, torch.int32)
+    cap = idx.shape[0]
+    if cap < 1:
+        raise ValueError("no indices")
+    if vals is not None:
+        _ext.check_cuda(vals, torch.int32, (cap, 8))
+    if count is not None:
+        _ext.check_cuda(count, torch.int32, (1,))
+    n_leaves = (nodes.shape[0] + 1) // 2
+    if out is None:
+        mask = torch.zeros(n_leaves, dtype=torch.uint8, device=nodes.device)
+    else:
+        mask = out
+        _ext.check_cuda(mask, torch.uint8, (n_leaves,))
+    _ext.launch("forest_update", "forest_mark_launch", nodes.device, _ext.ptr(nodes), n_leaves,
+                _ext.ptr(idx), cap, _ext.ptr(vals), _ext.ptr(count), int(dense), _ext.ptr(mask),
+                counter="forest_mark")
+    return mask
+
+
 def path_update(nodes: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor | None = None,
                 count: torch.Tensor | None = None, dense: int = -1) -> torch.Tensor:
     """Re-hash the ancestor paths of dirty leaves of one flat tree
@@ -237,48 +562,41 @@ def path_update(nodes: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor | Non
     sparse branch of an incremental update. Duplicate indices are allowed
     (with equal values); indices must lie in [0, 2^d).
 
-    CUDA tensors go through kernel K5, one cooperative launch; CPU tensors
-    through the plain version."""
+    CUDA tensors take two launches, ``mark_leaves`` into the stream's
+    scratch mask and the forest kernel over the marked leaves, which resets
+    the mask as it reads it; CPU tensors go through the plain version."""
     if nodes.device.type == "cpu":
         return path_update_ref(nodes, idx, vals, count, dense)
     _ext.check_cuda(nodes, torch.int32)
-    if nodes.dim() != 2 or tree_nodes(tree_depth(nodes.shape[0])) != nodes.shape[0]:
-        raise ValueError(f"expected [2^(d+1)-1, 8] nodes, got {tuple(nodes.shape)}")
-    _ext.check_cuda(idx, torch.int32)
-    cap = idx.shape[0]
-    if vals is not None:
-        _ext.check_cuda(vals, torch.int32, (cap, 8))
-    if count is not None:
-        _ext.check_cuda(count, torch.int32, (1,))
-    _ext.launch("merkle_inc", "merkle_path_update_launch", nodes.device, _ext.ptr(nodes),
-                tree_depth(nodes.shape[0]), _ext.ptr(idx), cap, _ext.ptr(vals), _ext.ptr(count),
-                int(dense))
+    n_leaves = (nodes.shape[0] + 1) // 2
+    tree = ForestTree(nodes, "mask", mask=_stream_scratch(nodes.device).leaf_mask(
+        n_leaves, nodes.device), clear=True)
+    _check_tree(tree)  # before the mark pass sets the scratch mask
+    _check_cuda_tree(tree)
+    mark_leaves(nodes, idx, vals, count, dense, out=tree.mask)
+    forest_update([tree])
     return nodes
 
 
 # -------------------------------------------------------------- forests --
 
 
-def apply_update(nodes: torch.Tensor, idx: torch.Tensor, count: torch.Tensor, dense_count: int,
-                 leaves_at=None, leaves_into=None, plain: bool = False) -> torch.Tensor:
-    """One tree's update from a compacted dirty set (``dirty_indices`` or
-    ``dirty_leaves``), in place, with the branch decided on the device:
-    the sparse path re-hash runs when the live ``count`` is at most
-    ``dense_count``, the dense rebuild when it is above. Both are launched;
-    each gated step returns at once when the branch is not its own.
+def apply_update_ref(nodes: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
+                     dense_count: int, leaves_at=None, leaves_into=None) -> torch.Tensor:
+    """One tree's update from a compacted dirty set (``dirty_indices_ref``
+    or ``dirty_leaves_ref``), in place, JAX's two branches in plain torch:
+    the sparse path re-hash when the live ``count`` is at most
+    ``dense_count``, the dense rebuild when it is above.
 
     ``leaves_at(idx, count, dense_count) -> int32[cap, 8]`` gives the new
     leaves at the dirty indices for the sparse branch, and
     ``leaves_into(rows, count, dense_count)`` writes every leaf for the
-    dense one; either is None when the compaction already wrote the leaf
-    rows. ``plain`` takes the plain versions of K5 and K6 on any device
-    (the reference path); otherwise they dispatch by device."""
-    update, levels = (path_update_ref, merkle_levels_ref) if plain else (path_update, merkle_levels)
+    dense one; either is None when the leaf rows already hold them."""
     vals = None if leaves_at is None else leaves_at(idx, count, dense_count)
-    update(nodes, idx, vals, count, dense_count)
+    path_update_ref(nodes, idx, vals, count, dense_count)
     if leaves_into is not None:
         leaves_into(nodes[:(nodes.shape[0] + 1) // 2], count, dense_count)
-    return levels(nodes, count, dense_count)
+    return merkle_levels_ref(nodes, count, dense_count)
 
 
 def apply_dirty(nodes: torch.Tensor, mask: torch.Tensor, leaf_fn, cap: int,
@@ -288,19 +606,25 @@ def apply_dirty(nodes: torch.Tensor, mask: torch.Tensor, leaf_fn, cap: int,
     ``leaf_fn(idx: int32[J]) -> int32[J, 8]`` gives the new leaf chunks at
     the given leaf indices (the SSZ zero chunk past the live leaves).
 
-    The mask is compacted (K5) and the update goes through
-    :func:`apply_update`, the step the resident epoch loop takes, so the
-    host never reads the count. The dense leaves are written with a
-    device-side select on the count."""
+    CUDA tensors go through the forest kernel in one launch, the new leaf
+    level from ``leaf_fn`` over every leaf and only the masked ones taken;
+    CPU tensors through the plain branches (K5's compaction's plain
+    version, then ``apply_update_ref``)."""
     n_leaves = (nodes.shape[0] + 1) // 2
-    idx, count = dirty_indices(mask, cap)
+    if nodes.device.type != "cpu":
+        rows = leaf_fn(torch.arange(n_leaves, dtype=torch.int32, device=nodes.device))
+        forest_update([ForestTree(nodes, "mask", mask=mask, rows=rows.contiguous(), cap=cap,
+                                  dense=dense_count)])
+        return nodes
+    idx, count = dirty_indices_ref(mask, cap)
 
     def leaves_into(rows, count, dense):
         new = leaf_fn(torch.arange(n_leaves, dtype=torch.int32, device=rows.device))
         rows.copy_(torch.where(count > dense, new, rows))
 
-    return apply_update(nodes, idx, count, dense_count,
-                        leaves_at=lambda idx, count, dense: leaf_fn(idx), leaves_into=leaves_into)
+    return apply_update_ref(nodes, idx, count, dense_count,
+                            leaves_at=lambda idx, count, dense: leaf_fn(idx),
+                            leaves_into=leaves_into)
 
 
 def build_forest(leaves: torch.Tensor, shards: int = 1) -> torch.Tensor:

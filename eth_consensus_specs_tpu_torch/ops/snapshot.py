@@ -15,11 +15,11 @@ package restores in the other:
   previous checkpoint intact;
 * a restore checks every digest and then refuses to serve unless the forest
   re-verifies: with ``verify="device"`` every tree's levels are rebuilt from
-  its leaves (kernel K6) and compared, and the state root recomputed from
+  its leaves (the forest kernel, every leaf dirty) and compared, and the state root recomputed from
   the forest must equal the manifest's; with ``verify="host"`` hashlib
   re-hashes the level chain instead.
 
-``scrub_forest`` re-hashes K salted subtrees of every tree (K6, batched)
+``scrub_forest`` re-hashes K salted subtrees of every tree (the forest kernel, batched)
 against the stored levels, plus the whole region above the subtree cut, in
 fresh buffers that never alias the forest; ``quarantine_rebuild`` rebuilds a
 tree's levels from its leaves in place (JAX donates the buffer).
@@ -388,7 +388,7 @@ def _host_verify_tree(name: str, host: np.ndarray, entry: dict) -> None:
 
 
 def _levels_exact(nodes: torch.Tensor) -> bool:
-    """Every internal level rebuilt from the leaf rows (K6, into a fresh
+    """Every internal level rebuilt from the leaf rows (the forest kernel, into a fresh
     buffer) equals the stored one."""
     leaves = (nodes.shape[-2] + 1) // 2
     return bool(torch.equal(merkle_inc.build_levels(nodes[:, :leaves]), nodes))
@@ -460,7 +460,7 @@ def _scrub_tree(nodes: torch.Tensor, sub_depth: int, sidx, pos):
     """Re-hash K subtrees of 2^sub_depth leaves of one forest tree (their
     shard indices ``sidx`` and positions ``pos``) and compare every level of
     each with the stored rows; rebuild the whole region above the subtree
-    cut and compare it. Both rebuilds (K6, the subtrees batched) go into
+    cut and compare it. Both rebuilds (the forest kernel, the subtrees batched) go into
     fresh buffers. Returns (bool[K] subtree mismatches, upper mismatch)."""
     m = nodes.shape[-2]
     dl = merkle_inc.tree_depth(m)
@@ -536,7 +536,7 @@ def scrub_forest(forest: StateForest, *, k: int = 8, salt: int = 0,
 
 def quarantine_rebuild(forest: StateForest, tree: str) -> StateForest:
     """Recompute every internal level of one tree from its resident leaves,
-    in place (kernel K6). A corrupted internal node heals; a corrupted leaf
+    in place (the forest kernel). A corrupted internal node heals; a corrupted leaf
     gives a consistent but wrong tree, which the caller's root check
     catches."""
     nodes = getattr(forest, tree)

@@ -15,12 +15,14 @@ field's root is a static chunk.
 
 The incremental path (``build_state_forest`` :731, ``post_epoch_state_root_inc``
 :805 and ``state_root_from_forest`` :894 there) keeps the three big subtrees
-resident as flat forests (``merkle_inc.py``) and re-hashes only the dirty
-paths: effective balances move only on hysteresis crossings, and the
-balance and score columns diff chunk by chunk (kernel K5); past the
-crossover a tree is rebuilt whole (K6, and K3 for the validator leaves).
-Both roots share the folds, mix-ins, small roots and top combine below, so
-they cannot disagree on the shared fields.
+resident as flat forests (``merkle_inc.py``) and re-hashes only the nodes
+above a dirty leaf: effective balances move only on hysteresis crossings
+(a dirty validator's leaf is K3's chain), and the balance and score columns
+diff chunk by chunk. On the card the three trees of an epoch are one
+launch of the forest kernel (``merkle_inc.forest_update``); the plain twin
+takes JAX's sparse or dense branch per tree. Both roots share the folds,
+mix-ins, small roots and top combine below, so they cannot disagree on the
+shared fields.
 
 The hashing goes through a ``Hashers`` bundle: ``KERNELS`` dispatches by
 device (CUDA kernels for CUDA tensors, plain torch for CPU tensors);
@@ -31,7 +33,6 @@ reference path (``post_epoch_state_root_ref``) uses on any device.
 from __future__ import annotations
 
 import hashlib
-from functools import partial
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -59,19 +60,18 @@ DYNAMIC_FIELDS = frozenset({
 
 
 class Hashers(NamedTuple):
-    """One implementation of every kernel the state roots use. Five serve
-    the incremental forest (K3's in-place and indexed entries, and
-    ``merkle_inc.py``); ``list_roots`` is K2's list-root entry
+    """One implementation of every kernel the state roots use. Three serve
+    the incremental forest: K3's in-place entry and ``merkle_levels`` build
+    it, ``forest_update`` (``merkle_inc.forest_update(trees) -> counts``)
+    updates it; ``list_roots`` is K2's list-root entry
     (``merkle.list_roots``, ``list_roots(trees, out, rows)``)."""
 
     sha256_pairs: Callable
     tree_root: Callable
     validator_leaves: Callable
     validator_leaves_into: Callable
-    validator_leaves_at: Callable
-    dirty_leaves: Callable
-    apply_update: Callable
     merkle_levels: Callable
+    forest_update: Callable
     list_roots: Callable
 
 
@@ -109,24 +109,18 @@ def zero_u8_list_root_words(n: int) -> np.ndarray:
     return _words_of(root)
 
 
-def _validator_chain_ref(eff, slashed_chunk, node_a, node_f) -> torch.Tensor:
-    h = sha256_pairs_ref
-    node_b = hash_rows(u64_chunk_words(eff), slashed_chunk, h)
-    node_e = hash_rows(node_a, node_b, h)
-    return hash_rows(node_e, node_f, h)
-
-
 def validator_leaves_ref(eff, slashed_chunk, node_a, node_f, depth: int) -> torch.Tensor:
     """Plain torch version of K3: the 2^depth validator-root leaf level
     (zero rows past N)."""
-    return pad_pow2(_validator_chain_ref(eff, slashed_chunk, node_a, node_f), depth)
+    return pad_pow2(merkle_inc.validator_chain_ref(eff, slashed_chunk, node_a, node_f), depth)
 
 
 def validator_leaves_into_ref(rows, eff, slashed_chunk, node_a, node_f, count=None, dense=0):
-    """Plain torch version of K3 writing into ``rows``."""
+    """Plain torch version of K3 writing into ``rows`` (the plain forest
+    update's dense branch)."""
     if not merkle_inc._gate_open(count, dense, sparse=False):
         return rows
-    rows[:eff.shape[0]] = _validator_chain_ref(eff, slashed_chunk, node_a, node_f)
+    rows[:eff.shape[0]] = merkle_inc.validator_chain_ref(eff, slashed_chunk, node_a, node_f)
     return rows
 
 
@@ -142,7 +136,8 @@ def validator_leaves_into(rows, eff, slashed_chunk, node_a, node_f, count=None, 
     """Write the validator roots H(H(A, H(eb_chunk, slashed)), F) of all N
     validators into rows 0..N-1 of ``rows`` (int32[>= N, 8]; the rows past N
     are left as they are). With ``count`` (int32[1]), only when
-    ``count > dense``: the dense branch of the incremental update.
+    ``count > dense``: the dense branch of JAX's incremental update (on the
+    card the forest kernel now computes the registry's leaves itself).
 
     CUDA tensors go through kernel K3; CPU tensors through the plain
     version."""
@@ -186,7 +181,7 @@ def validator_leaves_at_ref(eff, slashed_chunk, node_a, node_f, idx, count=None,
     i = idx[:live].to(torch.int64)
     ok = (i >= 0) & (i < eff.shape[0])
     i = torch.where(ok, i, torch.zeros_like(i))
-    leaf = _validator_chain_ref(eff[i], slashed_chunk[i], node_a[i], node_f[i])
+    leaf = merkle_inc.validator_chain_ref(eff[i], slashed_chunk[i], node_a[i], node_f[i])
     out[:live] = torch.where(ok[:, None], leaf, torch.zeros_like(leaf))
     return out
 
@@ -197,7 +192,9 @@ def validator_leaves_at(eff, slashed_chunk, node_a, node_f, idx, count=None,
     int32[cap, 8]; the SSZ zero chunk for an index outside [0, N). With
     ``count`` (int32[1]) only rows j < count are computed (the rest are
     zero), and with ``dense >= 0`` none when ``count > dense``: the sparse
-    branch of the incremental update.
+    branch of JAX's incremental update (``_validator_leaf_fn`` :721; on the
+    card the forest kernel now computes the registry's leaves itself, so no
+    path calls this entry).
 
     CUDA tensors go through K3's indexed entry; CPU tensors through the
     plain version."""
@@ -217,12 +214,9 @@ def validator_leaves_at(eff, slashed_chunk, node_a, node_f, idx, count=None,
 
 
 KERNELS = Hashers(sha256_pairs, tree_root, validator_leaves, validator_leaves_into,
-                  validator_leaves_at, merkle_inc.dirty_leaves, merkle_inc.apply_update,
-                  merkle_inc.merkle_levels, list_roots)
+                  merkle_inc.merkle_levels, merkle_inc.forest_update, list_roots)
 PLAIN = Hashers(sha256_pairs_ref, tree_root_ref, validator_leaves_ref, validator_leaves_into_ref,
-                validator_leaves_at_ref, merkle_inc.dirty_leaves_ref,
-                partial(merkle_inc.apply_update, plain=True), merkle_inc.merkle_levels_ref,
-                list_roots_ref)
+                merkle_inc.merkle_levels_ref, merkle_inc.forest_update_ref, list_roots_ref)
 
 
 def validator_list(arrays: StateRootArrays, n: int, eff, h: Hashers = KERNELS) -> ListTree:
@@ -468,8 +462,8 @@ def _u64_forest(vals, n: int, depth: int, h: Hashers) -> torch.Tensor:
 def build_state_forest(arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan, balances,
                        effective_balance, inactivity_scores, h: Hashers = KERNELS) -> StateForest:
     """One-time forest ingest: every validator root and all levels of the
-    three big trees (K3 into the leaf rows, K6), plus the static
-    previous-participation list root."""
+    three big trees (K3 into the leaf rows, then ``merkle_levels``), plus
+    the static previous-participation list root."""
     n = meta.n_validators
     val_nodes = torch.zeros((1, merkle_inc.tree_nodes(plan.depth_val), 8), dtype=torch.int32,
                             device=balances.device)
@@ -508,40 +502,25 @@ def state_root_inc_real_hashes(meta: StateRootMeta, plan: ForestPlan) -> int:
     return hashes + folds + mixes + 3 + (1 << meta.top_depth)
 
 
-def _update_u64_tree(h: Hashers, nodes, old_vals, vals, plan: ForestPlan) -> torch.Tensor:
-    """Chunk-wise diff of a u64 column into its forest tree: K5 compacts
-    the dirty chunks and writes their new leaves, then either K5 re-hashes
-    their paths or K6 rebuilds the tree, as the live count decides on the
-    device. Returns the live count."""
-    tree = nodes[0]
-    idx, count = h.dirty_leaves(old_vals, vals, 4, 1 << plan.depth_bal, plan.cap_bal, tree)
-    h.apply_update(tree, idx, count, plan.dense_bal)
-    return count
-
-
 def _update_forest(h: Hashers, arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan,
                    forest: StateForest, old_balances, old_effective_balance, old_inactivity_scores,
                    balances, effective_balance, inactivity_scores) -> list:
     """Apply one epoch's column changes to the forest in place, with no host
-    synchronisation: both branches of every tree are launched and the live
-    dirty count on the device picks one (``merkle_inc.apply_update``).
-    Returns the live counts (int32[1] each) of the trees updated."""
-    inputs = (effective_balance, arrays.slashed_chunk, arrays.val_node_a, arrays.val_node_f)
-    # validator registry: dirty = hysteresis crossings; the new leaves are
-    # K3's chain at the dirty rows (sparse) or at every row (dense), the SSZ
-    # zero chunk past the registry
-    idx, count = h.dirty_leaves(old_effective_balance, effective_balance, 1,
-                                1 << plan.depth_val, plan.cap_val)
-    h.apply_update(forest.val_nodes[0], idx, count, plan.dense_val,
-                   leaves_at=lambda idx, count, dense: h.validator_leaves_at(*inputs, idx, count,
-                                                                             dense),
-                   leaves_into=lambda rows, count, dense: h.validator_leaves_into(rows, *inputs,
-                                                                                  count, dense))
-    counts = [count, _update_u64_tree(h, forest.bal_nodes, old_balances, balances, plan)]
+    synchronisation: the registry (dirty = hysteresis crossings; a dirty
+    leaf is K3's chain of the new balance, the SSZ zero chunk past the
+    registry) and the balance and score trees (dirty = a changed chunk) in
+    one ``forest_update`` call. Returns the live dirty counts (int32[1]
+    each) of the trees updated."""
+    p = merkle_inc.ForestTree
+    trees = [p(forest.val_nodes[0], "registry", old_effective_balance, effective_balance,
+               static=(arrays.slashed_chunk, arrays.val_node_a, arrays.val_node_f),
+               cap=plan.cap_val, dense=plan.dense_val),
+             p(forest.bal_nodes[0], "u64", old_balances, balances, cap=plan.cap_bal,
+               dense=plan.dense_bal)]
     if plan.has_inact and forest.inact_nodes is not None:
-        counts.append(_update_u64_tree(h, forest.inact_nodes, old_inactivity_scores,
-                                       inactivity_scores, plan))
-    return counts
+        trees.append(p(forest.inact_nodes[0], "u64", old_inactivity_scores, inactivity_scores,
+                       cap=plan.cap_bal, dense=plan.dense_bal))
+    return h.forest_update(trees)
 
 
 def state_root_from_forest(arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan,
@@ -578,8 +557,8 @@ def post_epoch_state_root_inc(arrays: StateRootArrays, meta: StateRootMeta, plan
     """The post-epoch state root through the incremental forest: the
     columns' changes applied to the forest in place, then the root from
     the forest. Returns (forest, root), the root bit-identical to
-    ``post_epoch_state_root`` on the same columns. Kernels K1-K3, K5 and K6
-    on a CUDA device, their plain versions on the CPU."""
+    ``post_epoch_state_root`` on the same columns. Kernels K1, K2 and the
+    forest kernel on a CUDA device, their plain versions on the CPU."""
     _update_forest(h, arrays, meta, plan, forest, old_balances, old_effective_balance,
                    old_inactivity_scores, balances, effective_balance, inactivity_scores)
     return forest, state_root_from_forest(arrays, meta, plan, forest, just, h)

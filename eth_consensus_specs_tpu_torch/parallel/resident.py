@@ -181,7 +181,7 @@ def run_epochs(
       run updates in place and returns in ``carry.forest`` (JAX donates
       it; here the same tensors come back): chain from ``carry.forest``.
 
-    On a CUDA device every epoch runs kernels K1-K4 (and K5, K6 in the
+    On a CUDA device every epoch runs kernels K1-K4 (and the forest update in the
     incremental mode); on the CPU their plain versions."""
     return _run(altair_epoch_accounting, KERNELS, params, cols, just, n_epochs, with_root,
                 static, forest, device)

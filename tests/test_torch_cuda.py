@@ -129,7 +129,7 @@ def test_run_epochs_card_matches_cpu_and_counts_launches(cuda):
     assert counts["merkle_lists"] == 2 and counts["merkle"] == 2  # an epoch: the lists, the top
 
 
-# ------------------------------------------------ incremental forest (K5, K6) --
+# ------------------------------ incremental forest (the forest update, K5's compaction) --
 
 def _plain_levels(leaves):
     nodes = leaves.new_zeros((*leaves.shape[:-2], 2 * leaves.shape[-2] - 1, 8))
@@ -137,10 +137,12 @@ def _plain_levels(leaves):
     return tmi.merkle_levels_ref(nodes)
 
 
-@pytest.mark.parametrize("depth", [0, 1, 5, 9, 10, 14, 18])
+@pytest.mark.parametrize("depth", [0, 1, 5, 9, 10, 14, 18, 20])
 def test_merkle_levels_kernel(cuda, depth):
     leaves = _words(1 << depth, 8, depth)
+    _ext.reset_launches()
     got = tmi.build_levels(leaves.to(cuda)).cpu()
+    assert dict(_ext.launches) == {"forest_update": 1}  # one launch at any depth
     assert torch.equal(got, _plain_levels(leaves))
     if depth:
         assert torch.equal(got[-1], merkle.tree_root_ref(leaves, depth))
@@ -153,8 +155,10 @@ def test_merkle_levels_kernel_batched_and_gated(cuda):
     stale = full.clone()
     stale[64:] = 0
     count = torch.tensor([5], dtype=torch.int32, device=cuda)
+    _ext.reset_launches()
     assert torch.equal(tmi.merkle_levels(stale.clone(), count, 5), stale)
     assert torch.equal(tmi.merkle_levels(stale.clone(), count, 4), full)
+    assert dict(_ext.launches) == {"forest_update": 2}
 
 
 @pytest.mark.parametrize("n,cap,case", [
@@ -203,15 +207,18 @@ def test_path_update_kernel(cuda, depth):
     for count, dense in ((None, -1), (live, live), (live, live - 1)):
         c = None if count is None else torch.tensor([count], dtype=torch.int32)
         want = tmi.path_update_ref(nodes.clone(), idx_t, vals, c, dense)
+        _ext.reset_launches()
         got = tmi.path_update(nodes.clone().to(cuda), idx_t.to(cuda), vals.to(cuda),
                               None if c is None else c.to(cuda), dense)
         assert torch.equal(got.cpu(), want), (count, dense)
+        assert dict(_ext.launches) == {"forest_mark": 1, "forest_update": 1}
+        assert not tmi._stream_scratch(got.device).mask.any(), "the scratch mask was left set"
 
 
 @pytest.mark.parametrize("extra", [0, 1], ids=["sparse_at_dense_count", "dense_past_it"])
 def test_apply_dirty_on_card(cuda, extra):
-    """Both branches of one tree's update, decided on the card (K5's count
-    gating K5 and K6), equal to the plain version and to a rebuild."""
+    """Both of the plain version's branches, and the forest kernel's one
+    launch, equal to a rebuild."""
     depth, cap, dense_count = 12, 256, 200
     leaves = _words(1 << depth, 8, 20)
     new = leaves.clone()
@@ -227,6 +234,144 @@ def test_apply_dirty_on_card(cuda, extra):
                            dense_count)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(want, _plain_levels(new))
+
+
+# the dirty validators of each case on a 2^14 registry (leaf groups of 512)
+FOREST_CASES = {
+    "empty": [], "one_leaf": [5], "two_siblings": [4, 5], "left_only": [8], "right_only": [13],
+    "every_4th": list(range(0, 1 << 14, 4)), "every_leaf": list(range(1 << 14)),
+    "clean_group_between": [1, 1025],  # leaf group 1 (512-1023) clean
+}
+
+
+def _forest_world(cuda, n=1 << 14):
+    """A 2^14 registry's forest on the card (K3 and the rebuild), its static
+    tree and columns, and the plan's capacities."""
+    static = tsr.synthetic_static(n, seed=12, device=cuda)
+    cols, _ = example_altair_inputs(n, device=cuda)
+    forest, plan = resident.build_state_forest_device(static, cols, device=cuda)
+    return static[0], cols, forest, plan
+
+
+def _forest_trees(arrays, forest, plan, old, new, extra=()):
+    p = tmi.ForestTree
+    return [p(forest.val_nodes[0], "registry", old[1], new[1],
+              static=(arrays.slashed_chunk, arrays.val_node_a, arrays.val_node_f),
+              cap=plan.cap_val, dense=plan.dense_val),
+            p(forest.bal_nodes[0], "u64", old[0], new[0], cap=plan.cap_bal, dense=plan.dense_bal),
+            p(forest.inact_nodes[0], "u64", old[2], new[2], cap=plan.cap_bal, dense=plan.dense_bal),
+            *extra]
+
+
+def _moved(cols, ids, step):
+    bal, eff, scores = (t.clone() for t in (cols.balance, cols.effective_balance,
+                                            cols.inactivity_scores))
+    if ids:
+        i = torch.tensor(ids, device=bal.device)
+        eff[i] -= 10**9 * step
+        bal[i] += 17 * step
+        scores[i[::3]] += step
+    return bal, eff, scores
+
+
+@pytest.mark.parametrize("case", list(FOREST_CASES))
+def test_forest_update_kernel(cuda, case):
+    """The forest kernel against its plain twin on a 2^14 registry: the
+    registry, balance and score trees of an epoch, a mask tree and a batch
+    of two all-dirty trees in one table, then a second launch in a row over
+    new columns; every buffer and count equal, the counters clean."""
+    arrays, cols, forest, plan = _forest_world(cuda)
+    old = (cols.balance, cols.effective_balance, cols.inactivity_scores)
+    ids = FOREST_CASES[case]
+    leaves = _words(1 << 12, 8, 31).to(cuda)
+    mask_nodes = tmi.build_levels(leaves)
+    new_rows = leaves.clone()
+    mask = torch.zeros(1 << 12, dtype=torch.bool, device=cuda)
+    mask[[i for i in ids if i < 1 << 12]] = True
+    new_rows[mask] ^= 0x1234567
+    batch = tmi.build_levels(_words(3 * 1024, 8, 32).reshape(3, 1024, 8).to(cuda))
+    batch[:, 1024:] = 0
+    got_f, want_f = (type(forest)(*(None if t is None else t.clone() for t in forest))
+                     for _ in range(2))
+    got_x = [mask_nodes.clone(), batch.clone()]
+    want_x = [mask_nodes.clone(), batch.clone()]
+
+    def extra(x):
+        return (tmi.ForestTree(x[0], "mask", mask=mask, rows=new_rows, cap=plan.cap_val,
+                               dense=plan.dense_val), tmi.ForestTree(x[1], "all"))
+
+    for step in (1, 2):
+        new = _moved(cols, ids, step)
+        prev = old if step == 1 else _moved(cols, ids, 1)
+        _ext.reset_launches()
+        got = tmi.forest_update(_forest_trees(arrays, got_f, plan, prev, new, extra(got_x)))
+        assert dict(_ext.launches) == {"forest_update": 1}
+        want = tmi.forest_update_ref(_forest_trees(arrays, want_f, plan, prev, new, extra(want_x)))
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None) and (g is None or torch.equal(g, w))
+        for name in ("val_nodes", "bal_nodes", "inact_nodes"):
+            assert torch.equal(getattr(got_f, name), getattr(want_f, name)), (name, step)
+        for g, w in zip(got_x, want_x):
+            assert torch.equal(g, w), step
+    assert int(got[0]) == len(ids)
+    for scratch in tmi._scratch.values():
+        assert not scratch.counters.any(), "a counter or an accumulator was left set"
+
+
+def test_forest_update_repeated_launches_leave_scratch_clean(cuda):
+    """60 launches in a row on one stream, each a table of a u64 diff, a
+    mask, a batch of every leaf and a ragged u64 tree, at random dirty sets
+    from none to all, with a path update between them: every buffer and
+    count equal to the plain twin after each launch, and the counters,
+    accumulators and the scratch mask zero after each."""
+    rng = np.random.default_rng(15)
+    n_bal, n_ragged = 4 << 12, 4 * 700 + 3
+    bal = torch.from_numpy(rng.integers(0, 2**40, n_bal)).to(cuda)
+    ragged = torch.from_numpy(rng.integers(0, 2**40, n_ragged)).to(cuda)
+    u64_nodes = tmi.build_levels(tmi._u64_chunks(bal, 4, 1 << 12))
+    ragged_nodes = tmi.build_levels(tmi._u64_chunks(ragged, 4, 1 << 10))
+    mask_nodes = tmi.build_levels(_words(1 << 11, 8, 40).to(cuda))
+    path_nodes = tmi.build_levels(_words(1 << 13, 8, 41).to(cuda))
+    batch = tmi.build_levels(_words(2 * 512, 8, 42).reshape(2, 512, 8).to(cuda))
+    got = [u64_nodes, ragged_nodes, mask_nodes, batch, path_nodes]
+    want = [t.clone() for t in got]
+
+    def dirty(n, k):
+        return torch.from_numpy(rng.choice(n, k, replace=False)).to(cuda)
+
+    for step in range(60):
+        k = int(rng.choice([0, 1, 2, 7, 64, 300, 1 << 12]))
+        new_bal, new_ragged = bal.clone(), ragged.clone()
+        new_bal[dirty(n_bal, min(k, n_bal))] += step + 1
+        new_ragged[dirty(n_ragged, min(k, n_ragged))] ^= step + 1
+        mask = torch.zeros(1 << 11, dtype=torch.bool, device=cuda)
+        mask[dirty(1 << 11, min(k, 1 << 11))] = True
+        rows = _words(1 << 11, 8, 100 + step).to(cuda)
+        batch_leaves = _words(2 * 512, 8, 200 + step).reshape(2, 512, 8).to(cuda)
+
+        def table(x):
+            x[3][:, :512] = batch_leaves
+            return [tmi.ForestTree(x[0], "u64", bal, new_bal, cap=1024, dense=1024),
+                    tmi.ForestTree(x[1], "u64", ragged, new_ragged, cap=256, dense=256),
+                    tmi.ForestTree(x[2], "mask", mask=mask, rows=rows, cap=512, dense=512),
+                    tmi.ForestTree(x[3], "all")]
+
+        counts = tmi.forest_update(table(got))
+        want_counts = tmi.forest_update_ref(table(want))
+        for g, w in zip(counts, want_counts):
+            assert (g is None) == (w is None) and (g is None or torch.equal(g, w)), step
+        idx = dirty(1 << 13, min(k, 1 << 13)).to(torch.int32)
+        if k:
+            vals = _words(idx.shape[0], 8, 300 + step).to(cuda)
+            tmi.path_update(got[4], idx, vals)
+            tmi.path_update_ref(want[4], idx, vals)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (step, k, i)
+        for scratch in tmi._scratch.values():
+            assert not scratch.counters.any(), (step, k, "a counter or an accumulator left set")
+            assert scratch.mask is None or not scratch.mask.any(), (step, k, "a mask byte left")
+        bal, ragged = new_bal, new_ragged
 
 
 @pytest.mark.parametrize("n", [1, 1000, 1 << 16])
@@ -281,7 +426,9 @@ def test_state_inc_card_matches_plain_and_cpu(cuda, n, every):
     for name in ("val_nodes", "bal_nodes", "inact_nodes", "part_root"):
         assert torch.equal(getattr(got.forest, name).cpu(), getattr(cpu.forest, name)), name
     assert torch.equal(got.dirty.cpu(), cpu.dirty)
-    assert {"merkle_inc", "merkle_levels", "validator_leaves_at"} <= set(counts)
+    # the three trees of an epoch in one launch of the forest kernel
+    assert counts["forest_update"] == 2
+    assert not {"merkle_inc", "validator_leaves_at", "forest_mark"} & set(counts)
 
 
 def test_checkpoint_restore_and_scrub_on_card(cuda, tmp_path):
