@@ -19,7 +19,9 @@ Phases, each printing one JSON line:
    trees, at ``dirty_registry``'s 4,096 crossings and on all-dirty trees of
    2^18 and 2^20 leaves (one launch a call, its dirty parents, bytes and
    chain), and as the path update of 4,072 paths at depth 20; K5's
-   compaction beside ``torch.nonzero_static`` on the same mask. K2 at the 2^20 registry tree and at the slot
+   compaction beside ``torch.nonzero_static`` on the same mask, each by
+   events and traced; K4 at one launch a call, with its SASS a validator.
+   K2 at the 2^20 registry tree and at the slot
    root's batch (the balances as 2^20 u64, both participation lists as 2^20
    bytes, folded and length-mixed), with its launches a call and its chain
    of dependent pair hashes (``serial_bound_ms``). Median times with CUDA
@@ -292,7 +294,7 @@ def max_abs_err(a, b) -> int:
     return 0
 
 
-def check_kernels(dev):
+def check_kernels(dev, k4_sass: dict):
     """Phase 3: each kernel against its plain version at the main path's shapes."""
     import numpy as np
     import torch
@@ -428,14 +430,20 @@ def check_kernels(dev):
     col_bytes = sum(t.element_size() * t.numel() for t in cols if t is not None)
     out_bytes = 3 * 8 * n
     b_ms, b_by = bound(col_bytes + out_bytes, other_ops=n * OPS_EPOCH_PER_VALIDATOR)
+    call = lambda: altair_epoch.altair_epoch_accounting(params, cols, just)  # noqa: E731
+    _ext.reset_launches()
+    call()
+    k4_launches = dict(_ext.launches)
+    if k4_launches != {"altair_epoch": 1}:
+        raise RuntimeError(f"K4 launched {k4_launches} for one epoch")
     rows.append(dict(
         name="altair_epoch", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/altair_epoch.cu",
         replaces="eth_consensus_specs_tpu/ops/altair_epoch.py:142", shape=[n], max_abs_err=err,
-        ms=cuda_ms(lambda: altair_epoch.altair_epoch_accounting(params, cols, just), inner=INNER),
-        device_ms=device_ms(lambda: altair_epoch.altair_epoch_accounting(params, cols, just),
-                            ("epoch_sums_kernel", "epoch_apply_kernel")),
+        ms=cuda_ms(call, inner=INNER), device_ms=device_ms(call, ("altair_epoch_kernel",)),
         plain_ms=cuda_ms(lambda: altair_epoch.altair_epoch_accounting_ref(params, cols, just), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, work_validators=n,
+        launches_a_call=k4_launches["altair_epoch"],
+        sass_per_validator=k4_sass.get("per_validator"), sass=k4_sass,
         corners_checked=[f"{fork}:{case}" for fork in ("electra", "deneb") for case in ALTAIR_CORNERS],
     ))
     return rows
@@ -757,15 +765,25 @@ def check_forest_kernels(dev):
         max_abs_err(g, w)
     c_ms, c_by = bound(n + 4 * cap + 4)
     d_ms, _ = bound(2 * 8 * n + 4 * cap + 4)
+    compact = lambda: merkle_inc.dirty_indices(mask, cap)  # noqa: E731
+    diff = lambda: merkle_inc.dirty_leaves(old_eff, new_eff, 1, n, cap)  # noqa: E731
+    _ext.reset_launches()
+    compact()
+    diff()
+    if dict(_ext.launches) != {"merkle_inc": 2}:
+        raise RuntimeError(f"K5's compaction launched {dict(_ext.launches)} for two calls")
     rows.append(dict(
         name="merkle_inc", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/merkle_inc.cu",
         replaces="eth_consensus_specs_tpu/ops/merkle_inc.py:125", shape=[n, cap], max_abs_err=err,
-        ms=cuda_ms(lambda: merkle_inc.dirty_indices(mask, cap), inner=INNER),
+        # the kernel and the library call in turns, each by events and traced
+        ms=cuda_ms(compact, inner=INNER), library_ms=cuda_ms(library, inner=INNER),
+        device_ms=device_ms(compact, ("void dirty_compact_kernel",)),
+        library_device_ms=device_total_ms(library),
         plain_ms=cuda_ms(lambda: merkle_inc.dirty_indices_ref(mask, cap), 3),
-        bound_ms=c_ms, bound_by=c_by, library_ms=cuda_ms(library, inner=INNER),
+        bound_ms=c_ms, bound_by=c_by, launches_a_call=1,
         library_call="torch.nonzero_static(mask, size=4096, fill_value=0)",
-        diff=dict(ms=cuda_ms(lambda: merkle_inc.dirty_leaves(old_eff, new_eff, 1, n, cap),
-                             inner=INNER),
+        diff=dict(ms=cuda_ms(diff, inner=INNER),
+                  device_ms=device_ms(diff, ("void dirty_compact_kernel",)),
                   plain_ms=cuda_ms(lambda: merkle_inc.dirty_leaves_ref(old_eff, new_eff, 1, n,
                                                                         cap), 3),
                   bound_ms=d_ms, bound_by="bytes"),
@@ -863,6 +881,12 @@ def device_ms(fn, prefixes: tuple) -> float:
             return sum(mine)
     raise RuntimeError(f"the trace holds no kernel named {prefixes} (it holds {sorted(per)[:8]}; "
                        f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved)")
+
+
+def device_total_ms(fn) -> float:
+    """Device milliseconds of one fn() in every kernel it runs (a library
+    call's, whatever their names), from torch.profiler over INNER calls."""
+    return sum(per_call_ms(device_profile(lambda: [fn() for _ in range(INNER)]), INNER).values())
 
 
 def run_main_path(dev) -> tuple[dict, dict]:
@@ -1139,7 +1163,7 @@ def run_dirty_registry(dev) -> tuple[dict, dict]:
                                   else None),
         # the trace is whole when it holds every launch of the epoch
         first_epoch_traced_launches={k: traced.get(k, 0) for k in (
-            "epoch_sums_kernel", "epoch_apply_kernel", "forest_update_kernel")},
+            "altair_epoch_kernel", "forest_update_kernel")},
         device_top_kernels=prof["top"], root_acc_equal_state=True,
     )
     return summary, launches
@@ -2626,9 +2650,8 @@ def random_fr_words(gen, shape, dev):
     return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
-def fr_mul_sass_count() -> float:
-    """SASS instructions of one Fr product as this run's toolkit compiles
-    ``csrc/fr.cuh`` (``tools/fq_mul_sass.py``'s ``fr_mul_sass``)."""
+def _sass_tool():
+    """``tools/fq_mul_sass.py`` of this checkout."""
     import importlib.util
 
     from pathlib import Path
@@ -2637,7 +2660,20 @@ def fr_mul_sass_count() -> float:
         "fq_mul_sass", Path(__file__).resolve().parent / "tools" / "fq_mul_sass.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.fr_mul_sass()
+    return mod
+
+
+def fr_mul_sass_count() -> float:
+    """SASS instructions of one Fr product as this run's toolkit compiles
+    ``csrc/fr.cuh`` (``tools/fq_mul_sass.py``'s ``fr_mul_sass``)."""
+    return _sass_tool().fr_mul_sass()
+
+
+def k4_sass_count() -> dict:
+    """K4's SASS a validator and its subroutine calls as this run's toolkit
+    compiles ``csrc/altair_epoch.cu`` (``tools/fq_mul_sass.py``'s
+    ``altair_epoch_sass``)."""
+    return _sass_tool().altair_epoch_sass()
 
 
 def check_kzg_kernels(dev, fr_sass: float):
@@ -3876,15 +3912,16 @@ def _run() -> int:
 
     t0 = time.perf_counter()
     _ext.write_generated()  # before the thread below, which reads the headers too
-    with ThreadPoolExecutor(1) as pool:  # K16's product counted beside the kernels' build
+    with ThreadPoolExecutor(1) as pool:  # K16's product and K4 counted beside the kernels' build
         fr_sass = pool.submit(fr_mul_sass_count)
+        k4_sass = pool.submit(k4_sass_count)
         report = _ext.build()
-        fr_sass = fr_sass.result()
+        fr_sass, k4_sass = fr_sass.result(), k4_sass.result()
     emit(dict(phase="build", seconds=time.perf_counter() - t0, kernels=report,
-              fr_mul_sass=fr_sass))
+              fr_mul_sass=fr_sass, k4_sass=k4_sass))
 
     t0 = time.perf_counter()
-    rows = (check_kernels(dev) + check_forest_kernels(dev) + check_slice3_kernels(dev)
+    rows = (check_kernels(dev, k4_sass) + check_forest_kernels(dev) + check_slice3_kernels(dev)
             + check_bls_kernels(dev) + check_g2_kernels(dev) + check_kzg_kernels(dev, fr_sass)
             + check_slot_kernels(dev) + check_block_epoch_kernels(dev))
     emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,

@@ -56,10 +56,11 @@ SIGNATURES = {
         "validator_leaves_launch": [_P, _P, _P, _P, _P, _I64, _P, _I32],
         "validator_leaves_at_launch": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
     },
-    "altair_epoch": {"epoch_sums_launch": [_P], "epoch_apply_launch": [_P]},
+    "altair_epoch": {"altair_epoch_launch": [_P]},
     "forest_update": {"forest_update_launch": [_P, _I32, _P, _P, _I64],
                       "forest_mark_launch": [_P, _I64, _P, _I32, _P, _P, _I32, _P]},
-    "merkle_inc": {"merkle_dirty_launch": [_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P, _I32]},
+    "merkle_inc": {"merkle_dirty_launch": [_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P, _I64,
+                                           _I64]},
     "shuffle": {"shuffle_rounds_launch": [_P, _P, _P, _I64, _I32, _I64]},
     "state_columns": {
         "phase0_sums_launch": [_P], "phase0_proposer_launch": [_P], "phase0_apply_launch": [_P],
@@ -196,8 +197,14 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def device_index(device: torch.device) -> int:
+    return torch._C._cuda_getDevice() if device.index is None else device.index
+
+
+def stream(device: torch.device) -> int:
+    """The address of ``device``'s current CUDA stream, looked up raw: a
+    ``torch.cuda.Stream`` object costs more host time than a launch."""
+    return torch._C._cuda_getCurrentRawStream(device_index(device))
 
 
 def launch(kernel: str, fn: str, device: torch.device, *args, counter: str | None = None) -> None:
@@ -205,16 +212,22 @@ def launch(kernel: str, fn: str, device: torch.device, *args, counter: str | Non
     current stream (the stream is appended to ``args``) and count one
     launch of ``kernel`` (or of ``counter``, for a second kernel that shares
     a library). Raises ``RuntimeError`` if the launch failed."""
-    so = lib(kernel)
-    events = timing
-    with torch.cuda.device(device):
-        if events is not None:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-        code = getattr(so, fn)(*args, stream(device))
-        if events is not None:
-            end.record()
-            events.append((counter or kernel, start, end))
+    so = _libs.get(kernel) or lib(kernel)
+    current = torch._C._cuda_getDevice()
+    idx = current if device.index is None else device.index
+    if idx == current and timing is None:  # the common case, at the least host time
+        code = getattr(so, fn)(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            events = timing
+            if events is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            code = getattr(so, fn)(*args, torch._C._cuda_getCurrentRawStream(idx))
+            if events is not None:
+                end.record()
+                events.append((counter or kernel, start, end))
     if code != 0:
         raise RuntimeError(
             f"{kernel}.{fn} launch failed: {so.kernel_error_string(code).decode()}"

@@ -12,6 +12,7 @@ per-validator ``max_effective_balance`` column.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -159,30 +160,81 @@ def altair_epoch_accounting_ref(
     )
 
 
+U64 = (1 << 64) - 1
+
+
+def divisor_magic(d: int) -> tuple[int, int, int]:
+    """The reciprocal by which kernel K4 divides by the invariant divisor
+    ``d`` >= 1 (``csrc/altair_epoch.cu`` ``Divisor``): ``(magic, sh1, sh2)``
+    with l = ceil(log2 d), magic = floor(2^64 (2^l - d) / d) + 1 (the low 64
+    bits of a 65-bit reciprocal), sh1 = min(l, 1), sh2 = max(l - 1, 0): for
+    a u64 n, n // d = (t + ((n - t) >> sh1)) >> sh2 with t = (magic * n) >> 64."""
+    if not 1 <= d <= U64:
+        raise ValueError(f"divisor {d} outside [1, 2^64)")
+    l = (d - 1).bit_length()
+    return (((1 << l) - d) << 64) // d + 1, min(l, 1), max(l - 1, 0)
+
+
+class _Divisor(ctypes.Structure):
+    _fields_ = [("magic", ctypes.c_uint64), ("sh1", ctypes.c_uint32), ("sh2", ctypes.c_uint32)]
+
+
 class _EpochArgs(ctypes.Structure):
     """Mirror of ``struct EpochArgs`` in ``csrc/altair_epoch.cu``: every
-    field is 8 bytes, so the two layouts agree without padding."""
+    field is 8 bytes or a 16-byte ``Divisor``, so the two layouts agree
+    without padding."""
 
     _fields_ = [
         (name, ctypes.c_uint64)
         for name in (
-            "incr", "base_reward_factor", "w0", "w1", "w2", "weight_denominator",
-            "head_flag_index", "min_epochs_to_inactivity_penalty", "inactivity_score_bias",
-            "inactivity_score_recovery_rate", "inactivity_penalty_quotient",
-            "proportional_slashing_multiplier", "epochs_per_slashings_vector",
-            "hysteresis_quotient", "hysteresis_downward_multiplier",
-            "hysteresis_upward_multiplier", "max_effective_balance", "electra_slashing",
+            "incr", "base_reward_factor", "w0", "w1", "w2", "head_flag_index",
+            "min_epochs_to_inactivity_penalty", "inactivity_score_bias",
+            "inactivity_score_recovery_rate", "proportional_slashing_multiplier",
+            "half_slashings_vector", "hysteresis_down", "hysteresis_up", "max_effective_balance",
+            "electra_slashing", "weight_denominator",
         )
-    ] + [("n", ctypes.c_int64)] + [
+    ] + [(name, _Divisor) for name in ("d_incr", "d_wden", "d_inactivity")] + [
+        ("n", ctypes.c_int64)
+    ] + [
         (name, ctypes.c_void_p)
         for name in (
             "eff", "bal", "slashed", "act", "exit", "wd", "prev_flags", "cur_tgt", "scores",
             "max_eb", "cur_epoch", "bits", "prev_je", "prev_jr", "cur_je", "cur_jr", "fin_e",
-            "fin_r", "block_root_prev", "block_root_cur", "slashings_sum", "sums",
+            "fin_r", "block_root_prev", "block_root_cur", "slashings_sum", "scratch",
             "out_bal", "out_eff", "out_scores", "out_bits", "out_prev_je", "out_prev_jr",
             "out_cur_je", "out_cur_jr", "out_fin_e", "out_fin_r",
         )
     ]
+
+
+@functools.cache
+def _constants(p: AltairEpochParams) -> tuple:
+    """The kernel's epoch-independent fields of ``p``, in struct order."""
+    incr = p.effective_balance_increment
+    hyst = incr // p.hysteresis_quotient
+    w0, w1, w2 = p.weights
+    return (
+        incr, p.base_reward_factor, w0, w1, w2, p.timely_head_flag_index,
+        p.min_epochs_to_inactivity_penalty, p.inactivity_score_bias,
+        p.inactivity_score_recovery_rate, p.proportional_slashing_multiplier,
+        p.epochs_per_slashings_vector // 2, hyst * p.hysteresis_downward_multiplier & U64,
+        hyst * p.hysteresis_upward_multiplier & U64, p.max_effective_balance,
+        int(p.electra_slashing), p.weight_denominator,
+        _Divisor(*divisor_magic(incr)), _Divisor(*divisor_magic(p.weight_denominator)),
+        _Divisor(*divisor_magic(p.inactivity_score_bias * p.inactivity_penalty_quotient & U64)),
+    )
+
+
+_scratch: dict[tuple, torch.Tensor] = {}  # by (device, stream)
+
+
+def _stream_scratch(dev: torch.device) -> torch.Tensor:
+    """K4's five sums and arrival counter on one stream of one card: zero
+    between launches (the last block of each launch resets them)."""
+    key = (_ext.device_index(dev), _ext.stream(dev))
+    if key not in _scratch:
+        _scratch[key] = torch.zeros(8, dtype=torch.int64, device=dev)
+    return _scratch[key]
 
 
 _COLUMN_DTYPES = {
@@ -197,9 +249,8 @@ _COLUMN_DTYPES = {
 def altair_epoch_accounting(
     params: AltairEpochParams, cols: AltairEpochColumns, just: JustificationState
 ) -> AltairEpochResult:
-    """One accounting epoch. CUDA columns go through kernel K4 (two
-    launches: the five sums, then the per-validator pass); CPU columns
-    through the plain version."""
+    """One accounting epoch. CUDA columns go through kernel K4 (one
+    cooperative launch); CPU columns through the plain version."""
     if cols.balance.device.type == "cpu":
         return altair_epoch_accounting_ref(params, cols, just)
     p = params
@@ -217,26 +268,15 @@ def altair_epoch_accounting(
         torch.empty_like(cols.balance), torch.empty_like(cols.effective_balance),
         torch.empty_like(cols.inactivity_scores), *empty_justification(dev),
     )
-    sums = torch.zeros(5, dtype=torch.int64, device=dev)
-    w0, w1, w2 = p.weights
+    columns = [getattr(cols, name) for name in _COLUMN_DTYPES]
 
     def addr(t):
         return None if t is None else t.data_ptr()
 
     args = _EpochArgs(
-        p.effective_balance_increment, p.base_reward_factor, w0, w1, w2, p.weight_denominator,
-        p.timely_head_flag_index, p.min_epochs_to_inactivity_penalty, p.inactivity_score_bias,
-        p.inactivity_score_recovery_rate, p.inactivity_penalty_quotient,
-        p.proportional_slashing_multiplier, p.epochs_per_slashings_vector,
-        p.hysteresis_quotient, p.hysteresis_downward_multiplier,
-        p.hysteresis_upward_multiplier, p.max_effective_balance, int(p.electra_slashing),
-        n,
-        *(addr(getattr(cols, name)) for name in _COLUMN_DTYPES),
+        *_constants(p), n, *(addr(t) for t in columns),
         *(addr(getattr(just, name)) for name in JUST_DTYPES),
-        addr(sums),
-        *(addr(t) for t in out),
+        addr(_stream_scratch(dev)), *(addr(t) for t in out),
     )
-    argp = ctypes.byref(args)
-    _ext.launch("altair_epoch", "epoch_sums_launch", dev, argp)
-    _ext.launch("altair_epoch", "epoch_apply_launch", dev, argp)
+    _ext.launch("altair_epoch", "altair_epoch_launch", dev, ctypes.byref(args))
     return out

@@ -48,7 +48,10 @@ from .sha256 import hash_rows, sha256_pairs_ref
 
 MAX_TREES = 8  # entries of one forest_update table (csrc/forest_update.cu kMaxTrees)
 KINDS = {"u64": 0, "registry": 1, "mask": 2, "all": 3}
-_COMPACT_SCRATCH = 4096  # K5 compaction: one int per cooperative block, at most
+# K5's compaction (csrc/merkle_inc.cu): a tile is 256 threads of 16 values (mask bytes, or
+# u64 of each column), its status words carry generations in [1, 2^30)
+COMPACT_THREADS, COMPACT_VALUES = 256, 16
+COMPACT_GENERATIONS = 1 << 30
 
 # csrc/forest_update.cu's ForestTree, field for field
 FOREST_TREE_DTYPE = np.dtype([
@@ -271,18 +274,35 @@ class _Scratch:
     group counters and accumulators, zero between launches (each launch's
     finishers reset what they complete), its child flags, written before
     they are read, and ``path_update``'s leaf mask, zero between calls (the
-    mark pass sets it, the forest kernel resets what it reads). Launches on
-    two streams would overlap, so each stream has a scratch of its own."""
+    mark pass sets it, the forest kernel resets what it reads); and K5's
+    compaction's ticket counter and tile status words. Launches on two
+    streams would overlap, so each stream has a scratch of its own."""
 
     def __init__(self):
         self.counters = None
         self.flags = None
         self.mask = None
+        self.status = None
+        self.gen = 0
 
     def leaf_mask(self, n_leaves: int, dev: torch.device) -> torch.Tensor:
         if self.mask is None or self.mask.shape[0] < n_leaves:
             self.mask = torch.zeros(n_leaves, dtype=torch.uint8, device=dev)
         return self.mask[:n_leaves]
+
+    def compact_status(self, words: int, dev: torch.device):
+        """K5's compaction scratch of at least ``words`` u64 words (the
+        ticket counter, zero between launches, then a status word a tile)
+        and this call's generation. Status words are never reset: each call
+        tags them with a new generation, and the array is zeroed only when
+        the generations wrap."""
+        if self.status is None or self.status.shape[0] < words:
+            self.status = torch.zeros(max(words, 1 << 10), dtype=torch.int64, device=dev)
+        self.gen += 1
+        if self.gen >= COMPACT_GENERATIONS:
+            self.status.zero_()
+            self.gen = 1
+        return self.status, self.gen
 
     def get(self, counters: int, flags: int, dev: torch.device):
         if self.counters is None or self.counters.shape[0] < counters:
@@ -296,8 +316,11 @@ _scratch: dict[tuple, _Scratch] = {}  # by (device, stream)
 
 
 def _stream_scratch(dev: torch.device) -> _Scratch:
-    key = (str(dev), torch.cuda.current_stream(dev).cuda_stream)
-    return _scratch.setdefault(key, _Scratch())
+    key = (_ext.device_index(dev), _ext.stream(dev))
+    scratch = _scratch.get(key)
+    if scratch is None:
+        scratch = _scratch[key] = _Scratch()
+    return scratch
 
 
 def _check_cuda_tree(t: ForestTree) -> None:
@@ -429,14 +452,24 @@ def dirty_leaves_ref(old, new, per: int, n_leaves: int, cap: int, leaf_rows=None
     return dirty_indices_ref(mask, cap)
 
 
+def compact_tile_leaves(per: int, mask: bool) -> int:
+    """Leaves of one tile of K5's compaction: 4,096 of a mask, 4,096 // per
+    values' worth of a diff (16 // per leaves a thread)."""
+    return COMPACT_THREADS * (COMPACT_VALUES if mask else COMPACT_VALUES // per)
+
+
 def _compact(dev, mask, old, new, n_items: int, per: int, leaf_rows, n_leaves: int, cap: int):
-    idx = torch.empty(cap, dtype=torch.int32, device=dev)
-    count = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(_COMPACT_SCRATCH, dtype=torch.int32, device=dev)
-    _ext.launch("merkle_inc", "merkle_dirty_launch", dev, _ext.ptr(mask), _ext.ptr(old),
-                _ext.ptr(new), n_items, per, _ext.ptr(leaf_rows), n_leaves, cap, _ext.ptr(idx),
-                _ext.ptr(count), _ext.ptr(scratch), _COMPACT_SCRATCH)
-    return idx, count
+    # one allocation: the indices, then the count (the wrapper's host time
+    # is most of a call: addresses go to the launch as plain ints)
+    out = torch.empty(cap + 1, dtype=torch.int32, device=dev)
+    tile = compact_tile_leaves(per, mask is not None)
+    status, gen = _stream_scratch(dev).compact_status(1 + -(-n_leaves // tile), dev)
+    addr = out.data_ptr()
+    _ext.launch("merkle_inc", "merkle_dirty_launch", dev, *(
+        None if t is None else t.data_ptr() for t in (mask, old, new)), n_items, per,
+        None if leaf_rows is None else leaf_rows.data_ptr(), n_leaves, cap, addr, addr + 4 * cap,
+        status.data_ptr(), status.shape[0], gen)
+    return out.split_with_sizes((cap, 1))
 
 
 def dirty_indices(mask: torch.Tensor, cap: int):
@@ -447,12 +480,14 @@ def dirty_indices(mask: torch.Tensor, cap: int):
     CUDA tensors go through kernel K5's compaction; CPU tensors through the
     plain version. (JAX's ``dirty_indices`` returns the indices alone.) No
     path of the port compacts since the forest update."""
-    if mask.device.type == "cpu":
+    dev = mask.device
+    if dev.type == "cpu":
         return dirty_indices_ref(mask, cap)
     _ext.check_cuda(mask, torch.bool)
     if mask.dim() != 1 or cap < 1:
         raise ValueError(f"expected a 1-d mask and cap >= 1, got {tuple(mask.shape)}, {cap}")
-    return _compact(mask.device, mask, None, None, mask.shape[0], 1, None, mask.shape[0], cap)
+    n = mask.shape[0]
+    return _compact(dev, mask, None, None, n, 1, None, n, cap)
 
 
 def dirty_leaves(old: torch.Tensor, new: torch.Tensor, per: int, n_leaves: int, cap: int,

@@ -107,6 +107,51 @@ def test_altair_epoch_kernel_corners(cuda, fork, case):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
+def _assert_epoch_equal(params, cols, just):
+    _ext.reset_launches()
+    got = tae.altair_epoch_accounting(params, cols, just)
+    assert dict(_ext.launches) == {"altair_epoch": 1}
+    want = tae.altair_epoch_accounting_ref(params, cols, just)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("fork", ["deneb", "electra"])
+def test_altair_epoch_kernel_past_the_grid(cuda, fork):
+    """More validators than the cooperative grid keeps in registers (8 a
+    thread): the excess is swept and applied one a thread, re-read."""
+    params = epoch_params(fork, "mainnet")
+    _assert_epoch_equal(params, *altair_corner_inputs("far_future_wide", 3 << 20,
+                                                      electra=fork == "electra", device=cuda))
+
+
+@pytest.mark.parametrize("fork", ["deneb", "electra"])
+def test_altair_epoch_kernel_unaligned_columns(cuda, fork):
+    """Columns that start 8 bytes (one validator) into their storage."""
+    params = epoch_params(fork, "mainnet")
+    cols, just = example_altair_inputs(4097, electra=fork == "electra", device=cuda)
+    cols = cols._replace(**{k: v[1:] for k, v in cols._asdict().items() if v is not None})
+    assert cols.balance.data_ptr() % 16 == 8
+    _assert_epoch_equal(params, cols, just)
+
+
+def test_altair_epoch_repeated_launches_leave_scratch_clean(cuda):
+    """60 launches alternating forks, corners and sizes (one block, many, a
+    ragged last run): each equal to the plain version in one launch, and the
+    sums and the arrival counter read zero after each."""
+    cases = [(fork, case) for case in ("example",) + ALTAIR_CORNERS
+             for fork in ("deneb", "electra")]
+    for i in range(60):
+        fork, case = cases[i % len(cases)]
+        n = (1000, (1 << 16) + 3, 64)[i % 3]
+        electra = fork == "electra"
+        cols, just = (example_altair_inputs(n, electra=electra, device=cuda) if case == "example"
+                      else altair_corner_inputs(case, n, electra=electra, device=cuda))
+        _assert_epoch_equal(epoch_params(fork, "mainnet"), cols, just)
+        scratch = tae._stream_scratch(cols.balance.device)
+        assert not scratch.any(), f"launch {i} left its scratch set"
+
+
 def test_state_root_kernel_path(cuda):
     arrays, meta = tsr.synthetic_static(1000, seed=4, device=cuda)
     cols, just = example_altair_inputs(1000, device=cuda)
@@ -125,7 +170,7 @@ def test_run_epochs_card_matches_cpu_and_counts_launches(cuda):
     assert torch.equal(got.root_acc.cpu(), want.root_acc)
     assert torch.equal(got.cols.balance.cpu(), want.cols.balance)
     assert set(counts) == {"sha256", "merkle", "merkle_lists", "validator_leaves", "altair_epoch"}
-    assert counts["altair_epoch"] == 4 and counts["validator_leaves"] == 2
+    assert counts["altair_epoch"] == 2 and counts["validator_leaves"] == 2  # one launch an epoch
     assert counts["merkle_lists"] == 2 and counts["merkle"] == 2  # an epoch: the lists, the top
 
 
@@ -192,6 +237,62 @@ def test_dirty_leaves_kernel(cuda, n, per):
         assert torch.equal(g.cpu(), w)
     if rows is not None:
         assert torch.equal(got_rows.cpu(), rows)
+
+
+def _status_words(dev, n_leaves, per, mask):
+    """The compaction's ticket counter and the status words of its last
+    call's tiles, as unsigned ints, with the generation of that call."""
+    scr = tmi._stream_scratch(dev)
+    tiles = -(-n_leaves // tmi.compact_tile_leaves(per, mask))
+    words = [int(w) & ((1 << 64) - 1) for w in scr.status[:1 + tiles].cpu()]
+    return words[0], words[1:], scr.gen
+
+
+def test_compaction_repeated_launches_keep_status_tagged(cuda, monkeypatch):
+    """60 compactions of masks and diffs (per 1 and per 4 with leaf rows) of
+    varying sizes on one status array, never reset, across a wrap of the
+    generations: each equal to the plain version, the ticket counter zero
+    after each, and each tile's word tagged with the call's generation and
+    its inclusive prefix of dirty leaves."""
+    rng = np.random.default_rng(16)
+    for i in range(60):
+        if i == 30:  # the generations wrap two calls on: the array is zeroed once
+            scr = tmi._stream_scratch(torch.device("cuda", torch.cuda.current_device()))
+            monkeypatch.setattr(tmi, "COMPACT_GENERATIONS", scr.gen + 3)
+        form = i % 3
+        n = int(rng.choice([1000, 4096, (1 << 16) + 5, (1 << 18) + 77]))
+        cap = int(rng.choice([64, 1024, 4096]))
+        rate = float(rng.choice([0.0, 0.001, 0.05, 1.0]))
+        if form == 0:
+            mask = torch.from_numpy(rng.random(n) < rate)
+            got = tmi.dirty_indices(mask.to(cuda), cap)
+            want = tmi.dirty_indices_ref(mask, cap)
+            per, n_leaves, leaf_dirty = 1, n, mask
+        else:
+            per = 1 if form == 1 else 4
+            old = torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, n, dtype=np.int64))
+            new = torch.where(torch.from_numpy(rng.random(n) < rate), old ^ (1 << 40), old)
+            n_leaves = 1 << max(-(-n // per) - 1, 0).bit_length()
+            rows = _words(n_leaves, 8, i) if per == 4 else None
+            got_rows = None if rows is None else rows.to(cuda)
+            got = tmi.dirty_leaves(old.to(cuda), new.to(cuda), per, n_leaves, cap, got_rows)
+            want = tmi.dirty_leaves_ref(old, new, per, n_leaves, cap, rows)
+            if rows is not None:
+                assert torch.equal(got_rows.cpu(), rows), i
+            diff = torch.cat([old != new, torch.zeros(n_leaves * per - n, dtype=torch.bool)])
+            leaf_dirty = diff.reshape(n_leaves, per).any(dim=1)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), i
+        ticket, words, gen = _status_words(got[0].device, n_leaves, per, form == 0)
+        assert ticket == 0, f"call {i} left the ticket counter at {ticket}"
+        tile = tmi.compact_tile_leaves(per, form == 0)
+        counts = torch.nn.functional.pad(leaf_dirty.to(torch.int64),
+                                         (0, len(words) * tile - n_leaves))
+        prefix = torch.cumsum(counts.reshape(len(words), tile).sum(dim=1), 0).tolist()
+        assert [w >> 34 for w in words] == [gen] * len(words), i
+        assert [(w >> 32) & 3 for w in words] == [2] * len(words), i
+        assert [w & 0xFFFFFFFF for w in words] == prefix, i
+    assert gen == 28  # the wrap zeroed the array at call 32 and began again at 1
 
 
 @pytest.mark.parametrize("depth", [1, 10, 16])

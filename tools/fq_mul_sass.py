@@ -1,5 +1,5 @@
 """Count the SASS instructions of one Fq product on 1, 2 and 4 lanes, of
-one Fq squaring, and of one Fr product.
+one Fq squaring, of one Fr product, and of K4's kernel a validator.
 
 Compiles, for ``sm_90a`` at the kernels' optimisation level, small kernels
 that each run K chained Montgomery products ``a = a * b`` through
@@ -13,7 +13,9 @@ Fr product (``csrc/fr.cuh``'s ``fr_mul``, chained ``a = a * b``) under
 ``"fr_mul"``. NOPs are not counted. ``chip_smoke.py``'s one-lane bounds take
 the one-lane product's count (``FQ_MUL_SASS``); ``chip_smoke.py`` calls
 ``fr_mul_sass()`` in its run for K16's ``fr_mul_sass`` and
-``sass_bound_ms``.
+``sass_bound_ms``. ``altair_epoch_sass()`` counts K4's kernel
+(``csrc/altair_epoch.cu``) a validator and its subroutine calls; ``chip_smoke.py``
+reports it as the K4 row's ``sass_per_validator``.
 
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``) and no card:
 
@@ -87,8 +89,9 @@ SQR_KERNEL = ('extern "C" __global__ void sqr_k{K}(const uint32_t* in, uint32_t*
 INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);")
 
 
-def count(sass: str) -> dict[str, int]:
-    """Instructions (NOPs aside) of each function in ``cuobjdump -sass`` output."""
+def count(sass: str, opcode: str = "") -> dict[str, int]:
+    """Instructions (NOPs aside) of each function in ``cuobjdump -sass``
+    output; with ``opcode``, only those whose opcode starts with it."""
     out: dict[str, int] = {}
     name = None
     for line in sass.splitlines():
@@ -99,13 +102,22 @@ def count(sass: str) -> dict[str, int]:
             continue
         m = INSN.search(line)
         if name and m and m.group(1).split()[0] != "NOP":
-            out[name] += 1
+            words = m.group(1).split()
+            op = words[1] if words[0].startswith("@") else words[0]  # past a predicate guard
+            if op.startswith(opcode):
+                out[name] += 1
     return out
 
 
 def sass_counts(name: str, source: str) -> dict[str, int]:
     """Compile ``source`` to a cubin for ``sm_90a`` (in ``_build/sass``, as
     ``name``) and count each function's SASS instructions."""
+    return count(sass_listing(name, source))
+
+
+def sass_listing(name: str, source: str) -> str:
+    """``cuobjdump -sass`` of ``source`` compiled for ``sm_90a`` (in
+    ``_build/sass``, as ``name``)."""
     inc = _ext.write_generated()
     work = _ext.BUILD_DIR / "sass"
     work.mkdir(parents=True, exist_ok=True)
@@ -114,9 +126,8 @@ def sass_counts(name: str, source: str) -> dict[str, int]:
     nvcc = _ext._nvcc()
     subprocess.run([nvcc, "-O3", "-arch=sm_90a", "-std=c++17", "-cubin", "-I", str(_ext.CSRC),
                     "-I", str(inc), "-o", str(cubin), str(src)], check=True)
-    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)], check=True,
+    return subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)], check=True,
                           capture_output=True, text=True).stdout
-    return count(sass)
 
 
 def fr_mul_sass() -> float:
@@ -125,6 +136,33 @@ def fr_mul_sass() -> float:
     n = sass_counts("fr_mul_sass", '#include <cstdint>\n#include "fr.cuh"\n' + FR_SOURCE
                     + "".join(FR_KERNEL.format(K=K) for K in CHAINS))
     return (n["fr_k3"] - n["fr_k1"]) / 2
+
+
+def altair_epoch_sass(source: str | None = None, runs: tuple = (8, 16)) -> dict:
+    """SASS of K4's kernel as compiled for ``sm_90a``: ``csrc/altair_epoch.cu``
+    (or ``source``) built with a run of each of ``runs`` validators a thread
+    (``K4_RUN``), each with the registers of two blocks an SM. Per function
+    of the file: its instructions and its subroutine calls (``CALL``: a u64
+    division by the compiler's routine) at the last run; ``per_validator``,
+    the instructions one more validator of a run adds to
+    ``altair_epoch_kernel`` (the kernel at the last run less at the first,
+    over their difference). A kernel of one validator a thread
+    counts whole."""
+    text = source if source is not None else '#include "altair_epoch.cu"\n'
+    # both runs at one register budget (two blocks an SM), so that neither spills
+    listings = {r: sass_listing(f"altair_epoch_sass_{r}",
+                                f"#define K4_RUN {r}\n#define K4_MIN_BLOCKS 2\n{text}")
+                for r in runs}
+    last = listings[runs[-1]]
+    out = {"functions": {k: {"instructions": v, "calls": count(last, "CALL")[k]}
+                         for k, v in count(last).items()}}
+    kernel = [k for k in out["functions"] if "altair_epoch_kernel" in k]
+    if kernel:
+        first = count(listings[runs[0]])[kernel[0]]
+        out["per_validator"] = (out["functions"][kernel[0]]["instructions"] - first) / (
+            runs[-1] - runs[0])
+        out["run"] = runs[-1]
+    return out
 
 
 def main() -> int:
@@ -144,7 +182,7 @@ def main() -> int:
     fr = {"per_product": (three - one) / 2, "k1": one, "k3": three}
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
     print(json.dumps({"nvcc": version.strip().splitlines()[-1], "lanes": lanes, "sqr": sqr,
-                      "fr_mul": fr}))
+                      "fr_mul": fr, "altair_epoch": altair_epoch_sass()}))
     return 0
 
 
