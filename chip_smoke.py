@@ -63,7 +63,8 @@ Phases, each printing one JSON line:
    epoch section), the ``example_inputs`` columns, a warm-up, then 8
    chained epochs that feed balances and effective balances back in; held
    against ``epoch_accounting_ref`` on the card and, at 1,024 validators,
-   against the CPU path. ms/epoch and K9's share of the card;
+   against the CPU path. ms/epoch, K9's share of the card and its launches
+   an epoch (one);
 10. merkle_many: a full serving flush of 64 trees (``max_batch``) through
    ``merkleize_many_device`` at depth 12 (the device threshold of 4,096
    chunks) and 16, filled raggedly (tree i holds 2^d - 37 i chunks); every
@@ -131,7 +132,8 @@ Phases, each printing one JSON line:
    pairing and the kernels' event ms.
 
 Phase 3 also holds K7 (sha256_single_block), K8 (shuffle_rounds), K9
-(phase0_epoch, on the example columns and every phase0 corner) and K2's
+(phase0_epoch, on the example columns and every phase0 corner; one launch a
+call, its SASS a validator) and K2's
 batched entry (merkle_many_tree_root) against their plain versions at the
 shapes of phases 8-10, and K10 (g1_sum_many at [128, 512], [8, 32768],
 ``agg_slot``'s tier-0 [1, 512], the slot's [64, 512] and corner items,
@@ -231,7 +233,7 @@ ADDS_PER_MESSAGE = ADDS_DATA_COMPRESSION + ADDS_PAD_COMPRESSION  # 624
 # K4: u64 operations per validator over both launches (masks, five sums, the
 # scalar recompute, the rewards/penalties chain, hysteresis), each counted as
 # two 32-bit instructions that may issue on either pipe. K9 (phase0) does
-# about as many over its three launches.
+# about as many.
 OPS_EPOCH_PER_VALIDATOR = 2 * 120
 # K8: 32-bit instructions per lane and round at the least: the flip and its
 # wrap (2), the max (1), the table address (4), the load (1), the byte and
@@ -728,6 +730,8 @@ def check_forest_kernels(dev):
         max_abs_err=err,
         ms=cuda_ms(lambda: merkle_inc.mark_leaves(mark_k, idx, vals, count, cap, out=out),
                    inner=INNER),
+        device_ms=device_ms(lambda: merkle_inc.mark_leaves(mark_k, idx, vals, count, cap, out=out),
+                            ("forest_mark_kernel",)),
         plain_ms=cuda_ms(lambda: merkle_inc.mark_leaves_ref(mark_p, idx, vals, count, cap), 3),
         bound_ms=m_ms, bound_by=m_by, library_ms=None, live=live,
     ))
@@ -810,8 +814,12 @@ def check_forest_kernels(dev):
         source="eth_consensus_specs_tpu_torch/csrc/validator_leaves.cu",
         replaces="eth_consensus_specs_tpu/ops/state_root.py:721", shape=[cap], max_abs_err=err,
         ms=cuda_ms(lambda: state_root.validator_leaves_at(*vargs, valid), inner=INNER),
+        device_ms=device_ms(lambda: state_root.validator_leaves_at(*vargs, valid),
+                            ("validator_leaves_at_kernel",)),
         plain_ms=cuda_ms(lambda: state_root.validator_leaves_at_ref(*vargs, valid), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, work_compressions=6 * cap,
+        # a row's three pair hashes depend one on the next
+        serial_bound_ms=3 * MESSAGE_SERIAL_S * 1e3,
     ))
     torch.cuda.empty_cache()  # the plain twins' 2^20 temporaries
     return rows
@@ -1267,7 +1275,7 @@ def ragged_flush(depth: int, trees: int, seed: int):
             for i in range(trees)]
 
 
-def check_slice3_kernels(dev):
+def check_slice3_kernels(dev, k9_sass: dict):
     """Phase 3, continued: K7, K8, K9 and K2's batched entry at the shapes of
     the shuffle, epoch_phase0 and merkle_many phases, each against its plain
     version."""
@@ -1348,14 +1356,23 @@ def check_slice3_kernels(dev):
     cols, just = example_inputs(n, device=dev)
     col_bytes = sum(t.element_size() * t.numel() for t in cols)
     b_ms, b_by = bound(col_bytes + 4 * 8 * n, other_ops=n * OPS_EPOCH_PER_VALIDATOR)
+    call = lambda: state_columns.epoch_accounting(params, cols, just)  # noqa: E731
+    _ext.reset_launches()
+    call()
+    k9_launches = dict(_ext.launches)
+    if k9_launches != {"state_columns": 1}:
+        raise RuntimeError(f"K9 launched {k9_launches} for one epoch")
+    if not state_columns.stream_scratch(dev).eq(0).all():
+        raise RuntimeError("K9 left its sums' scratch set")
     rows.append(dict(
         name="phase0_epoch", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/state_columns.cu",
         replaces="eth_consensus_specs_tpu/ops/state_columns.py:232", shape=[n], max_abs_err=err,
-        ms=cuda_ms(lambda: state_columns.epoch_accounting(params, cols, just), inner=INNER),
-        device_ms=device_ms(lambda: state_columns.epoch_accounting(params, cols, just), ("phase0_",)),
+        ms=cuda_ms(call, inner=INNER), device_ms=device_ms(call, ("phase0_",)),
         plain_ms=cuda_ms(lambda: state_columns.epoch_accounting_ref(params, cols, just), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, work_validators=n,
         bytes_per_validator=(col_bytes + 4 * 8 * n) / n, corners_checked=checked,
+        launches_a_call=k9_launches["state_columns"],
+        sass_per_validator=k9_sass.get("per_validator"), sass=k9_sass,
     ))
 
     # K2's batched entry at a full flush: 64 trees of 2^12 leaves; of 2^16
@@ -1511,6 +1528,8 @@ def run_epoch_phase0(dev) -> tuple[dict, dict]:
         times.append((time.perf_counter() - t0) * 1e3 / EPOCHS)
         if i == 0:
             launches = dict(_ext.launches)
+    if launches != {"state_columns": EPOCHS}:
+        raise RuntimeError(f"epoch_phase0 launched {launches} for {EPOCHS} epochs")
     ref_cols, ref_res = chain(cols, epoch_accounting_ref)
     _equal_or_raise("phase0 epochs vs plain on the card",
                     [(f"result.{f}", getattr(res, f), getattr(ref_res, f)) for f in res._fields]
@@ -2674,6 +2693,13 @@ def k4_sass_count() -> dict:
     compiles ``csrc/altair_epoch.cu`` (``tools/fq_mul_sass.py``'s
     ``altair_epoch_sass``)."""
     return _sass_tool().altair_epoch_sass()
+
+
+def k9_sass_count() -> dict:
+    """K9's SASS a validator and its subroutine calls as this run's toolkit
+    compiles ``csrc/state_columns.cu`` (``tools/fq_mul_sass.py``'s
+    ``phase0_epoch_sass``)."""
+    return _sass_tool().phase0_epoch_sass()
 
 
 def check_kzg_kernels(dev, fr_sass: float):
@@ -3912,18 +3938,20 @@ def _run() -> int:
 
     t0 = time.perf_counter()
     _ext.write_generated()  # before the thread below, which reads the headers too
-    with ThreadPoolExecutor(1) as pool:  # K16's product and K4 counted beside the kernels' build
+    with ThreadPoolExecutor(1) as pool:  # K16's product, K4 and K9 counted beside the build
         fr_sass = pool.submit(fr_mul_sass_count)
         k4_sass = pool.submit(k4_sass_count)
+        k9_sass = pool.submit(k9_sass_count)
         report = _ext.build()
-        fr_sass, k4_sass = fr_sass.result(), k4_sass.result()
+        fr_sass, k4_sass, k9_sass = fr_sass.result(), k4_sass.result(), k9_sass.result()
     emit(dict(phase="build", seconds=time.perf_counter() - t0, kernels=report,
-              fr_mul_sass=fr_sass, k4_sass=k4_sass))
+              fr_mul_sass=fr_sass, k4_sass=k4_sass, k9_sass=k9_sass))
 
     t0 = time.perf_counter()
-    rows = (check_kernels(dev, k4_sass) + check_forest_kernels(dev) + check_slice3_kernels(dev)
-            + check_bls_kernels(dev) + check_g2_kernels(dev) + check_kzg_kernels(dev, fr_sass)
-            + check_slot_kernels(dev) + check_block_epoch_kernels(dev))
+    rows = (check_kernels(dev, k4_sass) + check_forest_kernels(dev)
+            + check_slice3_kernels(dev, k9_sass) + check_bls_kernels(dev) + check_g2_kernels(dev)
+            + check_kzg_kernels(dev, fr_sass) + check_slot_kernels(dev)
+            + check_block_epoch_kernels(dev))
     emit(dict(phase="kernels_checked", kernels=[r["name"] for r in rows], nvidia_smi=smi,
               phase_s=time.perf_counter() - t0))
 

@@ -62,9 +62,7 @@ SIGNATURES = {
     "merkle_inc": {"merkle_dirty_launch": [_P, _P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P, _I64,
                                            _I64]},
     "shuffle": {"shuffle_rounds_launch": [_P, _P, _P, _I64, _I32, _I64]},
-    "state_columns": {
-        "phase0_sums_launch": [_P], "phase0_proposer_launch": [_P], "phase0_apply_launch": [_P],
-    },
+    "state_columns": {"phase0_epoch_launch": [_P]},
     "g1_sum": {"g1_sum_lanes_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32],
                "g1_sum_fold_launch": [_P, _P, _P, _P, _I64, _I64]},
     "miller": {"miller_loop_launch": [_P, _P, _P, _P, _P, _I64],

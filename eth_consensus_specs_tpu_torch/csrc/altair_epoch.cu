@@ -35,8 +35,9 @@
 // reward's active_increments x WEIGHT_DENOMINATOR, the total's) are derived
 // once a block. All arithmetic is uint64_t, wrapping exactly as the JAX
 // uint64 lanes do; the products keep their wrap, only the divisions change.
-// isqrt_u64, the justification update and the block sums are shared with
-// K9 through epoch_common.cuh.
+// isqrt_u64, the justification update, the block sums, the division by
+// invariants and the cooperative launch are shared with K9 through
+// epoch_common.cuh.
 // Bound on the H100: memory, about 75 bytes read or written per validator
 // (83 with electra's MaxEB column).
 #include <cooperative_groups.h>
@@ -56,53 +57,6 @@ constexpr int kThreads = 256;
 constexpr int kRun = K4_RUN;  // consecutive validators a thread keeps in registers
 constexpr int kSums = 5;      // total active, prev source, prev target, prev head, cur target
 static_assert(kRun == 8 || kRun == 16, "a run keeps its mask bytes four a word");
-
-// n / d = (t + ((n - t) >> sh1)) >> sh2 with t = mulhi(magic, n), where
-// l = ceil(log2 d), magic = floor(2^64 (2^l - d) / d) + 1, sh1 = min(l, 1),
-// sh2 = max(l - 1, 0). For d = 1 (l = 0): magic 1, no shifts, n itself.
-struct Divisor {
-  uint64_t magic;
-  uint32_t sh1, sh2;
-};
-
-__device__ __forceinline__ uint64_t divq(uint64_t n, const Divisor& d) {
-  const uint64_t t = __umul64hi(d.magic, n);
-  return (t + ((n - t) >> d.sh1)) >> d.sh2;
-}
-
-// floor((u1 * 2^64 + u0) / v) for u1 < v (the quotient fits 64 bits):
-// Hacker's Delight divlu, two 64/32-bit digit steps with corrections.
-__device__ uint64_t div128_64(uint64_t u1, uint64_t u0, uint64_t v) {
-  const uint64_t b = 1ull << 32;
-  const int s = __clzll(v);
-  v <<= s;
-  const uint64_t vn1 = v >> 32, vn0 = v & 0xFFFFFFFFull;
-  const uint64_t un32 = (u1 << s) | (s ? u0 >> (64 - s) : 0);
-  const uint64_t un10 = u0 << s;
-  const uint64_t un1 = un10 >> 32, un0 = un10 & 0xFFFFFFFFull;
-  uint64_t q1 = un32 / vn1, rhat = un32 - q1 * vn1;
-  while (q1 >= b || q1 * vn0 > b * rhat + un1) {
-    q1 -= 1;
-    rhat += vn1;
-    if (rhat >= b) break;
-  }
-  const uint64_t un21 = un32 * b + un1 - q1 * v;
-  uint64_t q0 = un21 / vn1;
-  rhat = un21 - q0 * vn1;
-  while (q0 >= b || q0 * vn0 > b * rhat + un0) {
-    q0 -= 1;
-    rhat += vn1;
-    if (rhat >= b) break;
-  }
-  return q1 * b + q0;
-}
-
-__device__ Divisor make_divisor(uint64_t d) {
-  const int l = d == 1 ? 0 : 64 - __clzll(d - 1);
-  const uint64_t r = (l == 64 ? 0ull : 1ull << l) - d;  // 2^l - d, below d
-  return Divisor{div128_64(r, 0, d) + 1, static_cast<uint32_t>(l < 1 ? l : 1),
-                 static_cast<uint32_t>(l > 0 ? l - 1 : 0)};
-}
 
 struct EpochArgs {
   // constants (AltairEpochParams), weights in flag order source, target, head
@@ -303,36 +257,7 @@ __global__ void __launch_bounds__(kThreads, K4_MIN_BLOCKS) altair_epoch_kernel(E
   for (int64_t i = excess + g; i < a.n; i += threads) apply_reread(a, c, cur, i);
 }
 
-// Most blocks of the kernel that fit on the card at once: the bound of a
-// cooperative launch. Queried once per device.
-static int coresident_blocks() {
-  static int cache[64];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
-  if (cache[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, altair_epoch_kernel, kThreads, 0) !=
-        cudaSuccess)
-      return 0;
-    cache[dev] = sms * per_sm;
-  }
-  return cache[dev];
-}
-
 extern "C" int altair_epoch_launch(const EpochArgs* args, cudaStream_t stream) {
-  if (args->n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int fit = coresident_blocks();
-  if (fit <= 0) {
-    const cudaError_t err = cudaGetLastError();
-    return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
-  }
-  int64_t blocks = (args->n + int64_t{kThreads} * kRun - 1) / (int64_t{kThreads} * kRun);
-  blocks = blocks < fit ? blocks : fit;
-  void* params[] = {const_cast<EpochArgs*>(args)};
-  const cudaError_t err = cudaLaunchCooperativeKernel((const void*)altair_epoch_kernel,
-                                                      dim3(static_cast<unsigned>(blocks)),
-                                                      dim3(kThreads), params, 0, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coresident(altair_epoch_kernel, kThreads, args->n, int64_t{kThreads} * kRun, args,
+                           stream);
 }

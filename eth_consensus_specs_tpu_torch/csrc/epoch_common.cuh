@@ -2,11 +2,13 @@
 // (altair_epoch.cu) and K9 (state_columns.cu): unsigned min/max, the
 // integer square root and weigh_justification_and_finalization, as in
 // eth_consensus_specs_tpu/ops/state_columns.py (isqrt_u64 :132,
-// justification_update :172). All arithmetic is uint64_t, wrapping as the
-// JAX package's uint64 lanes do; epochs such as FAR_FUTURE_EPOCH = 2^64 - 1
-// compare unsigned.
+// justification_update :172); the division by an invariant divisor; the
+// block sums; the cooperative launch over the blocks the card holds at
+// once. All arithmetic is uint64_t, wrapping as the JAX package's uint64
+// lanes do; epochs such as FAR_FUTURE_EPOCH = 2^64 - 1 compare unsigned.
 #pragma once
 #include <cstdint>
+#include <cuda_runtime.h>
 
 __device__ __forceinline__ uint64_t umin(uint64_t a, uint64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ uint64_t umax(uint64_t a, uint64_t b) { return a < b ? b : a; }
@@ -23,6 +25,58 @@ __device__ __forceinline__ uint64_t isqrt_u64(uint64_t x) {
     if (rp <= 0xFFFFFFFFull && rp * rp <= x) r = rp;
   }
   return r;
+}
+
+// Division by an invariant divisor d >= 1 as a multiply-high and shifts by a
+// 65-bit reciprocal (Granlund & Montgomery, "Division by Invariant Integers
+// using Multiplication", 1994, Figure 4.1; as libdivide derives it), exact
+// for every u64 dividend: n / d = (t + ((n - t) >> sh1)) >> sh2 with
+// t = mulhi(magic, n), where l = ceil(log2 d), magic = floor(2^64 (2^l - d)
+// / d) + 1, sh1 = min(l, 1), sh2 = max(l - 1, 0). For d = 1 (l = 0): magic
+// 1, no shifts, n itself. The host derives a constant's (divisor_magic in
+// ops/state_columns.py); make_divisor derives an epoch's on the card.
+struct Divisor {
+  uint64_t magic;
+  uint32_t sh1, sh2;
+};
+
+__device__ __forceinline__ uint64_t divq(uint64_t n, const Divisor& d) {
+  const uint64_t t = __umul64hi(d.magic, n);
+  return (t + ((n - t) >> d.sh1)) >> d.sh2;
+}
+
+// floor((u1 * 2^64 + u0) / v) for u1 < v (the quotient fits 64 bits):
+// Hacker's Delight divlu, two 64/32-bit digit steps with corrections.
+__device__ inline uint64_t div128_64(uint64_t u1, uint64_t u0, uint64_t v) {
+  const uint64_t b = 1ull << 32;
+  const int s = __clzll(v);
+  v <<= s;
+  const uint64_t vn1 = v >> 32, vn0 = v & 0xFFFFFFFFull;
+  const uint64_t un32 = (u1 << s) | (s ? u0 >> (64 - s) : 0);
+  const uint64_t un10 = u0 << s;
+  const uint64_t un1 = un10 >> 32, un0 = un10 & 0xFFFFFFFFull;
+  uint64_t q1 = un32 / vn1, rhat = un32 - q1 * vn1;
+  while (q1 >= b || q1 * vn0 > b * rhat + un1) {
+    q1 -= 1;
+    rhat += vn1;
+    if (rhat >= b) break;
+  }
+  const uint64_t un21 = un32 * b + un1 - q1 * v;
+  uint64_t q0 = un21 / vn1;
+  rhat = un21 - q0 * vn1;
+  while (q0 >= b || q0 * vn0 > b * rhat + un0) {
+    q0 -= 1;
+    rhat += vn1;
+    if (rhat >= b) break;
+  }
+  return q1 * b + q0;
+}
+
+__device__ inline Divisor make_divisor(uint64_t d) {
+  const int l = d == 1 ? 0 : 64 - __clzll(d - 1);
+  const uint64_t r = (l == 64 ? 0ull : 1ull << l) - d;  // 2^l - d, below d
+  return Divisor{div128_64(r, 0, d) + 1, static_cast<uint32_t>(l < 1 ? l : 1),
+                 static_cast<uint32_t>(l > 0 ? l - 1 : 0)};
 }
 
 // The scalar justification state read by the epoch (device pointers, in the
@@ -121,4 +175,35 @@ __device__ __forceinline__ void block_sums_atomic(uint64_t (&s)[kSums],
       if (lane == 0) atomicAdd(sums + k, static_cast<unsigned long long>(v));
     }
   }
+}
+
+// One cooperative launch of `kernel` (`threads` a block, its argument block
+// `args` by value) over enough blocks for `n` items at `per_block` a block,
+// at most the blocks of the kernel that fit on the card at once (queried
+// once a device). Returns the launch's CUDA error code.
+template <typename Args>
+inline int launch_coresident(void (*kernel)(Args), int threads, int64_t n, int64_t per_block,
+                             const Args* args, cudaStream_t stream) {
+  static int cache[64];
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (sms * per_sm <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    cache[dev] = sms * per_sm;
+  }
+  int64_t blocks = (n + per_block - 1) / per_block;
+  blocks = blocks < cache[dev] ? blocks : cache[dev];
+  void* params[] = {const_cast<Args*>(args)};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(static_cast<unsigned>(blocks)),
+                                    dim3(threads), params, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

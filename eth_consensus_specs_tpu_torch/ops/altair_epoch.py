@@ -21,8 +21,8 @@ from .. import _ext
 from ..config import AltairEpochParams
 from ..lanes import udiv64, ule64, ult64, umin64, umod64
 from .state_columns import (
-    JUST_DTYPES, JustificationState, empty_justification, isqrt_u64, justification_update,
-    total_balance)
+    JUST_DTYPES, U64, Divisor, JustificationState, divisor_magic, empty_justification, isqrt_u64,
+    justification_update, stream_scratch, total_balance)
 
 
 class AltairEpochColumns(NamedTuple):
@@ -160,25 +160,6 @@ def altair_epoch_accounting_ref(
     )
 
 
-U64 = (1 << 64) - 1
-
-
-def divisor_magic(d: int) -> tuple[int, int, int]:
-    """The reciprocal by which kernel K4 divides by the invariant divisor
-    ``d`` >= 1 (``csrc/altair_epoch.cu`` ``Divisor``): ``(magic, sh1, sh2)``
-    with l = ceil(log2 d), magic = floor(2^64 (2^l - d) / d) + 1 (the low 64
-    bits of a 65-bit reciprocal), sh1 = min(l, 1), sh2 = max(l - 1, 0): for
-    a u64 n, n // d = (t + ((n - t) >> sh1)) >> sh2 with t = (magic * n) >> 64."""
-    if not 1 <= d <= U64:
-        raise ValueError(f"divisor {d} outside [1, 2^64)")
-    l = (d - 1).bit_length()
-    return (((1 << l) - d) << 64) // d + 1, min(l, 1), max(l - 1, 0)
-
-
-class _Divisor(ctypes.Structure):
-    _fields_ = [("magic", ctypes.c_uint64), ("sh1", ctypes.c_uint32), ("sh2", ctypes.c_uint32)]
-
-
 class _EpochArgs(ctypes.Structure):
     """Mirror of ``struct EpochArgs`` in ``csrc/altair_epoch.cu``: every
     field is 8 bytes or a 16-byte ``Divisor``, so the two layouts agree
@@ -193,7 +174,7 @@ class _EpochArgs(ctypes.Structure):
             "half_slashings_vector", "hysteresis_down", "hysteresis_up", "max_effective_balance",
             "electra_slashing", "weight_denominator",
         )
-    ] + [(name, _Divisor) for name in ("d_incr", "d_wden", "d_inactivity")] + [
+    ] + [(name, Divisor) for name in ("d_incr", "d_wden", "d_inactivity")] + [
         ("n", ctypes.c_int64)
     ] + [
         (name, ctypes.c_void_p)
@@ -220,21 +201,9 @@ def _constants(p: AltairEpochParams) -> tuple:
         p.epochs_per_slashings_vector // 2, hyst * p.hysteresis_downward_multiplier & U64,
         hyst * p.hysteresis_upward_multiplier & U64, p.max_effective_balance,
         int(p.electra_slashing), p.weight_denominator,
-        _Divisor(*divisor_magic(incr)), _Divisor(*divisor_magic(p.weight_denominator)),
-        _Divisor(*divisor_magic(p.inactivity_score_bias * p.inactivity_penalty_quotient & U64)),
+        Divisor(*divisor_magic(incr)), Divisor(*divisor_magic(p.weight_denominator)),
+        Divisor(*divisor_magic(p.inactivity_score_bias * p.inactivity_penalty_quotient & U64)),
     )
-
-
-_scratch: dict[tuple, torch.Tensor] = {}  # by (device, stream)
-
-
-def _stream_scratch(dev: torch.device) -> torch.Tensor:
-    """K4's five sums and arrival counter on one stream of one card: zero
-    between launches (the last block of each launch resets them)."""
-    key = (_ext.device_index(dev), _ext.stream(dev))
-    if key not in _scratch:
-        _scratch[key] = torch.zeros(8, dtype=torch.int64, device=dev)
-    return _scratch[key]
 
 
 _COLUMN_DTYPES = {
@@ -276,7 +245,7 @@ def altair_epoch_accounting(
     args = _EpochArgs(
         *_constants(p), n, *(addr(t) for t in columns),
         *(addr(getattr(just, name)) for name in JUST_DTYPES),
-        addr(_stream_scratch(dev)), *(addr(t) for t in out),
+        addr(stream_scratch(dev)), *(addr(t) for t in out),
     )
     _ext.launch("altair_epoch", "altair_epoch_launch", dev, ctypes.byref(args))
     return out

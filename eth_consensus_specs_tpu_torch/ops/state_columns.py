@@ -8,12 +8,15 @@ Counterpart of ``eth_consensus_specs_tpu/ops/state_columns.py``:
 and ``epoch_accounting_impl`` (:232), over u64 columns carried in int64
 lanes. Kernels K4 (``csrc/altair_epoch.cu``) and K9 carry the same scalar
 machine in device code (``csrc/epoch_common.cuh``); the torch functions
-here are what the plain paths call.
+here are what the plain paths call. Both kernels also share the host side
+of their division by invariant divisors (``divisor_magic``) and the
+per-stream scratch of their sums (``stream_scratch``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -249,7 +252,41 @@ def epoch_accounting_ref(params: EpochParams, cols: EpochColumns,
     )
 
 
-_PARAM_FIELDS = tuple(EpochParams.__dataclass_fields__)
+U64 = (1 << 64) - 1
+
+
+def divisor_magic(d: int) -> tuple[int, int, int]:
+    """The reciprocal by which kernels K4 and K9 divide by the invariant
+    divisor ``d`` >= 1 (``csrc/epoch_common.cuh`` ``Divisor``): ``(magic,
+    sh1, sh2)`` with l = ceil(log2 d), magic = floor(2^64 (2^l - d) / d) + 1
+    (the low 64 bits of a 65-bit reciprocal), sh1 = min(l, 1), sh2 = max(l -
+    1, 0): for a u64 n, n // d = (t + ((n - t) >> sh1)) >> sh2 with t =
+    (magic * n) >> 64."""
+    if not 1 <= d <= U64:
+        raise ValueError(f"divisor {d} outside [1, 2^64)")
+    l = (d - 1).bit_length()
+    return (((1 << l) - d) << 64) // d + 1, min(l, 1), max(l - 1, 0)
+
+
+class Divisor(ctypes.Structure):
+    """Mirror of ``struct Divisor`` in ``csrc/epoch_common.cuh``."""
+
+    _fields_ = [("magic", ctypes.c_uint64), ("sh1", ctypes.c_uint32), ("sh2", ctypes.c_uint32)]
+
+
+_scratch: dict[tuple, torch.Tensor] = {}  # by (device, stream)
+
+
+def stream_scratch(dev: torch.device) -> torch.Tensor:
+    """The accounting epochs' scratch on one stream of one card: K4's and
+    K9's five sums and K4's arrival counter, zero between launches (each
+    launch resets what it used), so both kernels share it."""
+    key = (_ext.device_index(dev), _ext.stream(dev))
+    if key not in _scratch:
+        _scratch[key] = torch.zeros(8, dtype=torch.int64, device=dev)
+    return _scratch[key]
+
+
 _COLUMN_DTYPES = {
     "effective_balance": torch.int64, "balance": torch.int64, "slashed": torch.bool,
     "activation_epoch": torch.int64, "exit_epoch": torch.int64,
@@ -265,65 +302,87 @@ JUST_DTYPES = {
     "block_root_prev": (torch.uint8, (32,)), "block_root_cur": (torch.uint8, (32,)),
     "slashings_sum": (torch.int64, ()),
 }
+_CONSTANTS = ("incr", "base_reward_factor", "base_rewards_per_epoch",
+              "min_epochs_to_inactivity_penalty", "proportional_slashing_multiplier",
+              "half_slashings_vector", "hysteresis_down", "hysteresis_up", "max_effective_balance")
+_DIVISORS = ("d_incr", "d_prq", "d_ipq")
 
 
 class _Phase0Args(ctypes.Structure):
     """Mirror of ``struct Phase0Args`` in ``csrc/state_columns.cu``: every
-    field is 8 bytes, so the two layouts agree without padding. Names are
-    unique (ctypes fills positional arguments by name)."""
+    field is 8 bytes or a 16-byte ``Divisor``, so the two layouts agree
+    without padding. Names are unique (ctypes fills positional arguments by
+    name)."""
 
     _fields_ = (
-        [(name, ctypes.c_uint64) for name in _PARAM_FIELDS]
+        [(name, ctypes.c_uint64) for name in _CONSTANTS]
+        + [(name, Divisor) for name in _DIVISORS]
         + [("n", ctypes.c_int64)]
         + [(name, ctypes.c_void_p) for name in (
-            *_COLUMN_DTYPES, *JUST_DTYPES, "sums", *(f"out_{f}" for f in EpochResult._fields))]
+            *_COLUMN_DTYPES, *JUST_DTYPES, "scratch", *(f"out_{f}" for f in EpochResult._fields))]
+    )
+
+
+@functools.cache
+def _constants(p: EpochParams) -> tuple:
+    """K9's epoch-independent fields of ``p``, in struct order: the
+    constants, then the reciprocals of EFFECTIVE_BALANCE_INCREMENT,
+    PROPOSER_REWARD_QUOTIENT and INACTIVITY_PENALTY_QUOTIENT. The kernel
+    divides by isqrt(total) x BASE_REWARDS_PER_EPOCH in one step, which
+    fits 64 bits for a BASE_REWARDS_PER_EPOCH below 2^32 (the spec's is
+    4)."""
+    if not 1 <= p.base_rewards_per_epoch < 1 << 32:
+        raise ValueError("K9 takes a BASE_REWARDS_PER_EPOCH in [1, 2^32)")
+    incr = p.effective_balance_increment
+    hyst = incr // p.hysteresis_quotient
+    return (
+        incr, p.base_reward_factor, p.base_rewards_per_epoch, p.min_epochs_to_inactivity_penalty,
+        p.proportional_slashing_multiplier, p.epochs_per_slashings_vector // 2,
+        hyst * p.hysteresis_downward_multiplier & U64, hyst * p.hysteresis_upward_multiplier & U64,
+        p.max_effective_balance,
+        *(Divisor(*divisor_magic(d)) for d in (incr, p.proposer_reward_quotient,
+                                               p.inactivity_penalty_quotient)),
     )
 
 
 def kernel_args(params: EpochParams, cols: EpochColumns, just: JustificationState,
-                sums: torch.Tensor, out: EpochResult) -> _Phase0Args:
-    """K9's argument block: the constants, the row count, then the device
-    addresses of the columns, the justification state, the sums and the
-    outputs, in the kernel's order."""
+                scratch: torch.Tensor, out: EpochResult) -> _Phase0Args:
+    """K9's argument block: the constants and their reciprocals, the row
+    count, then the device addresses of the columns, the justification
+    state, the sums' scratch and the outputs, in the kernel's order."""
     return _Phase0Args(
-        *(getattr(params, name) for name in _PARAM_FIELDS), cols.balance.shape[0],
-        *(getattr(cols, name).data_ptr() for name in _COLUMN_DTYPES),
-        *(getattr(just, name).data_ptr() for name in JUST_DTYPES),
-        sums.data_ptr(), *(t.data_ptr() for t in out),
+        *_constants(params), cols.balance.shape[0], *(t.data_ptr() for t in cols),
+        *(t.data_ptr() for t in just), scratch.data_ptr(), *(t.data_ptr() for t in out),
     )
 
 
 def empty_justification(dev) -> tuple:
     """Uninitialised justification outputs on ``dev``, in result order:
-    (bits, prev_je, prev_jr, cur_je, cur_jr, fin_e, fin_r)."""
-    shapes = ((torch.bool, (4,)), (torch.int64, ()), (torch.uint8, (32,)), (torch.int64, ()),
-              (torch.uint8, (32,)), (torch.int64, ()), (torch.uint8, (32,)))
-    return tuple(torch.empty(shape, dtype=dtype, device=dev) for dtype, shape in shapes)
+    (bits, prev_je, prev_jr, cur_je, cur_jr, fin_e, fin_r), views of two
+    allocations (the epochs', the bits' and roots')."""
+    prev_je, cur_je, fin_e = torch.empty(3, dtype=torch.int64, device=dev).unbind()
+    bits, prev_jr, cur_jr, fin_r = torch.empty(100, dtype=torch.uint8, device=dev).split(
+        (4, 32, 32, 32))
+    return bits.view(torch.bool), prev_je, prev_jr, cur_je, cur_jr, fin_e, fin_r
 
 
 def epoch_accounting(params: EpochParams, cols: EpochColumns,
                      just: JustificationState) -> EpochResult:
-    """One phase0 accounting epoch. CUDA columns go through kernel K9 (three
-    launches: the five sums, the proposer scatter, the per-validator pass);
-    CPU columns through the plain version."""
+    """One phase0 accounting epoch. CUDA columns go through kernel K9 (one
+    cooperative launch; the four result columns are rows of one
+    allocation); CPU columns through the plain version."""
     if cols.balance.device.type == "cpu":
         return epoch_accounting_ref(params, cols, just)
     n = cols.balance.shape[0]
     if n < 1:
         raise ValueError("K9 takes at least one validator")
-    for name, dtype in _COLUMN_DTYPES.items():
-        _ext.check_cuda(getattr(cols, name), dtype, (n,))
-    for name, (dtype, shape) in JUST_DTYPES.items():
-        _ext.check_cuda(getattr(just, name), dtype, shape)
+    for t, dtype in zip(cols, _COLUMN_DTYPES.values()):
+        _ext.check_cuda(t, dtype, (n,))
+    for t, (dtype, shape) in zip(just, JUST_DTYPES.values()):
+        _ext.check_cuda(t, dtype, shape)
     dev = cols.balance.device
-    out = EpochResult(
-        torch.empty_like(cols.balance), torch.empty_like(cols.effective_balance),
-        *empty_justification(dev),
-        torch.zeros_like(cols.balance),  # the proposer scatter adds into it
-        torch.empty_like(cols.balance),
-    )
-    sums = torch.zeros(5, dtype=torch.int64, device=dev)
-    argp = ctypes.byref(kernel_args(params, cols, just, sums, out))
-    for fn in ("phase0_sums_launch", "phase0_proposer_launch", "phase0_apply_launch"):
-        _ext.launch("state_columns", fn, dev, argp)
+    bal, eff, rewards, penalties = torch.empty((4, n), dtype=torch.int64, device=dev).unbind()
+    out = EpochResult(bal, eff, *empty_justification(dev), rewards, penalties)
+    args = kernel_args(params, cols, just, stream_scratch(dev), out)
+    _ext.launch("state_columns", "phase0_epoch_launch", dev, ctypes.byref(args))
     return out

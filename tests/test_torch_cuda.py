@@ -148,7 +148,7 @@ def test_altair_epoch_repeated_launches_leave_scratch_clean(cuda):
         cols, just = (example_altair_inputs(n, electra=electra, device=cuda) if case == "example"
                       else altair_corner_inputs(case, n, electra=electra, device=cuda))
         _assert_epoch_equal(epoch_params(fork, "mainnet"), cols, just)
-        scratch = tae._stream_scratch(cols.balance.device)
+        scratch = tsc.stream_scratch(cols.balance.device)
         assert not scratch.any(), f"launch {i} left its scratch set"
 
 
@@ -592,6 +592,56 @@ def test_phase0_epoch_kernel(cuda, preset, case):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     cpu = tsc.epoch_accounting(params, *(type(x)(*(t.cpu() for t in x)) for x in (cols, just)))
     assert torch.equal(got.balance.cpu(), cpu.balance)
+
+
+def _assert_phase0_equal(params, cols, just):
+    _ext.reset_launches()
+    got = tsc.epoch_accounting(params, cols, just)
+    assert dict(_ext.launches) == {"state_columns": 1}  # one cooperative launch a call
+    want = tsc.epoch_accounting_ref(params, cols, just)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("case", ["example", "far_future_wide"])
+def test_phase0_epoch_kernel_past_the_grid(cuda, case):
+    """More validators than the cooperative grid keeps in registers (8 a
+    thread): the excess is swept, scattered and applied one a thread,
+    re-read, and the includers of far_future_wide point past the grid's
+    runs and outside the registry."""
+    n = (1 << 21) + 3
+    params = phase0_epoch_params("mainnet")
+    if case == "example":
+        _assert_phase0_equal(params, *example_inputs(n, device=cuda))
+    else:
+        _assert_phase0_equal(params, *phase0_corner_inputs(case, n, device=cuda))
+
+
+def test_phase0_epoch_kernel_unaligned_columns(cuda):
+    """Columns that start one validator into their storage."""
+    cols, just = example_inputs(4097, device=cuda)
+    cols = cols._replace(**{k: v[1:] for k, v in cols._asdict().items()})
+    assert cols.balance.data_ptr() % 16 == 8
+    _assert_phase0_equal(phase0_epoch_params("mainnet"), cols, just)
+
+
+def test_phase0_epoch_repeated_launches_leave_scratch_clean(cuda):
+    """60 launches alternating presets, corners and sizes (one block, many,
+    a ragged last run): each equal to the plain version in one launch, and
+    the sums read zero after each."""
+    cases = [(preset, case) for case in ("example",) + PHASE0_CORNERS
+             for preset in ("mainnet", "minimal")]
+    for i in range(60):
+        preset, case = cases[i % len(cases)]
+        params = phase0_epoch_params(preset)
+        half = params.epochs_per_slashings_vector // 2
+        n = (1000, (1 << 16) + 3, 64)[i % 3]
+        cols, just = (example_inputs(n, slashings_half_vector=half, device=cuda)
+                      if case == "example" else
+                      phase0_corner_inputs(case, n, slashings_half_vector=half, device=cuda))
+        _assert_phase0_equal(params, cols, just)
+        scratch = tsc.stream_scratch(cols.balance.device)
+        assert not scratch.any(), f"launch {i} left its scratch set"
 
 
 @pytest.mark.parametrize("trees,depth", [(1, 0), (3, 0), (1, 1), (3, 5), (64, 5), (3, 9), (3, 10),

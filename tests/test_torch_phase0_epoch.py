@@ -2,6 +2,8 @@
 ``epoch_accounting``, inputs.py ``example_inputs`` and the phase0 corners) against the JAX
 package's ``epoch_accounting``, bit for bit."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -120,13 +122,23 @@ def test_proposer_scatter_clips_indices():
 
 def test_kernel_args_hold_every_address():
     """K9's argument block keeps each column, scalar and output address in
-    its own slot, in the kernel's order."""
+    its own slot, in the kernel's order, after the constants and the
+    reciprocals of its three constant divisors."""
     cols, just = example_inputs(16, device="cpu")
-    sums = torch.zeros(5, dtype=torch.int64)
+    scratch = torch.zeros(8, dtype=torch.int64)
     out = tsc.EpochResult(*(torch.zeros(1) for _ in tsc.EpochResult._fields))
-    args = tsc.kernel_args(phase0_epoch_params("mainnet"), cols, just, sums, out)
+    params = phase0_epoch_params("mainnet")
+    args = tsc.kernel_args(params, cols, just, scratch, out)
     fields = [name for name, _ in type(args)._fields_]
     addrs = [getattr(args, f) for f in fields[fields.index("n") + 1:]]
-    want = [t.data_ptr() for t in (*cols, *just, sums, *out)]
+    want = [t.data_ptr() for t in (*cols, *just, scratch, *out)]
     assert addrs == want and len(set(want)) == len(want)
+    assert tuple(tsc._COLUMN_DTYPES) == tsc.EpochColumns._fields
+    assert tuple(tsc.JUST_DTYPES) == tsc.JustificationState._fields
     assert getattr(args, "n") == 16 and args.base_rewards_per_epoch == 4
+    for name, d in (("d_incr", params.effective_balance_increment),
+                    ("d_prq", params.proposer_reward_quotient),
+                    ("d_ipq", params.inactivity_penalty_quotient)):
+        div = getattr(args, name)
+        assert (div.magic, div.sh1, div.sh2) == tsc.divisor_magic(d), name
+    assert ctypes.sizeof(args) == 8 * (len(fields) - 3) + 16 * 3  # no padding

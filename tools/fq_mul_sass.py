@@ -1,5 +1,6 @@
 """Count the SASS instructions of one Fq product on 1, 2 and 4 lanes, of
-one Fq squaring, of one Fr product, and of K4's kernel a validator.
+one Fq squaring, of one Fr product, and of K4's and K9's kernels a
+validator.
 
 Compiles, for ``sm_90a`` at the kernels' optimisation level, small kernels
 that each run K chained Montgomery products ``a = a * b`` through
@@ -13,9 +14,11 @@ Fr product (``csrc/fr.cuh``'s ``fr_mul``, chained ``a = a * b``) under
 ``"fr_mul"``. NOPs are not counted. ``chip_smoke.py``'s one-lane bounds take
 the one-lane product's count (``FQ_MUL_SASS``); ``chip_smoke.py`` calls
 ``fr_mul_sass()`` in its run for K16's ``fr_mul_sass`` and
-``sass_bound_ms``. ``altair_epoch_sass()`` counts K4's kernel
-(``csrc/altair_epoch.cu``) a validator and its subroutine calls; ``chip_smoke.py``
-reports it as the K4 row's ``sass_per_validator``.
+``sass_bound_ms``. ``altair_epoch_sass()`` and ``phase0_epoch_sass()``
+count K4's and K9's kernels (``csrc/altair_epoch.cu``,
+``csrc/state_columns.cu``) a validator and their subroutine calls;
+``chip_smoke.py`` reports them as the K4 and K9 rows'
+``sass_per_validator``.
 
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``) and no card:
 
@@ -138,31 +141,52 @@ def fr_mul_sass() -> float:
     return (n["fr_k3"] - n["fr_k1"]) / 2
 
 
-def altair_epoch_sass(source: str | None = None, runs: tuple = (8, 16)) -> dict:
-    """SASS of K4's kernel as compiled for ``sm_90a``: ``csrc/altair_epoch.cu``
-    (or ``source``) built with a run of each of ``runs`` validators a thread
-    (``K4_RUN``), each with the registers of two blocks an SM. Per function
-    of the file: its instructions and its subroutine calls (``CALL``: a u64
-    division by the compiler's routine) at the last run; ``per_validator``,
-    the instructions one more validator of a run adds to
-    ``altair_epoch_kernel`` (the kernel at the last run less at the first,
-    over their difference). A kernel of one validator a thread
-    counts whole."""
-    text = source if source is not None else '#include "altair_epoch.cu"\n'
+def epoch_sass(name: str, source: str, macro: str, kernel: str, runs: tuple = (8, 16)) -> dict:
+    """SASS of an accounting-epoch kernel as compiled for ``sm_90a``:
+    ``source`` built with a run of each of ``runs`` validators a thread
+    (``<macro>_RUN``), each with the registers of two blocks an SM. Per
+    function of the file: its instructions and its subroutine calls
+    (``CALL``: a u64 division by the compiler's routine) at the last run;
+    ``per_validator``, the instructions one more validator of a run adds to
+    the function named ``kernel`` (the kernel at the last run less at the
+    first, over their difference). A file without that kernel has kernels
+    of one validator a thread, which count whole: ``per_validator`` is then
+    the sum of its kernels' instructions."""
     # both runs at one register budget (two blocks an SM), so that neither spills
-    listings = {r: sass_listing(f"altair_epoch_sass_{r}",
-                                f"#define K4_RUN {r}\n#define K4_MIN_BLOCKS 2\n{text}")
+    listings = {r: sass_listing(f"{name}_sass_{r}",
+                                f"#define {macro}_RUN {r}\n#define {macro}_MIN_BLOCKS 2\n{source}")
                 for r in runs}
     last = listings[runs[-1]]
-    out = {"functions": {k: {"instructions": v, "calls": count(last, "CALL")[k]}
+    calls = count(last, "CALL")
+    out = {"functions": {k: {"instructions": v, "calls": calls[k]}
                          for k, v in count(last).items()}}
-    kernel = [k for k in out["functions"] if "altair_epoch_kernel" in k]
-    if kernel:
-        first = count(listings[runs[0]])[kernel[0]]
-        out["per_validator"] = (out["functions"][kernel[0]]["instructions"] - first) / (
+    match = [k for k in out["functions"] if kernel in k]
+    if match:
+        first = count(listings[runs[0]])[match[0]]
+        out["per_validator"] = (out["functions"][match[0]]["instructions"] - first) / (
             runs[-1] - runs[0])
         out["run"] = runs[-1]
+    else:
+        out["per_validator"] = sum(f["instructions"] for k, f in out["functions"].items()
+                                   if "_kernel" in k)
+        out["run"] = 1
     return out
+
+
+def altair_epoch_sass(source: str | None = None) -> dict:
+    """``epoch_sass`` of K4's kernel (``csrc/altair_epoch.cu``, or ``source``)."""
+    text = source if source is not None else '#include "altair_epoch.cu"\n'
+    return epoch_sass("altair_epoch", text, "K4", "altair_epoch_kernel")
+
+
+def phase0_epoch_sass(path: str | None = None) -> dict:
+    """``epoch_sass`` of K9's kernel: ``csrc/state_columns.cu``, or the
+    file at ``path`` (another checkout's, compiled against its own
+    headers), whose three one-validator-a-thread kernels count whole. Runs
+    of 4 and 8: a run of 16 would keep more in shared memory than a block
+    declares statically."""
+    text = f'#include "{path or _ext.CSRC / "state_columns.cu"}"\n'
+    return epoch_sass("phase0_epoch", text, "K9", "phase0_epoch_kernel", runs=(4, 8))
 
 
 def main() -> int:
@@ -182,7 +206,8 @@ def main() -> int:
     fr = {"per_product": (three - one) / 2, "k1": one, "k3": three}
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
     print(json.dumps({"nvcc": version.strip().splitlines()[-1], "lanes": lanes, "sqr": sqr,
-                      "fr_mul": fr, "altair_epoch": altair_epoch_sass()}))
+                      "fr_mul": fr, "altair_epoch": altair_epoch_sass(),
+                      "phase0_epoch": phase0_epoch_sass()}))
     return 0
 
 

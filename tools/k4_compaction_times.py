@@ -1,7 +1,8 @@
-"""Time kernel K4 (the altair accounting epoch, ``ops/altair_epoch.py``) and
-K5's compaction (``ops/merkle_inc.py`` ``dirty_indices``/``dirty_leaves``)
-by CUDA events and traced, beside ``torch.nonzero_static`` on the same mask,
-and the epoch paths that run K4.
+"""Time kernels K4 (the altair accounting epoch, ``ops/altair_epoch.py``),
+K9 (the phase0 accounting epoch, ``ops/state_columns.py``) and K5's
+compaction (``ops/merkle_inc.py`` ``dirty_indices``/``dirty_leaves``) by
+CUDA events and traced, beside ``torch.nonzero_static`` on the same mask,
+and the epoch paths that run K4 and K9.
 
 On one checkout of the port (``--root``, by default this one), at 2^20
 validators: K4 on the deneb and the electra example columns; the compaction
@@ -9,9 +10,15 @@ of a mask of 4,096 dirty leaves of 2^20 at capacity 4,096 (chip_smoke's: the
 effective balance of every 256th validator lowered), of the same update as
 the effective-balance diff (one value a leaf), and of a balance column's
 chunk diff (four values a leaf, every 97th balance raised, leaf rows
-written); ``torch.nonzero_static(mask, size=4096, fill_value=0)``; and the
+written); ``torch.nonzero_static(mask, size=4096, fill_value=0)``; the
 device busy time and launches an epoch of 8 chained ``state_inc`` epochs and
-of 2 ``"state"`` epochs. Each call is timed by ``chip_smoke.cuda_ms`` (CUDA
+of 2 ``"state"`` epochs; K9 at 10^6 validators on the phase0 example
+columns (``epoch_phase0``'s), with its wrapper's host time a call (``host_us``:
+the host clock around 10 calls, no synchronisation inside, median of 20) and
+the SASS a validator of that checkout's ``csrc/state_columns.cu``
+(``tools/fq_mul_sass.py``'s ``phase0_epoch_sass``, this checkout's tool), and
+the busy time and launches an epoch of ``epoch_phase0``'s 8 chained
+epochs. Each call is timed by ``chip_smoke.cuda_ms`` (CUDA
 events around 10 calls, median of 20) and under ``chip_smoke.device_profile``
 (the device time a call of every kernel, ``per_call_ms``); each call's
 launches are counted by kernel and its first output words printed, so that
@@ -29,11 +36,14 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 N = 1 << 20  # validators
+PHASE0_N = 1_000_000  # epoch_phase0's registry
 CAP = 4096
 CALLS = 10  # calls a traced window
 EPOCHS = 8
@@ -53,6 +63,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--out", default="")
     args = ap.parse_args()
+    args.root = str(Path(args.root).resolve())  # as the imported modules' paths read
     sys.path.insert(0, args.root)
     import torch
 
@@ -62,12 +73,13 @@ def main() -> int:
     cs = _chip_smoke()
 
     from eth_consensus_specs_tpu_torch import _ext
-    from eth_consensus_specs_tpu_torch.config import epoch_params
-    from eth_consensus_specs_tpu_torch.inputs import example_altair_inputs
-    from eth_consensus_specs_tpu_torch.ops import altair_epoch, merkle_inc, state_root
+    from eth_consensus_specs_tpu_torch.config import epoch_params, phase0_epoch_params
+    from eth_consensus_specs_tpu_torch.inputs import example_altair_inputs, example_inputs
+    from eth_consensus_specs_tpu_torch.ops import (
+        altair_epoch, merkle_inc, state_columns, state_root)
     from eth_consensus_specs_tpu_torch.parallel.resident import run_epochs
 
-    if not merkle_inc.__file__.startswith(str(Path(args.root).resolve())):
+    if not merkle_inc.__file__.startswith(args.root):
         raise RuntimeError(f"imported {merkle_inc.__file__}, not the port under {args.root}")
     dev = torch.device("cuda")
     _ext.build()
@@ -91,7 +103,19 @@ def main() -> int:
         return dict(ms=cs.cuda_ms(fn, inner=CALLS), traced_ms=busy, traced_by_kernel=by,
                     launches=launches(fn), words=words(fn()))
 
-    out = {"root": str(Path(args.root).resolve()),
+    def host_us(fn):
+        """Host microseconds a call: the host clock around CALLS calls."""
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CALLS):
+                fn()
+            times.append((time.perf_counter() - t0) / CALLS * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    out = {"root": args.root,
            "nvidia_smi": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                capture_output=True, text=True).stdout.strip()}
@@ -115,6 +139,26 @@ def main() -> int:
     out["compaction_diff_per4_rows"] = row(lambda: merkle_inc.dirty_leaves(
         cols.balance, bal_new, 4, 1 << depth, 1024, leaf_rows))
 
+    p0 = phase0_epoch_params("mainnet")
+    p0_cols, p0_just = example_inputs(PHASE0_N, device=dev)
+    k9 = lambda: state_columns.epoch_accounting(p0, p0_cols, p0_just)  # noqa: E731
+    out["phase0_epoch"] = dict(row(k9), host_us=host_us(k9))
+
+    def phase0_chain():
+        c, res = p0_cols, None
+        for _ in range(EPOCHS):
+            res = state_columns.epoch_accounting(p0, c, p0_just)
+            c = c._replace(balance=res.balance, effective_balance=res.effective_balance)
+        return res
+
+    busy, by = traced(phase0_chain, calls=1)
+    out[f"epoch_phase0_{EPOCHS}_epochs"] = dict(
+        busy_ms_per_epoch=busy / EPOCHS,
+        busy_by_kernel_per_epoch={k: v / EPOCHS for k, v in by.items()},
+        launches_per_epoch={k: v / EPOCHS for k, v in launches(phase0_chain).items()},
+        words=words(phase0_chain()))
+    del p0_cols, p0_just
+
     params = epoch_params("deneb", "mainnet")
     static = state_root.synthetic_static(N, seed=0, device=dev)
     for path, epochs in (("state_inc", EPOCHS), ("state", 2)):
@@ -129,6 +173,8 @@ def main() -> int:
             busy_by_kernel_per_epoch={k: v / epochs for k, v in by.items()},
             launches_per_epoch={k: v / epochs for k, v in launches(chained).items()})
         del carry
+    k9_source = Path(args.root) / "eth_consensus_specs_tpu_torch" / "csrc" / "state_columns.cu"
+    out["phase0_sass"] = cs._sass_tool().phase0_epoch_sass(str(k9_source))
     line = json.dumps(out)
     print(line)
     if args.out:
