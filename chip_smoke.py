@@ -15,7 +15,9 @@ Phases, each printing one JSON line:
    and its mark pass forest_mark, K5's compaction merkle_inc) called at the
    paths' shapes and held bit for bit (``torch.equal``) against its plain
    torch version on the same card and inputs; K1, K2 and the forest update
-   also against hashlib. The forest update at a ``state_inc`` epoch's three
+   also against hashlib; K1 at [3, 16], traced, and in bulk; K3's indexed
+   entry at 4,096 rows on and off its table of first pair hashes (the
+   table against hashlib), one launch a call. The forest update at a ``state_inc`` epoch's three
    trees, at ``dirty_registry``'s 4,096 crossings and on all-dirty trees of
    2^18 and 2^20 leaves (one launch a call, its dirty parents, bytes and
    chain), and as the path update of 4,072 paths at depth 20; K5's
@@ -180,8 +182,10 @@ for K1-K6 and the forest update, both kzg_flush and das_fft for K16, summed over
 an entry launches two, as K2's tree_root and list_roots, K10's lanes passes and fold, K11's loop
 and fold, K17's lanes and fold and K18's copy and scatter; ``launches_by_path``: each path's; every kernel must have launched on
 one of its own paths, but those that no path runs since the forest update,
-K5's compaction, K3's indexed entry and the mark pass, each held by its own
-check and marked ``launched_by`` with the reason) and, last, ``{"ok": true,
+K5's compaction, K3's indexed entry and the mark pass, and K1 since K2's
+list launch took the checkpoints, each held by its own check and marked
+``launched_by`` with the reason; the epoch, durability, slot and
+block_epoch paths fail if they launch K1) and, last, ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero
 without the last line; so does a machine without CUDA, or a directory
 without the package. On every exit the script stops what it started and
@@ -245,6 +249,12 @@ OPS_SHUFFLE_LANE_ROUND = 16
 # (K2, the forest update), whose levels run one after another.
 CLOCK_HZ = 1.98e9
 MESSAGE_SERIAL_S = (LOGIC_PER_MESSAGE + ADDS_PER_MESSAGE) / CLOCK_HZ
+# An L2 hit's latency on Hopper, about 260 SM clocks in published
+# microbenchmarks (Luo et al., "Benchmarking and Dissecting the Nvidia
+# Hopper GPU Architecture", 2024); not measured here. K3's indexed entry
+# reads its first pair hash from a table in L2.
+L2_READ_CLOCKS = 260
+CORNER_ROWS = [0, 1, 2, 3, 6, 8, 9, 10]  # K3's indexed corners that miss its table
 
 
 def emit(obj) -> None:
@@ -287,6 +297,22 @@ def cuda_ms(fn, repeats: int = REPEATS, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = INNER) -> float:
+    """Host microseconds a call of fn(): the host clock around ``calls``
+    calls with no synchronisation inside, median of 20."""
+    import torch
+
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def max_abs_err(a, b) -> int:
     import torch
 
@@ -317,7 +343,8 @@ def check_kernels(dev, k4_sass: dict):
 
     rows = []
 
-    # K1 at the main path's shape: the three checkpoints hashed together
+    # K1 at the shape the epoch paths gave it until K2's list launch took
+    # the three checkpoints: no path launches it now (own check)
     msgs = words(3, 16)
     out = sha256.sha256_pairs(msgs)
     torch.cuda.synchronize()
@@ -337,8 +364,10 @@ def check_kernels(dev, k4_sass: dict):
         name="sha256_pairs", route="cuda", source="eth_consensus_specs_tpu_torch/csrc/sha256.cu",
         replaces="eth_consensus_specs_tpu/ops/sha256.py:153", shape=[3, 16], max_abs_err=err,
         ms=cuda_ms(lambda: sha256.sha256_pairs(msgs), inner=INNER),
+        device_ms=device_ms(lambda: sha256.sha256_pairs(msgs), ("sha256_pairs_kernel",)),
         plain_ms=cuda_ms(lambda: sha256.sha256_pairs_ref(msgs), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, work_compressions=6,
+        serial_bound_ms=MESSAGE_SERIAL_S * 1e3,  # the three pair hashes side by side
         hashlib_checked=int(corner.shape[0]), bulk_rows=n, bulk_ms=bulk_ms,
         bulk_bound_ms=bound(96 * n, n)[0],
         bulk_compressions_per_s=2 * n / (bulk_ms / 1e3),
@@ -795,19 +824,59 @@ def check_forest_kernels(dev):
                  "mask over capacity", "chunk diff with leaf rows"],
     ))
 
-    # K3's indexed entry: 4,096 gathered rows, some past the registry
+    # K3's indexed entry: 4,096 gathered rows, some past the registry; its
+    # table of B = H(chunk(eff), slashed_chunk) built at the first call
     vargs = (cols.effective_balance, arrays.slashed_chunk, arrays.val_node_a, arrays.val_node_f)
+    _ext.reset_launches()
+    table = state_root.b_table(cols.effective_balance.device)
+    table_launches = dict(_ext.launches)
+    err = max_abs_err(table, state_root.b_table_ref(dev))
+    inc = state_root.EFFECTIVE_BALANCE_INCREMENT
+    for k, s in ((0, 0), (2048, 1), (32, 1)):
+        want = hashlib.sha256((k * inc).to_bytes(8, "little") + bytes(24) + bytes([s])
+                              + bytes(31)).digest()
+        if words_bytes(table[2 * k + s]) != want:
+            raise RuntimeError(f"K3's table row {2 * k + s} differs from hashlib")
     idx = torch.cat([torch.randint(0, n, (cap - 64,), generator=gen),
                      torch.randint(n, n + 1000, (32,), generator=gen),
                      -torch.randint(1, 100, (32,), generator=gen)]).to(torch.int32).to(dev)
-    err = max_abs_err(state_root.validator_leaves_at(*vargs, idx),
-                      state_root.validator_leaves_at_ref(*vargs, idx))
+    err = max(err, max_abs_err(state_root.validator_leaves_at(*vargs, idx),
+                               state_root.validator_leaves_at_ref(*vargs, idx)))
     part = torch.tensor([3000], dtype=torch.int32, device=dev)
     max_abs_err(state_root.validator_leaves_at(*vargs, idx, part, cap),
                 state_root.validator_leaves_at_ref(*vargs, idx, part, cap))
     if state_root.validator_leaves_at(*vargs, idx, part, 2999).any():
         raise RuntimeError("validator_leaves_at ran past its sparse gate")
+    # the rows off the table: effective balances off the increments and
+    # past 2048 of them, 2^63, 2^64 - 1; slashed chunks with another word set
+    corner_eff = torch.tensor([inc + 1, 2049 * inc, -(1 << 63), -1, 2048 * inc, 0, 7, 32 * inc],
+                              dtype=torch.int64, device=dev)
+    c_eff = cols.effective_balance.clone()
+    c_slashed = arrays.slashed_chunk.clone()
+    c_eff[:8] = corner_eff
+    c_slashed[8:12] = 0
+    c_slashed[8, 3] = 1
+    c_slashed[9, 0], c_slashed[9, 7] = state_root.SLASHED_WORD, -1
+    c_slashed[10, 0] = 2
+    c_args = (c_eff, c_slashed, arrays.val_node_a, arrays.val_node_f)
+    c_idx = torch.cat([torch.arange(16, device=dev), idx[:cap - 16].long()]).to(torch.int32)
+    max_abs_err(state_root.validator_leaves_at(*c_args, c_idx),
+                state_root.validator_leaves_at_ref(*c_args, c_idx))
+    if not bool((state_root.b_table_row(c_eff[:16], c_slashed[:16])[CORNER_ROWS] == -1).all()):
+        raise RuntimeError("K3's corner rows do not miss its table as built")
     valid = torch.randint(0, n, (cap,), generator=gen).to(torch.int32).to(dev)
+    v_long = valid.long()
+    def share(args) -> float:  # of the timed rows, those whose B the table serves
+        return float((state_root.b_table_row(args[0][v_long], args[1][v_long]) >= 0).double().mean())
+
+    _ext.reset_launches()
+    state_root.validator_leaves_at(*vargs, valid)
+    at_launches = dict(_ext.launches)
+    if at_launches != {"validator_leaves_at": 1}:
+        raise RuntimeError(f"K3's indexed entry launched {at_launches} in one call")
+    # the same rows with every effective balance off the increments: each row
+    # hashes B, the chain of three with its loads hoisted
+    h_args = (vargs[0] + 1, *vargs[1:])
     b_ms, b_by = bound(cap * (4 + 8 + 3 * 32 + 32), 3 * cap)
     rows.append(dict(
         name="validator_leaves_at", route="cuda",
@@ -820,6 +889,18 @@ def check_forest_kernels(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None, work_compressions=6 * cap,
         # a row's three pair hashes depend one on the next
         serial_bound_ms=3 * MESSAGE_SERIAL_S * 1e3,
+        # the design's chain: B read from the table, then two pair hashes
+        design_chain_bound_ms=(L2_READ_CLOCKS / CLOCK_HZ + 2 * MESSAGE_SERIAL_S) * 1e3,
+        table_share=share(vargs), launches_a_call=at_launches["validator_leaves_at"],
+        table_build_launches=table_launches.get("validator_b_table", 0),
+        hashed=dict(table_share=share(h_args),
+                    ms=cuda_ms(lambda: state_root.validator_leaves_at(*h_args, valid), inner=INNER),
+                    device_ms=device_ms(lambda: state_root.validator_leaves_at(*h_args, valid),
+                                        ("validator_leaves_at_kernel",))),
+        host_us=host_us(lambda: state_root.validator_leaves_at(*vargs, valid)),
+        checked=["4,096 rows, 64 past the registry", "the sparse gate open and closed",
+                 "16 rows on and off the table", "the table against its plain version and "
+                 "hashlib"],
     ))
     torch.cuda.empty_cache()  # the plain twins' 2^20 temporaries
     return rows
@@ -3695,7 +3776,9 @@ def run_block_epoch(dev) -> tuple[dict, dict]:
     ecols, just = example_altair_inputs(n, device=dev)
     scores = ecols.inactivity_scores
     arrays, meta = synthetic_static(n, device=dev)
+    _ext.reset_launches()
     ctx = be.make_root_ctx("deneb", arrays, meta, static, scores, just)
+    ctx_launches = dict(_ext.launches)  # the epoch's slow-moving top chunks: K3, one K2 launch
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
 
@@ -3784,8 +3867,11 @@ def run_block_epoch(dev) -> tuple[dict, dict]:
         next_wd_index=int(st.next_wd_index), next_wd_validator=int(st.next_wd_validator),
         digest=digest[:32], digest_oracle=digest_h[:32], plain_slots_checked=BLOCK_PLAIN_SLOTS,
         setup_s=setup_s, plain_s=plain_s, oracle_s=oracle_s, reduced=[],
+        root_ctx_launches=ctx_launches,
     )
-    return summary, launches
+    # the path's counts: the timed epochs' and the epoch's root context
+    return summary, {k: launches.get(k, 0) + ctx_launches.get(k, 0)
+                     for k in {**launches, **ctx_launches}}
 
 
 def run_gt_export(dev) -> tuple[dict, dict]:
@@ -3968,6 +4054,9 @@ def _run() -> int:
         summary["phase_s"] = time.perf_counter() - t0
         summary["nvidia_smi"] = smi
         emit(summary)
+        if path in NO_K1_PATHS and by_path[path].get("sha256"):
+            raise RuntimeError(f"{path} launched K1 {by_path[path]['sha256']} times: its small "
+                               "roots belong in K2's list launch")
 
     missing = []
     for r in rows:
@@ -4013,9 +4102,13 @@ _PATH_OF = {"sha256_single_block": "shuffle", "shuffle_rounds": "shuffle",
             "g2_sum_many": "agg_slot", "fr_fft": ("kzg_flush", "das_fft"),
             "g1_msm_many": "kzg_flush", "slot_apply": "slot", "block_slot": "block_epoch",
             "final_exp_gt": "gt_export"}
+# the paths whose state roots K2 hashes alone: no launch of K1
+NO_K1_PATHS = ("state", "state_inc", "dirty_registry", "durability", "slot", "block_epoch")
 # kernels no path launches, each held against its plain version by its own
 # check in phase 3, and why
 _OWN_CHECK_ONLY = {
+    "sha256_pairs": "K1, the counterpart of JAX's sha256_pair_words; K2's list launch hashes "
+                    "every state root's checkpoints",
     "merkle_inc": "K5's compaction, the counterpart of JAX's dirty_indices behind the public "
                   "dirty_indices and dirty_leaves; the forest update diffs the columns itself",
     "validator_leaves_at": "K3's indexed entry, the counterpart of JAX's _validator_leaf_fn; "

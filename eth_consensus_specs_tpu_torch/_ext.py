@@ -54,7 +54,8 @@ SIGNATURES = {
     "merkle": {"merkle_lists_launch": [_P, _I32, _P, _P, _P, _I64]},
     "validator_leaves": {
         "validator_leaves_launch": [_P, _P, _P, _P, _P, _I64, _P, _I32],
-        "validator_leaves_at_launch": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P],
+        "validator_leaves_at_launch": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P, _P],
+        "validator_b_table_launch": [_P],
     },
     "altair_epoch": {"altair_epoch_launch": [_P]},
     "forest_update": {"forest_update_launch": [_P, _I32, _P, _P, _I64],
@@ -190,9 +191,11 @@ def lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    """The device address of ``t``; a null pointer for ``None``."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t: torch.Tensor | None) -> int | None:
+    """The device address of ``t``; ``None``, a null pointer, for ``None``
+    (an entry point's ``c_void_p`` argument takes either as it is, with
+    less host time than a ``c_void_p`` made for it)."""
+    return None if t is None else t.data_ptr()
 
 
 def device_index(device: torch.device) -> int:
@@ -236,10 +239,10 @@ def launch(kernel: str, fn: str, device: torch.device, *args, counter: str | Non
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape: tuple | None = None) -> None:
     """Raise ``ValueError`` unless ``t`` is a contiguous CUDA tensor of
     ``dtype`` (and ``shape``, where given)."""
-    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(
             f"expected a contiguous CUDA {dtype} tensor, got {t.dtype} on {t.device}"
             f"{'' if t.is_contiguous() else ' (not contiguous)'}"
         )
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"expected shape {tuple(shape)}, got {tuple(t.shape)}")

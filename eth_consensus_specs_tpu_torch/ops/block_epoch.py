@@ -29,7 +29,7 @@ K2 launch (each column packed as it loads, reduced, folded to its SSZ limit
 and length-mixed, with the slot number's chunk beside them), written
 straight into top chunks whose slow-moving roots (the validator registry,
 the inactivity scores, the checkpoints) ``make_root_ctx`` fills once an
-epoch (K3, K2 and K1), then reduces the top container (a second K2
+epoch (K3 and one K2 list launch), then reduces the top container (a second K2
 launch); the port, as the JAX package, keeps no incremental forest in
 this plane.
 
@@ -71,7 +71,7 @@ from .state_root import (
     PARTICIPATION_LIMIT_CHUNKS_LOG2,
     PLAIN,
     Hashers,
-    small_dynamic_roots,
+    small_lists,
     validator_list,
 )
 
@@ -440,18 +440,19 @@ def block_epoch_chain_ref(params: BlockEpochParams, n: int, st: BlockState, bloc
 
 def make_root_ctx(fork: str, arrays, meta, static: BlockEpochStatic, scores, just,
                   h: Hashers = KERNELS) -> SlotRootCtx:
-    """Fill every slow-moving top chunk once an epoch: the validator
-    registry root (the effective balances are constant in an epoch), the
-    inactivity scores, the justification bits and the checkpoints."""
+    """Fill every slow-moving top chunk once an epoch, in one K2 list
+    launch: the validator registry root (the effective balances are
+    constant in an epoch), the inactivity scores, the justification bits
+    and the checkpoints."""
     n = meta.n_validators
     slot_of = {name: i for i, name in meta.dynamic_slots}
     lists = {"validators": validator_list(arrays, n, static.eff_balance, h)}
     if "inactivity_scores" in slot_of:
         lists["inactivity_scores"] = ListTree(scores, n, BALANCE_LIMIT_CHUNKS_LOG2, n)
+    entries = {slot_of[name]: t for name, t in lists.items()}
+    entries.update(small_lists(slot_of, just))
     chunks = arrays.top_chunks.clone()
-    h.list_roots(list(lists.values()), chunks, [slot_of[name] for name in lists])
-    for slot, root in small_dynamic_roots(slot_of, just, h).items():
-        chunks[slot] = root
+    h.list_roots(list(entries.values()), chunks, list(entries))
     return SlotRootCtx(
         top_chunks=chunks, top_depth=meta.top_depth, n=n,
         slot_field_index=state_fields(fork).index("slot"),

@@ -61,7 +61,7 @@ assert LIST_TREE_DTYPE.itemsize == 128
 
 
 class ListTree(NamedTuple):
-    """One list of a ``list_roots`` call.
+    """One list of a ``list_roots`` call, or ``trees`` like lists.
 
     ``src`` holds the leaves: int32[>= n, 8] chunk words (n chunks), or the
     items packed 32 bytes a chunk: int64[>= n] u64 values or uint8[>= n]
@@ -69,7 +69,12 @@ class ListTree(NamedTuple):
     its chunks; past them the leaves are zero) at level ``base`` (0, or the
     level of a subtree root reduced elsewhere: chunk words, n = 1, depth 0).
     Its root is folded with zerohashes[l] up to level ``limit`` and, where
-    ``mix`` is not None, hashed with the u64 chunk of ``mix``."""
+    ``mix`` is not None, hashed with the u64 chunk of ``mix``. A depth-0
+    list of limit 0 is its one chunk.
+
+    With ``trees`` = B, ``src`` has a leading batch dimension of B lists of
+    that shape (one K2 table entry of B like trees), whose roots land in B
+    consecutive rows."""
 
     src: torch.Tensor
     n: int
@@ -77,6 +82,7 @@ class ListTree(NamedTuple):
     mix: int | None = None
     depth: int | None = None
     base: int = 0
+    trees: int | None = None
 
 
 def _words_of(b: bytes) -> np.ndarray:
@@ -216,8 +222,24 @@ def tree_depth(t: ListTree) -> int:
     return max(chunk_count(t) - 1, 0).bit_length() if t.depth is None else t.depth
 
 
+def tree_count(t: ListTree) -> int:
+    """Roots of a ``ListTree``: 1, or its batch of like lists."""
+    return 1 if t.trees is None else t.trees
+
+
+def _singles(t: ListTree) -> list:
+    """A batched ``ListTree`` as its lists, one ``ListTree`` each."""
+    return [t] if t.trees is None else [t._replace(src=t.src[b], trees=None)
+                                        for b in range(t.trees)]
+
+
 def _check_list(t: ListTree) -> None:
     src = t.src
+    if t.trees is not None:
+        if t.trees < 1 or src.dim() < 2 or src.shape[0] != t.trees:
+            raise ValueError(f"{t.trees} like lists need a source of [{t.trees}, ...], "
+                             f"got {tuple(src.shape)}")
+        src = src[0]
     if src.dtype not in ITEM_BYTES:
         raise ValueError(f"expected int32 chunk words, int64 or uint8 items, got {src.dtype}")
     if src.dtype == torch.int32:
@@ -256,10 +278,25 @@ def leaf_level(t: ListTree) -> torch.Tensor:
     return pad_pow2(packed(vals, vals.shape[0]), d)
 
 
-def _place(roots: torch.Tensor, out, rows) -> torch.Tensor:
+def _rows(trees, out: torch.Tensor | None, rows) -> list:
+    """The row of every root: root b of list i at ``rows[i] + b`` of ``out``,
+    or one after another from row 0 without ``out``."""
+    counts = [tree_count(t) for t in trees]
+    if out is None:
+        rows = np.cumsum([0] + counts[:-1]).tolist()
+    elif rows is None or len(rows) != len(trees):
+        raise ValueError("out needs a row a list")
+    elif out.dim() != 2 or out.shape[1] != 8 or not all(
+            0 <= r and r + c <= out.shape[0] for r, c in zip(rows, counts)):
+        raise ValueError(f"rows {list(rows)} of {counts} roots do not fit out {tuple(out.shape)}")
+    return [int(r) for r in rows]
+
+
+def _place(roots: torch.Tensor, out, first: list, trees) -> torch.Tensor:
     if out is None:
         return roots
-    out[torch.as_tensor(list(rows), dtype=torch.int64, device=out.device)] = roots
+    rows = [r + b for r, t in zip(first, trees) for b in range(tree_count(t))]
+    out[torch.as_tensor(rows, dtype=torch.int64, device=out.device)] = roots
     return out
 
 
@@ -268,29 +305,31 @@ def list_roots_ref(trees, out: torch.Tensor | None = None, rows=None, sha=sha256
     """Plain torch version of K2: each list's padded leaf level reduced by
     ``tree`` (``tree_root_ref``), the roots folded together a level a call
     (``fold_many``) and length-mixed (``mix_length``), over ``sha``.
-    Returns int32[B, 8], or writes root i into ``out[rows[i]]`` and returns
-    ``out``."""
+    Returns int32[R, 8], R the lists' roots (a batched list's B roots one
+    after another), or writes root b of list i into ``out[rows[i] + b]``
+    and returns ``out``."""
     tree = tree or (lambda leaves, depth: tree_root_ref(leaves, depth, sha))
-    for t in trees:
-        _check_list(t)
     if not trees:
         raise ValueError("no lists")
+    for t in trees:
+        _check_list(t)
+    first = _rows(trees, out, rows)
+    singles = [s for t in trees for s in _singles(t)]
     dev = trees[0].src.device
     zh = torch.from_numpy(zerohash_words(MAX_LEVEL)).to(dev)
-    depths = [tree_depth(t) for t in trees]
-    roots = [tree(leaf_level(t), d) for t, d in zip(trees, depths)]
-    roots = fold_many(roots, [t.base + d for t, d in zip(trees, depths)],
-                      [t.limit for t in trees], zh, sha)
-    mixed = [i for i, t in enumerate(trees) if t.mix is not None]
+    depths = [tree_depth(t) for t in singles]
+    roots = [tree(leaf_level(t), d) for t, d in zip(singles, depths)]
+    roots = fold_many(roots, [t.base + d for t, d in zip(singles, depths)],
+                      [t.limit for t in singles], zh, sha)
+    mixed = [i for i, t in enumerate(singles) if t.mix is not None]
     if mixed:
         lengths = torch.from_numpy(np.stack([
-            _words_of(int(trees[i].mix).to_bytes(8, "little") + bytes(24)) for i in mixed])).to(dev)
+            _words_of(int(singles[i].mix).to_bytes(8, "little") + bytes(24))
+            for i in mixed])).to(dev)
         done = mix_length(torch.stack([roots[i] for i in mixed]), lengths, sha)
         for j, i in enumerate(mixed):
             roots[i] = done[j]
-    if out is not None and (rows is None or len(rows) != len(trees)):
-        raise ValueError("out needs a row a list")
-    return _place(torch.stack(roots), out, rows)
+    return _place(torch.stack(roots), out, first, trees)
 
 
 def _check_leaves(leaves: torch.Tensor, depth: int, batched: bool = False) -> None:
@@ -381,9 +420,10 @@ def _launch(entries: list, dev: torch.device, counter: str) -> None:
 
 
 def list_roots(trees, out: torch.Tensor | None = None, rows=None) -> torch.Tensor:
-    """The roots of up to ``MAX_TREES`` lists (``ListTree``), int32[B, 8];
-    with ``out`` (int32[M, 8]) root i is written into ``out[rows[i]]`` and
-    ``out`` is returned.
+    """The roots of up to ``MAX_TREES`` table entries (``ListTree``: a list,
+    or a batch of like lists), int32[R, 8], a batch's roots one after
+    another; with ``out`` (int32[M, 8]) root b of entry i is written into
+    ``out[rows[i] + b]`` and ``out`` is returned.
 
     CUDA tensors go through kernel K2, one launch for all the lists (counted
     as ``merkle_lists``); CPU tensors through the plain version."""
@@ -394,15 +434,13 @@ def list_roots(trees, out: torch.Tensor | None = None, rows=None) -> torch.Tenso
     for t in trees:
         _check_list(t)
     dev = trees[0].src.device
+    first = _rows(trees, out, rows)
     if out is None:
-        out, rows = torch.empty((len(trees), 8), dtype=torch.int32, device=dev), range(len(trees))
-    elif rows is None or len(rows) != len(trees):
-        raise ValueError("out needs a row a list")
+        out = torch.empty((first[-1] + tree_count(trees[-1]), 8), dtype=torch.int32, device=dev)
     _ext.check_cuda(out, torch.int32)
-    if out.dim() != 2 or out.shape[1] != 8 or not all(0 <= r < out.shape[0] for r in rows):
-        raise ValueError(f"rows {list(rows)} do not fit out {tuple(out.shape)}")
-    _launch([(t.src, ITEM_BYTES[t.src.dtype], t.n, tree_depth(t), t.base, t.limit, t.mix, 1, 0,
-              out.data_ptr() + 32 * r, 0) for t, r in zip(trees, rows)], dev, "merkle_lists")
+    _launch([(t.src, ITEM_BYTES[t.src.dtype], t.n, tree_depth(t), t.base, t.limit, t.mix,
+              tree_count(t), 0 if t.trees is None else t.src.stride(0) * t.src.element_size(),
+              out.data_ptr() + 32 * r, 8) for t, r in zip(trees, first)], dev, "merkle_lists")
     return out
 
 

@@ -19,7 +19,7 @@ its blob sidecars; the device pipeline chains
   one ``g2_aggregate.sum_g2_many_device`` launch (K15);
 * **apply and re-root**: the participation/balance scatter of the valid
   items (K18) and the incremental state root against the resident forest
-  (``state_root.post_epoch_state_root_inc``: the forest update, K1, K2), the forest
+  (``state_root.post_epoch_state_root_inc``: the forest update, K2), the forest
   updated in place (JAX donates it); the committed columns are not touched,
   K18 writes new ones, so a failed slot leaves the state as it was. An
   epoch-boundary slot also runs one accounting epoch (K4), in

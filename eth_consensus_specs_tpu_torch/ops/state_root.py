@@ -6,11 +6,13 @@ Validator's tree only the effective-balance path changes in the
 accounting epoch, so the static nodes A = H(pubkey_root,
 withdrawal_credentials) and F = H(H(aee, ae), H(exit, withdrawable)) are
 inputs, and each epoch recomputes three hashes per validator (kernel K3,
-``csrc/validator_leaves.cu``), then takes the list roots of the registry
-and the big columns in one launch of kernel K2 (``ops/merkle.py``: each
-column packed as it loads, its tree reduced, folded to its SSZ limit with
-zero-hash siblings and length-mixed), hashes the checkpoints (kernel K1,
-``ops/sha256.py``) and reduces the top container (K2). Every other
+``csrc/validator_leaves.cu``), then writes every dynamic top chunk in one
+launch of kernel K2 (``ops/merkle.py``): the list roots of the registry and
+the big columns (each column packed as it loads, its tree reduced, folded
+to its SSZ limit with zero-hash siblings and length-mixed), the three
+checkpoints (one entry of three depth-1 trees over their packed bytes),
+and the justification bits' and the participation roots' chunks (depth-0
+entries); a second K2 launch reduces the top container. Every other
 field's root is a static chunk.
 
 The incremental path (``build_state_forest`` :731, ``post_epoch_state_root_inc``
@@ -21,8 +23,8 @@ above a dirty leaf: effective balances move only on hysteresis crossings
 diff chunk by chunk. On the card the three trees of an epoch are one
 launch of the forest kernel (``merkle_inc.forest_update``); the plain twin
 takes JAX's sparse or dense branch per tree. Both roots share the folds,
-mix-ins, small roots and top combine below, so they cannot disagree on the
-shared fields.
+mix-ins, small roots and top reduction below, so they cannot disagree on
+the shared fields.
 
 The hashing goes through a ``Hashers`` bundle: ``KERNELS`` dispatches by
 device (CUDA kernels for CUDA tensors, plain torch for CPU tensors);
@@ -33,6 +35,7 @@ reference path (``post_epoch_state_root_ref``) uses on any device.
 from __future__ import annotations
 
 import hashlib
+from functools import lru_cache
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -40,18 +43,20 @@ import torch
 
 from .. import _ext
 from ..config import inc_dense_count, inc_dirty_bucket, state_fields, top_depth as fork_top_depth
-from ..lanes import to_i32
+from ..lanes import udiv64, ule64, umod64
 from . import merkle_inc
 from .merkle import (ListTree, _words_of, list_roots, list_roots_ref, packed_u64_leaves, pad_pow2,
                      tree_real_hashes, tree_root, tree_root_ref, u64_chunk_words, zerohash_words,
                      zerohashes)
-from .sha256 import hash_rows, sha256_pairs, sha256_pairs_ref
+from .sha256 import hash_rows, sha256_pairs_ref
 
 VALIDATOR_REGISTRY_LIMIT_LOG2 = 40  # List[Validator, 2**40]
 BALANCE_LIMIT_CHUNKS_LOG2 = 38  # 2**40 u64 -> 2**38 chunks
 PARTICIPATION_LIMIT_CHUNKS_LOG2 = 35  # 2**40 bytes -> 2**35 chunks
 ZEROHASH_DEPTH = 41
 
+CHECKPOINT_FIELDS = ("previous_justified_checkpoint", "current_justified_checkpoint",
+                     "finalized_checkpoint")
 DYNAMIC_FIELDS = frozenset({
     "validators", "balances", "inactivity_scores", "previous_epoch_participation",
     "current_epoch_participation", "justification_bits", "previous_justified_checkpoint",
@@ -64,9 +69,9 @@ class Hashers(NamedTuple):
     the incremental forest: K3's in-place entry and ``merkle_levels`` build
     it, ``forest_update`` (``merkle_inc.forest_update(trees) -> counts``)
     updates it; ``list_roots`` is K2's list-root entry
-    (``merkle.list_roots``, ``list_roots(trees, out, rows)``)."""
+    (``merkle.list_roots``, ``list_roots(trees, out, rows)``), which also
+    takes the checkpoints and the top's other small roots."""
 
-    sha256_pairs: Callable
     tree_root: Callable
     validator_leaves: Callable
     validator_leaves_into: Callable
@@ -186,6 +191,47 @@ def validator_leaves_at_ref(eff, slashed_chunk, node_a, node_f, idx, count=None,
     return out
 
 
+# K3's indexed entry takes B = H(chunk(eff), slashed_chunk) from a table
+# where it can (csrc/validator_leaves.cu: kIncrement, kTableIncrements,
+# kSlashedWord): for eff = k increments, k <= 2048, and the chunk of false
+# or true, row 2k + slashed.
+EFFECTIVE_BALANCE_INCREMENT = 10**9  # Gwei, every preset
+B_TABLE_INCREMENTS = 2048  # MAX_EFFECTIVE_BALANCE_ELECTRA / EFFECTIVE_BALANCE_INCREMENT
+B_TABLE_ROWS = 2 * (B_TABLE_INCREMENTS + 1)
+SLASHED_WORD = 0x01000000  # the first big-endian word of the SSZ chunk of true
+
+
+def b_table_row(eff, slashed_chunk) -> torch.Tensor:
+    """The table row K3's indexed entry reads for each validator, int64[N]:
+    2k + slashed where eff is k increments (k <= 2048) and the slashed
+    chunk is that of false or true, else -1 (the row hashes B)."""
+    inc = EFFECTIVE_BALANCE_INCREMENT
+    first = slashed_chunk[:, 0]
+    hit = ((umod64(eff, inc) == 0) & ule64(eff, B_TABLE_INCREMENTS * inc)
+           & ((first == 0) | (first == SLASHED_WORD)) & (slashed_chunk[:, 1:] == 0).all(1))
+    return torch.where(hit, 2 * udiv64(eff, inc) + (first != 0).to(torch.int64), -1)
+
+
+def b_table_ref(device=None) -> torch.Tensor:
+    """Plain torch version of K3's table, int32[4098, 8]: row 2k + s is
+    H(chunk(k increments), the chunk of s)."""
+    k = torch.arange(B_TABLE_INCREMENTS + 1, dtype=torch.int64, device=device)
+    slashed = torch.zeros((B_TABLE_ROWS, 8), dtype=torch.int32, device=device)
+    slashed[1::2, 0] = SLASHED_WORD
+    return hash_rows(u64_chunk_words((k * EFFECTIVE_BALANCE_INCREMENT).repeat_interleave(2)),
+                     slashed, sha256_pairs_ref)
+
+
+@lru_cache(maxsize=16)
+def b_table(device: torch.device) -> torch.Tensor:
+    """K3's table on the card ``device``, built at its first use by a
+    launch of its own (counted as ``validator_b_table``) and kept."""
+    table = torch.empty((B_TABLE_ROWS, 8), dtype=torch.int32, device=device)
+    _ext.launch("validator_leaves", "validator_b_table_launch", table.device, _ext.ptr(table),
+                counter="validator_b_table")
+    return table
+
+
 def validator_leaves_at(eff, slashed_chunk, node_a, node_f, idx, count=None,
                         dense: int = -1) -> torch.Tensor:
     """Validator roots at the leaf indices ``idx`` (int32[cap]) ->
@@ -196,8 +242,9 @@ def validator_leaves_at(eff, slashed_chunk, node_a, node_f, idx, count=None,
     card the forest kernel now computes the registry's leaves itself, so no
     path calls this entry).
 
-    CUDA tensors go through K3's indexed entry; CPU tensors through the
-    plain version."""
+    CUDA tensors go through K3's indexed entry, one launch a call that
+    writes every row (the table ``b_table`` is built at the card's first
+    call); CPU tensors through the plain version."""
     if eff.device.type == "cpu":
         return validator_leaves_at_ref(eff, slashed_chunk, node_a, node_f, idx, count, dense)
     n = _check_validator_inputs(eff, slashed_chunk, node_a, node_f)
@@ -205,17 +252,17 @@ def validator_leaves_at(eff, slashed_chunk, node_a, node_f, idx, count=None,
     if count is not None:
         _ext.check_cuda(count, torch.int32, (1,))
     cap = idx.shape[0]
-    out = torch.zeros((cap, 8), dtype=torch.int32, device=eff.device)
+    out = torch.empty((cap, 8), dtype=torch.int32, device=eff.device)
     _ext.launch("validator_leaves", "validator_leaves_at_launch", eff.device,
                 _ext.ptr(eff), _ext.ptr(slashed_chunk), _ext.ptr(node_a), _ext.ptr(node_f),
-                _ext.ptr(idx), _ext.ptr(count), int(dense), n, cap, _ext.ptr(out),
-                counter="validator_leaves_at")
+                _ext.ptr(idx), _ext.ptr(count), int(dense), n, cap,
+                _ext.ptr(b_table(eff.device)), _ext.ptr(out), counter="validator_leaves_at")
     return out
 
 
-KERNELS = Hashers(sha256_pairs, tree_root, validator_leaves, validator_leaves_into,
-                  merkle_inc.merkle_levels, merkle_inc.forest_update, list_roots)
-PLAIN = Hashers(sha256_pairs_ref, tree_root_ref, validator_leaves_ref, validator_leaves_into_ref,
+KERNELS = Hashers(tree_root, validator_leaves, validator_leaves_into, merkle_inc.merkle_levels,
+                  merkle_inc.forest_update, list_roots)
+PLAIN = Hashers(tree_root_ref, validator_leaves_ref, validator_leaves_into_ref,
                 merkle_inc.merkle_levels_ref, merkle_inc.forest_update_ref, list_roots_ref)
 
 
@@ -228,44 +275,78 @@ def validator_list(arrays: StateRootArrays, n: int, eff, h: Hashers = KERNELS) -
     return ListTree(leaves, n, VALIDATOR_REGISTRY_LIMIT_LOG2, n)
 
 
+def checkpoint_list(checkpoints) -> ListTree:
+    """(epoch, uint8[32] root) pairs as one K2 table entry of like trees:
+    a uint8[64] row a checkpoint, the epoch's 8 little-endian bytes, 24 zero
+    bytes and the root, which K2 packs into the chunks of the epoch and the
+    root, one depth-1 tree each: its root H(chunk(epoch), root), no mix.
+    The rows are made on the epoch tensors' device, with no host copy."""
+    epochs = torch.stack([e.reshape(()) for e, _ in checkpoints]).view(torch.uint8)
+    epochs = epochs.reshape(len(checkpoints), 8)
+    rows = torch.cat([epochs, epochs.new_zeros((len(checkpoints), 24)),
+                      torch.stack([root for _, root in checkpoints])], dim=1)
+    return ListTree(rows, 64, 1, trees=len(checkpoints))
+
+
 def checkpoint_roots(checkpoints, h: Hashers = KERNELS) -> torch.Tensor:
     """Checkpoint container roots H(chunk(epoch), root) for a list of
-    (epoch, uint8[32] root) pairs, one launch -> int32[B, 8]."""
-    epochs = torch.stack([e.reshape(()) for e, _ in checkpoints])
-    r = torch.stack([root for _, root in checkpoints]).reshape(-1, 8, 4).to(torch.int64)
-    r_chunks = to_i32((r[..., 0] << 24) | (r[..., 1] << 16) | (r[..., 2] << 8) | r[..., 3])
-    return hash_rows(u64_chunk_words(epochs), r_chunks, h.sha256_pairs)
+    (epoch, uint8[32] root) pairs, one K2 launch -> int32[B, 8]."""
+    return h.list_roots([checkpoint_list(checkpoints)])
 
 
-def bitvector4_chunk(bits) -> torch.Tensor:
+@lru_cache(maxsize=16)
+def _bit_shifts(device: str) -> torch.Tensor:
+    return torch.arange(4, dtype=torch.uint8, device=device)
+
+
+def bits_list(bits) -> ListTree:
+    """Bitvector[4] (bool[4]) as a K2 entry: its one byte, packed into its
+    SSZ chunk, a depth-0 list of limit 0."""
+    byte = (bits.to(torch.uint8) << _bit_shifts(str(bits.device))).sum(dtype=torch.uint8)
+    return ListTree(byte.reshape(1), 1, 0)
+
+
+def bitvector4_chunk(bits, h: Hashers = KERNELS) -> torch.Tensor:
     """Bitvector[4] (bool[4]) -> its SSZ chunk, int32[8]."""
-    byte = (bits.to(torch.int64) << torch.arange(4, device=bits.device)).sum()
-    return to_i32(torch.cat([(byte << 24).reshape(1), byte.new_zeros(7)]))
+    return h.list_roots([bits_list(bits)])[0]
 
 
-def combine_state_root(chunks: torch.Tensor, top_depth: int, dynamic_roots: dict,
-                       h: Hashers = KERNELS):
-    """Write the dynamic roots into their top-level slots of ``chunks`` (a
-    copy of the static top chunks, the list roots already in place) and
-    reduce the container tree."""
-    for slot, root in dynamic_roots.items():
-        chunks[slot] = root
-    return h.tree_root(chunks, top_depth)
+def chunk_list(chunk: torch.Tensor) -> ListTree:
+    """One int32[8] chunk as a depth-0 K2 entry: its root is the chunk."""
+    return ListTree(chunk.reshape(1, 8), 1, 0)
 
 
-def small_dynamic_roots(slot_of: dict, just, h: Hashers = KERNELS) -> dict:
-    """Roots of the justification bits and the three checkpoints."""
-    cps = checkpoint_roots([
-        (just.prev_justified_epoch, just.prev_justified_root),
-        (just.cur_justified_epoch, just.cur_justified_root),
-        (just.finalized_epoch, just.finalized_root),
-    ], h)
+def checkpoint_slot(slot_of: dict) -> int:
+    """The top row of the first checkpoint. The three checkpoints are one
+    K2 entry whose roots land in consecutive rows: raise unless their
+    fields are consecutive."""
+    first = slot_of[CHECKPOINT_FIELDS[0]]
+    if [slot_of[f] for f in CHECKPOINT_FIELDS] != [first, first + 1, first + 2]:
+        raise ValueError("the three checkpoint fields are not consecutive in the top container: "
+                         f"{[slot_of[f] for f in CHECKPOINT_FIELDS]}")
+    return first
+
+
+def small_lists(slot_of: dict, just) -> dict:
+    """The justification bits and the three checkpoints as K2 entries, by
+    the top row each writes (the checkpoints' first of three)."""
     return {
-        slot_of["justification_bits"]: bitvector4_chunk(just.justification_bits),
-        slot_of["previous_justified_checkpoint"]: cps[0],
-        slot_of["current_justified_checkpoint"]: cps[1],
-        slot_of["finalized_checkpoint"]: cps[2],
+        slot_of["justification_bits"]: bits_list(just.justification_bits),
+        checkpoint_slot(slot_of): checkpoint_list([
+            (just.prev_justified_epoch, just.prev_justified_root),
+            (just.cur_justified_epoch, just.cur_justified_root),
+            (just.finalized_epoch, just.finalized_root),
+        ]),
     }
+
+
+def top_state_root(h: Hashers, top_chunks, top_depth: int, entries: dict) -> torch.Tensor:
+    """Every dynamic top chunk in one K2 list launch (``entries``: the
+    ``ListTree`` of each, by its top row) over a copy of the static top
+    chunks, then the container's root (a second K2 launch)."""
+    chunks = top_chunks.clone()
+    h.list_roots(list(entries.values()), chunks, list(entries))
+    return h.tree_root(chunks, top_depth)
 
 
 def _post_epoch_state_root(h: Hashers, arrays, meta, balances, effective_balance,
@@ -279,20 +360,19 @@ def _post_epoch_state_root(h: Hashers, arrays, meta, balances, effective_balance
     if "previous_epoch_participation" in slot_of:
         lists["previous_epoch_participation"] = ListTree(arrays.prev_part_flags, n,
                                                          PARTICIPATION_LIMIT_CHUNKS_LOG2, n)
-    chunks = arrays.top_chunks.clone()
-    h.list_roots(list(lists.values()), chunks, [slot_of[name] for name in lists])
-    dyn = small_dynamic_roots(slot_of, just, h)
     if "current_epoch_participation" in slot_of:
         # the rotated-in current participation is all zero: a constant of n
-        dyn[slot_of["current_epoch_participation"]] = arrays.cur_part_root
-    return combine_state_root(chunks, meta.top_depth, dyn, h)
+        lists["current_epoch_participation"] = chunk_list(arrays.cur_part_root)
+    entries = {slot_of[name]: t for name, t in lists.items()}
+    entries.update(small_lists(slot_of, just))
+    return top_state_root(h, arrays.top_chunks, meta.top_depth, entries)
 
 
 def post_epoch_state_root(arrays: StateRootArrays, meta: StateRootMeta, balances,
                           effective_balance, inactivity_scores, just) -> torch.Tensor:
     """hash_tree_root of the post-accounting BeaconState as int32[8] words;
-    kernels K1-K3 on a CUDA device (K2's list roots in one launch), their
-    plain versions on the CPU."""
+    kernels K2 and K3 on a CUDA device (every dynamic top chunk in one K2
+    launch, the top in a second), their plain versions on the CPU."""
     return _post_epoch_state_root(KERNELS, arrays, meta, balances, effective_balance,
                                   inactivity_scores, just)
 
@@ -541,13 +621,12 @@ def state_root_from_forest(arrays: StateRootArrays, meta: StateRootMeta, plan: F
     if plan.has_inact and "inactivity_scores" in slot_of:
         lists["inactivity_scores"] = folded(forest.inact_nodes, plan.depth_bal,
                                             BALANCE_LIMIT_CHUNKS_LOG2)
-    chunks = arrays.top_chunks.clone()
-    h.list_roots(list(lists.values()), chunks, [slot_of[name] for name in lists])
-    dyn = small_dynamic_roots(slot_of, just, h)
     if "previous_epoch_participation" in slot_of:
-        dyn[slot_of["previous_epoch_participation"]] = forest.part_root
-        dyn[slot_of["current_epoch_participation"]] = arrays.cur_part_root
-    return combine_state_root(chunks, meta.top_depth, dyn, h)
+        lists["previous_epoch_participation"] = chunk_list(forest.part_root)
+        lists["current_epoch_participation"] = chunk_list(arrays.cur_part_root)
+    entries = {slot_of[name]: t for name, t in lists.items()}
+    entries.update(small_lists(slot_of, just))
+    return top_state_root(h, arrays.top_chunks, meta.top_depth, entries)
 
 
 def post_epoch_state_root_inc(arrays: StateRootArrays, meta: StateRootMeta, plan: ForestPlan,
@@ -557,8 +636,8 @@ def post_epoch_state_root_inc(arrays: StateRootArrays, meta: StateRootMeta, plan
     """The post-epoch state root through the incremental forest: the
     columns' changes applied to the forest in place, then the root from
     the forest. Returns (forest, root), the root bit-identical to
-    ``post_epoch_state_root`` on the same columns. Kernels K1, K2 and the
-    forest kernel on a CUDA device, their plain versions on the CPU."""
+    ``post_epoch_state_root`` on the same columns. K2 and the forest kernel
+    on a CUDA device, their plain versions on the CPU."""
     _update_forest(h, arrays, meta, plan, forest, old_balances, old_effective_balance,
                    old_inactivity_scores, balances, effective_balance, inactivity_scores)
     return forest, state_root_from_forest(arrays, meta, plan, forest, just, h)

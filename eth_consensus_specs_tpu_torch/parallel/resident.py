@@ -181,8 +181,8 @@ def run_epochs(
       run updates in place and returns in ``carry.forest`` (JAX donates
       it; here the same tensors come back): chain from ``carry.forest``.
 
-    On a CUDA device every epoch runs kernels K1-K4 (and the forest update in the
-    incremental mode); on the CPU their plain versions."""
+    On a CUDA device every epoch runs kernels K2-K4 (the forest update in place
+    of K3 in the incremental mode); on the CPU their plain versions."""
     return _run(altair_epoch_accounting, KERNELS, params, cols, just, n_epochs, with_root,
                 static, forest, device)
 

@@ -169,7 +169,8 @@ def test_run_epochs_card_matches_cpu_and_counts_launches(cuda):
     want = resident.run_epochs(params, cols, just, 2, with_root="state", static=static, device="cpu")
     assert torch.equal(got.root_acc.cpu(), want.root_acc)
     assert torch.equal(got.cols.balance.cpu(), want.cols.balance)
-    assert set(counts) == {"sha256", "merkle", "merkle_lists", "validator_leaves", "altair_epoch"}
+    # no K1: the checkpoints and the small top chunks ride in K2's list launch
+    assert set(counts) == {"merkle", "merkle_lists", "validator_leaves", "altair_epoch"}
     assert counts["altair_epoch"] == 2 and counts["validator_leaves"] == 2  # one launch an epoch
     assert counts["merkle_lists"] == 2 and counts["merkle"] == 2  # an epoch: the lists, the top
 
@@ -497,6 +498,140 @@ def test_validator_leaves_at_kernel(cuda, n):
         assert torch.equal(got.cpu(), tsr.validator_leaves_into_ref(rows.clone(), *args, one, dense))
 
 
+def _b_row_bytes(k: int, s: int) -> bytes:
+    """B = H(chunk(k increments) || the chunk of slashed s), by hashlib."""
+    eb = (k * tsr.EFFECTIVE_BALANCE_INCREMENT).to_bytes(8, "little") + bytes(24)
+    return hashlib.sha256(eb + bytes([s]) + bytes(31)).digest()
+
+
+def _row_bytes(words: torch.Tensor) -> bytes:
+    return words.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+
+
+def test_b_table_kernel_built_once_equals_hashlib(cuda):
+    tsr.b_table.cache_clear()
+    arrays, _ = tsr.synthetic_static(64, seed=1, device=cuda)
+    cols, _ = example_altair_inputs(64, device=cuda)
+    args = (cols.effective_balance, arrays.slashed_chunk, arrays.val_node_a, arrays.val_node_f,
+            torch.arange(64, dtype=torch.int32, device=cuda))
+    _ext.reset_launches()
+    tsr.validator_leaves_at(*args)
+    tsr.validator_leaves_at(*args)
+    assert dict(_ext.launches) == {"validator_b_table": 1, "validator_leaves_at": 2}
+    table = tsr.b_table(cols.effective_balance.device)
+    assert table.shape == (tsr.B_TABLE_ROWS, 8)
+    assert torch.equal(table.cpu(), tsr.b_table_ref())
+    for k in (0, 1, 16, 32, 2047, 2048):
+        for s in (0, 1):
+            assert _row_bytes(table[2 * k + s]) == _b_row_bytes(k, s), (k, s)
+
+
+def _leaf_corner_inputs(n: int, seed: int):
+    """K3's indexed entry's corners: effective balances off the table (not a
+    multiple of the increment, 2049 increments, 2^63, 2^64 - 1), slashed
+    chunks off it (another word set, another first word), and rows on it."""
+    rng = np.random.default_rng(seed)
+    inc = tsr.EFFECTIVE_BALANCE_INCREMENT
+    eff = rng.integers(0, 2049, n, dtype=np.int64).astype(np.uint64) * np.uint64(inc)
+    eff[:8] = [inc + 1, 2049 * inc, 1 << 63, (1 << 64) - 1, 2048 * inc, 0, 32 * inc, 7]
+    slashed = np.zeros((n, 8), np.uint32)
+    slashed[rng.random(n) < 0.25, 0] = tsr.SLASHED_WORD
+    slashed[8:11] = 0
+    slashed[8, 3] = 1  # false's word, another word set
+    slashed[9, 0] = tsr.SLASHED_WORD
+    slashed[9, 7] = 0xFFFFFFFF  # true's word, another word set
+    slashed[10, 0] = 2  # not a bool's chunk
+    arrays, _ = tsr.synthetic_static(n, seed=seed, device="cpu")
+    return (torch.from_numpy(eff.view(np.int64)), torch.from_numpy(slashed.view(np.int32)),
+            arrays.val_node_a, arrays.val_node_f)
+
+
+def test_validator_leaves_at_corners_one_launch_no_fill(cuda):
+    n, cap = 1000, 4096
+    args = _leaf_corner_inputs(n, 3)
+    rng = np.random.default_rng(4)
+    idx = np.concatenate([np.arange(16), rng.integers(0, n, cap - 24), [-1, n, n + 5, -7],
+                          rng.integers(0, n, 4)]).astype(np.int32)
+    idx = torch.from_numpy(idx)
+    on_card = tuple(a.to(cuda) for a in args)
+    tsr.validator_leaves_at(*on_card, idx.to(cuda))  # the table, once
+    for count, dense in ((None, -1), (3000, -1), (3000, 3000), (3000, 2999), (0, -1), (5000, -1)):
+        c = None if count is None else torch.tensor([count], dtype=torch.int32)
+        want = tsr.validator_leaves_at_ref(*args, idx, c, dense)
+        # the allocator hands the freed 0xFF block back: every row must be written
+        stale = torch.full((cap, 8), -1, dtype=torch.int32, device=cuda)
+        del stale
+        _ext.reset_launches()
+        got = tsr.validator_leaves_at(*on_card, idx.to(cuda), None if c is None else c.to(cuda),
+                                      dense)
+        assert dict(_ext.launches) == {"validator_leaves_at": 1}, (count, dense)
+        assert torch.equal(got.cpu(), want), (count, dense)
+    # rows on and off the table both hashed right: the first 16 rows by hashlib
+    got = tsr.validator_leaves_at(*on_card, idx.to(cuda)).cpu()
+    eff, slashed, a, f = (t.numpy() for t in args)
+    for j in range(16):
+        e = int(eff[j]) & ((1 << 64) - 1)
+        b = hashlib.sha256(e.to_bytes(8, "little") + bytes(24)
+                           + slashed[j].view(np.uint32).astype(">u4").tobytes()).digest()
+        node_e = hashlib.sha256(a[j].view(np.uint32).astype(">u4").tobytes() + b).digest()
+        root = hashlib.sha256(node_e + f[j].view(np.uint32).astype(">u4").tobytes()).digest()
+        assert _row_bytes(got[j]) == root, j
+
+
+def test_validator_leaves_at_repeated_calls_leave_the_table(cuda):
+    n = 1 << 12
+    args = tuple(a.to(cuda) for a in _leaf_corner_inputs(n, 5))
+    first = tsr.validator_leaves_at(*args, torch.arange(64, dtype=torch.int32, device=cuda))
+    table = tsr.b_table(args[0].device)
+    before = table.clone()
+    rng = np.random.default_rng(6)
+    for i in range(40):
+        cap = int(rng.choice([1, 7, 128, 4096]))
+        idx = torch.from_numpy(rng.integers(-3, n + 3, cap).astype(np.int32)).to(cuda)
+        count = torch.tensor([int(rng.integers(0, cap + 2))], dtype=torch.int32, device=cuda)
+        dense = int(rng.choice([-1, cap // 2, cap]))
+        got = tsr.validator_leaves_at(*args, idx, count, dense)
+        want = tsr.validator_leaves_at_ref(*(a.cpu() for a in args), idx.cpu(), count.cpu(),
+                                           dense)
+        assert torch.equal(got.cpu(), want), i
+    assert torch.equal(table, before) and torch.equal(before.cpu(), tsr.b_table_ref())
+    assert torch.equal(tsr.validator_leaves_at(*args, torch.arange(64, dtype=torch.int32,
+                                                                  device=cuda)), first)
+
+
+@pytest.mark.parametrize("epoch", [0, 1, 1 << 63, (1 << 64) - 1])
+def test_checkpoint_entry_kernel_equals_hashlib(cuda, epoch):
+    rng = np.random.default_rng(epoch % 1000)
+    roots = [np.zeros(32, np.uint8), np.full(32, 0xFF, np.uint8),
+             rng.integers(0, 256, 32, dtype=np.uint8)]
+    epochs = [epoch, (epoch + 1) % (1 << 64), epoch ^ 0x5555]
+    cps = [(torch.tensor(np.uint64(e).astype(np.int64), device=cuda), torch.from_numpy(r).to(cuda))
+           for e, r in zip(epochs, roots)]
+    _ext.reset_launches()
+    got = tsr.checkpoint_roots(cps)
+    assert dict(_ext.launches) == {"merkle_lists": 1}
+    assert torch.equal(got.cpu(), tsr.checkpoint_roots([(e.cpu(), r.cpu()) for e, r in cps]))
+    for row, e, r in zip(got, epochs, roots):
+        want = hashlib.sha256(e.to_bytes(8, "little") + bytes(24) + r.tobytes()).digest()
+        assert _row_bytes(row) == want
+    # the whole small-roots table of an epoch: three checkpoints, the bits,
+    # two chunks, into their top rows of one launch
+    just = example_altair_inputs(64, device=cuda)[1]
+    slot_of = {name: i for i, name in tsr.dynamic_slots(tsr.state_fields("deneb"))}
+    entries = tsr.small_lists(slot_of, just)
+    chunk = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 8).astype(np.int32)).to(cuda)
+    entries[slot_of["current_epoch_participation"]] = tsr.chunk_list(chunk)
+    top = _words(32, 8, 3)
+    got = top.clone().to(cuda)
+    _ext.reset_launches()
+    tsr.KERNELS.list_roots(list(entries.values()), got, list(entries))
+    assert dict(_ext.launches) == {"merkle_lists": 1}
+    want = tsr.PLAIN.list_roots([type(t)(*(x.cpu() if torch.is_tensor(x) else x for x in t))
+                                 for t in entries.values()], top.clone(), list(entries))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got[slot_of["current_epoch_participation"]], chunk)
+
+
 @pytest.mark.parametrize("n", [1000, 1024])
 @pytest.mark.parametrize("every", [0, 4], ids=["example", "every_4th_crosses"])
 def test_state_inc_card_matches_plain_and_cpu(cuda, n, every):
@@ -530,6 +665,9 @@ def test_state_inc_card_matches_plain_and_cpu(cuda, n, every):
     # the three trees of an epoch in one launch of the forest kernel
     assert counts["forest_update"] == 2
     assert not {"merkle_inc", "validator_leaves_at", "forest_mark"} & set(counts)
+    # 4 launches an epoch: K4, the forest update, K2's lists (every dynamic
+    # top chunk, the checkpoints among them) and K2's top; no K1
+    assert counts == {"altair_epoch": 2, "forest_update": 2, "merkle_lists": 2, "merkle": 2}
 
 
 def test_checkpoint_restore_and_scrub_on_card(cuda, tmp_path):
@@ -1329,7 +1467,10 @@ def test_block_epoch_chain_on_card_equals_the_cpu_chain_and_the_oracle(cuda):
     cols, st0, static = be.synthetic_block_columns(params, n, seed=5, atts_per_slot=16, device=cuda)
     arrays, meta = synthetic_static(n, device=cuda)
     ecols, just = example_altair_inputs(n, device=cuda)
+    _ext.reset_launches()
     ctx = be.make_root_ctx("deneb", arrays, meta, static, ecols.inactivity_scores, just)
+    # the epoch's registry root and small top chunks: K3, one K2 list launch, no K1
+    assert dict(_ext.launches) == {"validator_leaves": 1, "merkle_lists": 1}
     _ext.reset_launches()
     st, acc = be.block_epoch_chain(params, n, st0, cols, static, root_ctx=ctx)
     assert _ext.launches["block_slot"] == 32
